@@ -1,0 +1,516 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch port on one CUDA card (an H100).
+
+    python3 chip_smoke.py
+
+Phases, each printing its lines; any failure exits non-zero:
+
+  1. device: the card's name and ``nvidia-smi`` name and power limit;
+  2. build: every CUDA kernel of ``src/repro_torch/kernels/csrc`` built with
+     nvcc from the checkout, with the build seconds and ptxas's register and
+     spill lines;
+  3. kernels: each kernel against its plain PyTorch version at the serving
+     path's shapes and at edge cases (tolerances below), then its device
+     time (calls captured in a CUDA graph, replayed between CUDA events)
+     beside its plain version, its bound on the card and one PyTorch
+     library call that computes the same function (a yardstick, never
+     called by the port); flash-decode's host cost per call besides;
+  4. slice: chatglm3-6b at full width (28 layers, d_model 4096, 32 query
+     heads over 2 KV heads, vocab 65,024; random weights from seed 0) served
+     by ``repro_torch.launch.serve.Server`` with ``attn_impl="pallas"``:
+     B=4, prompt 512, 32 generated tokens.  First the head (``Model.logits``,
+     a bf16 GEMM with f32 output) is held against the widened f32 product
+     and both are timed.  The launch counters are zeroed
+     just before that run and read just after it: flash-attention must have
+     launched once per layer (the prefill) and flash-decode once per layer
+     per decode step.  A short torch.profiler run of the same serve gives
+     the device's busy share.  Then the plain ``attn_impl="chunked"`` path,
+     teacher-forced on the generated tokens, must give the kernel path's
+     logits within the tolerances below, in bf16 and, with the same weights
+     kept in f32, in f32; and at a depth of 2 layers (full width) the plain
+     naive path must give the bf16 kernel path's logits within a tighter
+     limit.
+
+The last two lines are the kernels' JSON record and
+``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
+repository beside this file, it exits non-zero and prints no result.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM bytes/s, bf16 tensor-core
+# FLOP/s, f32 FLOP/s outside the tensor cores
+HBM_BPS = 3.35e12
+BF16_FLOPS = 989e12
+F32_FLOPS = 67e12
+
+# tolerances of a kernel against its plain version: f32 sums in another
+# order; bf16: the plain version rounds normalised P and its PV product to
+# bf16, the kernels round unnormalised P and keep f32 sums
+TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+LSE_ATOL = 1e-4
+# the full-width model's logits, kernel path against the plain chunked path,
+# as a fraction of the largest logit: in f32 only the order of sums differs;
+# in bf16 the two paths round at different places (the plain chunked path
+# keeps its accumulator in bf16, as the JAX code does) and 28 random layers
+# compound that, so the bf16 limit catches only gross errors (both bf16
+# paths sit ~6% from the f32 result).  The f32 check runs the CUDA-core
+# flash kernel; the tensor-core one that bf16 serving runs is held tightly
+# by the kernel checks (TOL) and, at model level, by the depth-2 check:
+# full width, 2 layers, against the plain naive path, which rounds P to
+# bf16 as the kernels do
+LOGITS_REL_TOL_F32 = 1e-3
+LOGITS_REL_TOL_BF16 = 0.1
+LOGITS_REL_TOL_BF16_DEPTH2 = 2e-2
+# the head on the card (one bf16 GEMM with f32 output) against widening both
+# operands to f32: the products are exact in f32, only the order of the
+# 4096-term f32 sums differs (5.5e-6 measured on an H100); relative to the
+# largest logit
+HEAD_REL_TOL = 5e-5
+
+
+def fail(msg: str) -> None:
+    print(f"FAIL: {msg}", flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def cuda_ms(torch, fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean time of ``fn()`` over ``iters`` back-to-back calls between CUDA
+    events: the larger of the device's time and the host's cost per call."""
+    for _ in range(warmup):
+        fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def graph_ms(torch, fn, iters: int = 20, reps: int = 5) -> float:
+    """Device time of one ``fn()``: ``iters`` calls captured in one CUDA
+    graph, replayed ``reps`` times between CUDA events, so the host's cost
+    of each call is left out.  A wrapper's launch counter moves once per
+    captured call, never on a replay."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream
+        for _ in range(3):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(iters):
+            fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * iters)
+
+
+def host_us(torch, fn, n: int = 200) -> float:
+    """Host cost of one ``fn()`` in us: ``n`` calls with no synchronisation
+    between them (the device finishes each before the next is issued)."""
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(n):
+        fn()
+    us = (time.perf_counter() - t) / n * 1e6
+    torch.cuda.synchronize()
+    return us
+
+
+def allclose(torch, got, want, tol: float) -> tuple[bool, float]:
+    g, w = got.float(), want.float()
+    err = (g - w).abs()
+    ok = bool((err <= tol + tol * w.abs()).all()) and bool(torch.isfinite(g).all())
+    return ok, float(err.max())
+
+
+def phase_device(torch) -> str:
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    ).stdout.strip()
+    print(f"[device] torch {torch.__version__} cuda {torch.version.cuda}; "
+          f"{name}; {torch.cuda.device_count()} device(s)")
+    print(f"[device] nvidia-smi: {smi}")
+    return smi
+
+
+def phase_build() -> None:
+    from repro_torch.kernels import _build
+
+    t0 = time.perf_counter()
+    libs = _build.build_all()
+    print(f"[build] {len(libs)} libraries in {_build.build_dir()} "
+          f"in {time.perf_counter() - t0:.3f} s")
+    for name, rec in _build.BUILD_LOG.items():
+        print(f"[build] {name}: nvcc {rec['seconds']:.3f} s")
+        lines = [l.strip() for l in rec["log"].splitlines()
+                 if "registers" in l or "spill" in l or "Compiling entry" in l]
+        for l in lines:
+            print(f"[build]   {l}")
+
+
+def phase_flash(torch, ref, flash_fwd):
+    """Check the flash kernel at the prefill shape and edge cases; time the
+    prefill shape.  Returns its JSON record (launches filled in later)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [  # B, S, H, KV, D, dtype, causal, q_offset, Sq
+        (4, 512, 32, 2, 128, torch.bfloat16, True, 0, 512),   # serving prefill
+        (4, 512, 32, 2, 128, torch.float32, False, 0, 512),
+        (1, 256, 2, 2, 64, torch.float32, True, 192, 64),
+        (2, 256, 8, 2, 64, torch.bfloat16, True, 0, 256),
+        (1, 256, 2, 2, 128, torch.bfloat16, True, 192, 64),
+    ]
+    main_err = None
+    for B, S, H, KV, D, dt, causal, q_off, Sq in cases:
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(dt)
+        o, lse = flash_fwd(q, k, v, causal=causal, q_offset=q_off)
+        o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_off,
+                                                 return_lse=True)
+        torch.cuda.synchronize()
+        tol = TOL[str(dt).split(".")[-1]]
+        ok_o, err_o = allclose(torch, o, o_ref, tol)
+        err_l = float((lse - lse_ref).abs().max())
+        print(f"[flash] B={B} Sq={Sq} Sk={S} H={H} KV={KV} D={D} {dt} causal={causal} "
+              f"q_offset={q_off}: o max_abs_err {err_o:.3e} (tol {tol}), "
+              f"lse max_abs_err {err_l:.3e} (tol {LSE_ATOL})")
+        check(ok_o, "flash-attention output disagrees with its plain version")
+        check(err_l <= LSE_ATOL, "flash-attention lse disagrees with its plain version")
+        if main_err is None:
+            main_err = err_o
+
+    B, S, H, KV, D = 4, 512, 32, 2, 128
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    ms = graph_ms(torch, lambda: flash_fwd(q, k, v, causal=True))
+    plain_ms = graph_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=True), iters=5)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    lib_ms = graph_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S
+    pairs = S * (S + 1) // 2  # causal (query, key) pairs per head
+    flops = 4 * B * H * D * pairs
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    rec = {
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:62",
+        "launches": None, "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+    }
+    print(f"[flash] prefill shape B={B} S={S} H={H} KV={KV} D={D} bf16 causal: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device times, CUDA "
+          f"graph); bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']} ({nbytes} B, "
+          f"{flops} FLOP)")
+    return rec
+
+
+def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
+    """Check flash-decode at the decode shape for every cache dtype and
+    several lengths; time it at ``kv_len_main``."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    B, S, H, KV, D = 4, 1024, 32, 2, 128
+    main_err = 0.0
+    for kv_dt in (torch.bfloat16, torch.float32, torch.float8_e4m3fn):
+        q_dt = torch.float32 if kv_dt == torch.float32 else torch.bfloat16
+        q = torch.randn((B, H, D), generator=gen, device=dev).to(q_dt)
+        k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(kv_dt)
+        v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(kv_dt)
+        for kv_len in (1, 7, 513, 1024):
+            got = decode_fwd(q, k, v, kv_len)
+            want = ref.decode_attention_ref(q, k, v, kv_len)
+            torch.cuda.synchronize()
+            tol = TOL[str(q_dt).split(".")[-1]]
+            ok, err = allclose(torch, got, want, tol)
+            print(f"[decode] B={B} S={S} H={H} KV={KV} D={D} q {q_dt} cache {kv_dt} "
+                  f"kv_len={kv_len}: max_abs_err {err:.3e} (tol {tol})")
+            check(ok, "flash-decode disagrees with its plain version")
+            if kv_dt == torch.bfloat16:
+                main_err = max(main_err, err)
+
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    L = kv_len_main
+    ms = graph_ms(torch, lambda: decode_fwd(q, k, v, L), iters=50)
+    plain_ms = graph_ms(torch, lambda: ref.decode_attention_ref(q, k, v, L))
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4 = q[:, :, None]
+    kt, vt = k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
+    lib_ms = graph_ms(torch, lambda: sdpa(q4, kt, vt, enable_gqa=True), iters=50)
+    # what the serving loop pays per call on the host, beside the device time
+    wrap_us = host_us(torch, lambda: decode_fwd(q, k, v, L))
+    loop_ms = cuda_ms(torch, lambda: decode_fwd(q, k, v, L), iters=200, warmup=20)
+    nbytes = 2 * (2 * q.numel() + 2 * B * L * KV * D)
+    flops = 4 * B * H * L * D
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    rec = {
+        "name": "decode_attention_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
+        "replaces": "src/repro/kernels/decode_attention.py:59",
+        "launches": None, "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": lib_ms,
+    }
+    print(f"[decode] decode shape B={B} S={S} kv_len={L} H={H} KV={KV} D={D} bf16: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device times, CUDA "
+          f"graph); bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']} ({nbytes} B, "
+          f"{flops} FLOP)")
+    print(f"[decode] wrapper on the host: {wrap_us:.2f} us per call; back-to-back calls "
+          f"between CUDA events {loop_ms:.4f} ms per call")
+    return rec
+
+
+def teacher_forced(torch, cfg, params, batch, tokens, max_len: int, plain: str = "chunked"):
+    """Logits [B, T, vocab] of the kernel path (``attn_impl="pallas"``) and
+    the plain path (``plain``), each fed the prompt and then
+    ``tokens[:, :-1]`` one decode step at a time."""
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import make_decode_step, make_prefill_step
+
+    prompt = batch["inputs"].shape[1]
+    out = {}
+    for impl in ("pallas", plain):
+        c = cfg.replace(attn_impl=impl)
+        _, prefill_fn = make_prefill_step(c, "cuda")
+        _, decode_fn = make_decode_step(c, "cuda")
+        logits, cache = prefill_fn(params, batch)
+        cache = Server(c, "cuda", max_len)._pad_cache(cache)
+        steps = [logits]
+        for i in range(tokens.shape[1] - 1):
+            logits, cache = decode_fn(params, cache, tokens[:, i : i + 1], prompt + i)
+            steps.append(logits)
+        out[impl] = torch.cat(steps, dim=1)
+        del cache
+    return out["pallas"], out[plain]
+
+
+def rel_err(torch, got, want) -> tuple[float, float]:
+    """(max |got - want| / max |want|, rms(got - want) / rms(want))."""
+    d = (got - want).float()
+    return (float(d.abs().max() / want.abs().max()),
+            float(d.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt()))
+
+
+def check_paths(torch, label, cfg, kern, plain, tol, plain_impl="chunked") -> None:
+    B, T = kern.shape[:2]
+    check(tuple(kern.shape) == (B, T, cfg.vocab_size), f"logits {tuple(kern.shape)}")
+    check(bool(torch.isfinite(kern).all()), f"{label}: non-finite logits on the kernel path")
+    rel, rms = rel_err(torch, kern, plain)
+    agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
+    print(f"[slice] {label}: kernel path vs plain {plain_impl} path, prefill + {T - 1} steps "
+          f"teacher-forced: max |logit diff| / max |logit| {rel:.4e} (tol {tol}), "
+          f"relative rms {rms:.4e}, top-1 agreement {agree:.4f}")
+    check(rel <= tol, f"{label}: kernel path logits disagree with the plain path")
+
+
+def check_head(torch, model, params, B: int) -> None:
+    """``Model.logits`` on the card against widening both operands to f32,
+    at the serving loop's shape [B, 1, d_model]; both timed on the device."""
+    cfg = model.cfg
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    h = torch.randn((B, 1, cfg.d_model), generator=gen, device="cuda").to(torch.bfloat16)
+    w = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+
+    def widened():
+        return h.float() @ w.float()
+
+    got, want = model.logits(params, h), widened()
+    rel, _ = rel_err(torch, got, want)
+    gemm_ms = graph_ms(torch, lambda: model.logits(params, h))
+    wide_ms = graph_ms(torch, widened)
+    print(f"[slice] head {tuple(w.shape)} {w.dtype} at B={B}: bf16 GEMM with f32 output "
+          f"{gemm_ms:.4f} ms, widened to f32 {wide_ms:.4f} ms (device times, CUDA graph); "
+          f"max |diff| / max |logit| {rel:.4e} (tol {HEAD_REL_TOL})")
+    check(got.dtype == torch.float32, f"logits dtype {got.dtype}")
+    check(rel <= HEAD_REL_TOL, "the head's bf16 GEMM disagrees with the widened f32 product")
+
+
+def profile_generate(torch, server, params, batch, steps: int) -> None:
+    """Device busy share over ``server.generate`` of ``steps`` tokens: the
+    CUDA kernel times torch.profiler records against the host clock (the
+    profiler's own overhead lengthens the wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        server.generate(params, batch, steps)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t) * 1e6
+    rows = []
+    for ev in prof.key_averages():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = ev.self_cuda_time_total
+        rows.append((dev_us, ev.count, ev.key))
+    busy_us = sum(r[0] for r in rows)
+    if busy_us == 0:
+        print("[profile] device time: not measured (the profiler recorded no CUDA kernel)")
+        return
+    print(f"[profile] generate({steps} tokens) under torch.profiler: wall {wall_us / 1e3:.3f} ms, "
+          f"CUDA kernels {busy_us / 1e3:.3f} ms, busy share {busy_us / wall_us:.4f}")
+    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
+        print(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} x  {key[:100]}")
+
+
+def phase_slice(torch, flash_fwd, decode_fwd, B: int, prompt: int, gen_tokens: int,
+                max_len: int) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+
+    dev = torch.device("cuda")
+    cfg = get_config("chatglm3_6b").replace(attn_impl="pallas")
+    server = Server(cfg, device="cuda", max_len=max_len)
+    model = server.model
+    t0 = time.perf_counter()
+    params = model.compute_params(model.init_params(seed=0))  # bf16 weights, f32 dropped
+    torch.cuda.synchronize()
+    print(f"[slice] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}, vocab {cfg.vocab_size}, "
+          f"{cfg.param_count()} params; f32 init and {cfg.compute_dtype} cast in "
+          f"{time.perf_counter() - t0:.3f} s")
+    batch = concrete_batch(cfg, B, prompt, device=dev)
+    batch.pop("targets")
+    check_head(torch, model, params, B)
+
+    def timed_generate(steps: int):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = server.generate(params, batch, steps)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    timed_generate(4)  # warm-up: cuBLAS handles, allocator
+    prefill_s = sorted(timed_generate(1)[1] for _ in range(3))[1]
+
+    torch.cuda.reset_peak_memory_stats()
+    flash_fwd.launches = 0
+    decode_fwd.launches = 0
+    tokens, total_s = timed_generate(gen_tokens)
+    n_flash, n_decode = flash_fwd.launches, decode_fwd.launches
+    peak = torch.cuda.max_memory_allocated()
+    # the decode loop is bound by the host, whose time varies from run to
+    # run: two more runs, and the median of the three
+    totals = sorted([total_s] + [timed_generate(gen_tokens)[1] for _ in range(2)])
+    total_s = totals[1]
+
+    decode_steps = gen_tokens - 1
+    decode_ms = (total_s - prefill_s) / decode_steps * 1e3
+    print(f"[slice] B={B} prompt={prompt} generated={gen_tokens} max_len={max_len} "
+          f"{cfg.compute_dtype}: prefill {prefill_s * 1e3:.3f} ms (median of 3), decode "
+          f"{decode_ms:.3f} ms/token step, {B * gen_tokens / total_s:.1f} tokens/s end to "
+          f"end ({total_s:.3f} s, median of {', '.join(f'{t:.3f}' for t in totals)} s), "
+          f"peak memory {peak} B")
+    print(f"[slice] launches in that run: flash_attention_fwd {n_flash} "
+          f"(want {cfg.n_layers}), decode_attention_fwd {n_decode} "
+          f"(want {cfg.n_layers * decode_steps})")
+    check(tuple(tokens.shape) == (B, gen_tokens), f"tokens shape {tuple(tokens.shape)}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token out of range")
+    check(n_flash == cfg.n_layers, "the prefill did not run flash-attention once per layer")
+    check(n_decode == cfg.n_layers * decode_steps,
+          "the decode did not run flash-decode once per layer per step")
+    profile_generate(torch, server, params, batch, steps=8)
+
+    # the plain path, teacher-forced on the kernel path's tokens, in bf16
+    # and (same weights from the same seed, not cast) in f32
+    kern16, plain16 = teacher_forced(torch, cfg, params, batch, tokens, max_len)
+    check(torch.equal(kern16.argmax(-1), tokens), "replayed kernel path disagrees with generate")
+    check_paths(torch, "bf16 compute", cfg, kern16, plain16, LOGITS_REL_TOL_BF16)
+    del params
+    cfg2 = cfg.replace(n_layers=2)
+    model2 = Server(cfg2, device="cuda", max_len=max_len).model
+    kern2, plain2 = teacher_forced(torch, cfg2, model2.compute_params(model2.init_params(seed=0)),
+                                   batch, tokens, max_len, plain="naive")
+    check_paths(torch, "bf16 compute, depth 2", cfg2, kern2, plain2,
+                LOGITS_REL_TOL_BF16_DEPTH2, plain_impl="naive")
+    cfg32 = cfg.replace(compute_dtype="float32")
+    kern32, plain32 = teacher_forced(torch, cfg32, model.init_params(seed=0), batch, tokens,
+                                     max_len)
+    check_paths(torch, "f32 compute", cfg32, kern32, plain32, LOGITS_REL_TOL_F32)
+    for label, got in (("kernel", kern16), ("plain chunked", plain16)):
+        rel, rms = rel_err(torch, got, kern32)
+        print(f"[slice] bf16 {label} path vs the f32 kernel path: max |logit diff| / max "
+              f"|logit| {rel:.4e}, relative rms {rms:.4e}")
+    return {"flash_attention_fwd": n_flash, "decode_attention_fwd": n_decode}
+
+
+def main() -> int:
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
+        return 2
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    smi = phase_device(torch)
+    phase_build()
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+    B, prompt, gen_tokens, max_len = 4, 512, 32, 1024
+    recs = [
+        phase_flash(torch, ref, flash_attention_fwd),
+        phase_decode(torch, ref, decode_attention_fwd, kv_len_main=prompt + gen_tokens // 2),
+    ]
+    launches = phase_slice(torch, flash_attention_fwd, decode_attention_fwd,
+                           B, prompt, gen_tokens, max_len)
+    for r in recs:
+        r["launches"] = launches[r["name"]]
+    print(f"[done] {time.perf_counter() - t_start:.1f} s")
+    print(smi)
+    print(json.dumps({"kernels": recs}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,90 @@
+"""flash_attention — the CUDA flash-attention forward (``csrc/
+flash_attention.cu``), counterpart of ``repro.kernels.flash_attention``.
+
+``flash_attention_fwd`` launches the kernel on CUDA tensors in the model
+layouts and counts its launches in ``flash_attention_fwd.launches``.  The
+plain version is ``ref.flash_attention_ref``; ``ops.flash_attention``
+chooses between the two by the tensors' device.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build
+
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_HEAD_DIMS = (64, 128)
+
+
+def _lib():
+    lib = _build.load("flash_attention")
+    fn = lib.flash_attention_fwd
+    if fn.argtypes is None:
+        fn.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+            + [ctypes.c_int64] * 12 + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+        )
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v):
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError("flash_attention_fwd takes CUDA tensors")
+    if not (q.device == k.device == v.device):
+        raise ValueError("q, k and v must lie on one device")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q, k, v must share one of {list(_DTYPES)}; got "
+                        f"{q.dtype}, {k.dtype}, {v.dtype}")
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("q [B, Sq, H, D]; k, v [B, Sk, KV, D]")
+    B, Sq, H, D = q.shape
+    if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
+        raise ValueError(f"shapes q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
+    if Sq == 0 or k.shape[1] == 0:
+        raise ValueError("empty query or key sequence")
+    if D not in _HEAD_DIMS:
+        raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
+    if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
+        raise ValueError("the head dim of q, k and v must be contiguous")
+    if q.dtype == torch.bfloat16 and not all(
+        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)
+    ):
+        raise ValueError("bf16 q, k and v rows must start on 16-byte boundaries "
+                         "(the tensor-core kernel loads them 16 bytes at a time)")
+
+
+def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
+    """q [B, Sq, H, D]; k, v [B, Sk, KV, D] (CUDA, f32 or bf16, any strides
+    with a contiguous last dim; bf16 rows 16-byte aligned) -> (o [B, Sq, H,
+    D] in q's dtype, lse [B*H, Sq] f32).  bf16 runs on the tensor cores,
+    f32 on the CUDA cores."""
+    _check(q, k, v)
+    if q_offset < 0:
+        raise ValueError(f"q_offset {q_offset} < 0")
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    o = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B * H, Sq), dtype=torch.float32, device=q.device)
+    fn = _lib()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        err = fn(
+            _DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+            lse.data_ptr(), B, H, KV, Sq, Sk, D,
+            q.stride(0), q.stride(1), q.stride(2),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            o.stride(0), o.stride(1), o.stride(2),
+            int(causal), int(q_offset), 1.0 / (D**0.5), stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"flash_attention_fwd launch failed: cudaError_t {err}")
+    flash_attention_fwd.launches += 1
+    return o, lse
+
+
+flash_attention_fwd.launches = 0

@@ -1,0 +1,62 @@
+"""Plain PyTorch versions of the attention kernels: the ground truth each
+CUDA kernel is held against on the card, and what the kernel wrappers run
+for tensors on the CPU.  Counterpart of ``repro.kernels.ref`` (the two
+attention oracles), with the same layouts and the same rounding points."""
+
+from __future__ import annotations
+
+import torch
+
+NEG_INF = -1e30
+_FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
+
+
+def _promote(a: torch.dtype, b: torch.dtype) -> torch.dtype:
+    """JAX's promotion for the mixes the models make: an fp8 operand takes
+    the other's type, otherwise the usual float promotion."""
+    if a in _FP8:
+        return b
+    if b in _FP8:
+        return a
+    return torch.promote_types(a, b)
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
+                        return_lse: bool = False):
+    """q [B, Sq, H, D]; k, v [B, Sk, KV, D] -> [B, Sq, H, D] in q's dtype
+    (and the f32 log-sum-exp [B*H, Sq] of the masked, scaled scores when
+    ``return_lse``)."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q5 = q.reshape(B, Sq, KV, G, D)
+    # operands rounded to their own dtype, products and sums in f32
+    # (JAX's preferred_element_type=f32)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q5.float(), k.float()) / (D**0.5)
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    vt = v.to(_promote(q.dtype, v.dtype))
+    o = torch.einsum("bkgqs,bskd->bqkgd", p.to(vt.dtype), vt).reshape(B, Sq, H, D)
+    if not return_lse:
+        return o
+    lse = torch.logsumexp(s, dim=-1)  # [B, KV, G, Sq]
+    return o, lse.reshape(B * H, Sq)
+
+
+def decode_attention_ref(q, k, v, kv_len: int):
+    """q [B, H, D]; k, v [B, S, KV, D]; kv_len scalar -> [B, H, D]: one query
+    row per head against the first ``kv_len`` cache slots."""
+    B, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    q5 = q.reshape(B, KV, G, D)
+    s = torch.einsum("bkgd,bskd->bkgs", q5.float(), k.float()) / (D**0.5)
+    mask = torch.arange(S, device=q.device)[None, None, None, :] < kv_len
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    vt = v.to(_promote(q.dtype, v.dtype))
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(vt.dtype), vt)
+    return o.reshape(B, H, D)

@@ -1,0 +1,244 @@
+"""Model facade for the dense family: parameter template, init, prefill and
+decode.  Counterpart of ``repro.models.model``.
+
+The parameter template (``build_template``) is the single source of truth
+for parameter shapes and initializers; its dotted paths and stacked
+``[L, ...]`` shapes are exactly the JAX package's.  The other families
+(moe, ssm, hybrid, encdec) raise ``NotImplementedError`` naming the ROADMAP
+item that ports them.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.configs.base import ModelConfig
+
+from .common import (
+    ParamSpec,
+    abstract_from_template,
+    init_from_template,
+    param_count,
+    tree_map,
+)
+from .layers import apply_norm
+from .transformer import cfg_dtype, decode_stack, forward_stack, torch_dtype
+
+_NOT_PORTED = "ROADMAP.md, section 1, item 5 (other families)"
+
+# ---------------------------------------------------------------------------
+# Parameter templates
+# ---------------------------------------------------------------------------
+
+
+def _stack(tmpl: dict, n: int) -> dict:
+    """Add a leading stacked-layers dim to every ParamSpec."""
+    return tree_map(
+        lambda s: ParamSpec((n,) + s.shape, ("layers",) + s.axes, s.init, s.scale), tmpl
+    )
+
+
+def _attn_tmpl(cfg: ModelConfig) -> dict:
+    d, qd, kvd, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.head_dim
+    t = {
+        "wq": ParamSpec((d, qd), ("embed", "heads")),
+        "wk": ParamSpec((d, kvd), ("embed", "kv_heads")),
+        "wv": ParamSpec((d, kvd), ("embed", "kv_heads")),
+        "wo": ParamSpec((qd, d), ("heads", "embed")),
+    }
+    if cfg.qkv_bias:
+        t["bq"] = ParamSpec((qd,), ("heads",), init="zeros")
+        t["bk"] = ParamSpec((kvd,), ("kv_heads",), init="zeros")
+        t["bv"] = ParamSpec((kvd,), ("kv_heads",), init="zeros")
+    if cfg.attn_out_bias:
+        t["bo"] = ParamSpec((d,), ("embed",), init="zeros")
+    if cfg.qk_norm:
+        t["q_norm"] = ParamSpec((hd,), (None,), init="ones")
+        t["k_norm"] = ParamSpec((hd,), (None,), init="ones")
+    return t
+
+
+def _norm_tmpl(cfg: ModelConfig, name: str) -> dict:
+    t = {name: ParamSpec((cfg.d_model,), ("embed",), init="ones")}
+    if cfg.norm == "layernorm":
+        t[f"{name}_b"] = ParamSpec((cfg.d_model,), ("embed",), init="zeros")
+    return t
+
+
+def _mlp_tmpl(cfg: ModelConfig) -> dict:
+    d, f = cfg.d_model, cfg.d_ff
+    if cfg.mlp in ("swiglu", "geglu"):
+        t = {
+            "wi_gate": ParamSpec((d, f), ("embed", "ff")),
+            "wi_up": ParamSpec((d, f), ("embed", "ff")),
+            "wo": ParamSpec((f, d), ("ff", "embed")),
+        }
+    else:  # gelu / relu2
+        t = {
+            "wi": ParamSpec((d, f), ("embed", "ff")),
+            "wo": ParamSpec((f, d), ("ff", "embed")),
+        }
+        if cfg.mlp_bias:
+            t["bi"] = ParamSpec((f,), ("ff",), init="zeros")
+    if cfg.mlp_bias:
+        t["bo"] = ParamSpec((d,), ("embed",), init="zeros")
+    return t
+
+
+def _layer_tmpl(cfg: ModelConfig) -> dict:
+    t = {}
+    t.update(_norm_tmpl(cfg, "ln1"))
+    t.update(_norm_tmpl(cfg, "ln2"))
+    t["attn"] = _attn_tmpl(cfg)
+    t["mlp"] = _mlp_tmpl(cfg)
+    return t
+
+
+def padded_vocab(cfg: ModelConfig) -> int:
+    """Vocab rows padded to a multiple of 256 (as in the JAX package, whose
+    embedding and head shard evenly on any model axis up to 256)."""
+    return -(-cfg.vocab_size // 256) * 256
+
+
+def build_template(cfg: ModelConfig) -> dict:
+    if cfg.family != "dense":
+        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {_NOT_PORTED}")
+    V, d = padded_vocab(cfg), cfg.d_model
+    base = {"embed": ParamSpec((V, d), ("vocab", "embed"), scale=0.01)}
+    if not cfg.tie_embeddings:
+        base["lm_head"] = ParamSpec((d, V), ("embed", "vocab"), scale=0.01)
+    base.update(_norm_tmpl(cfg, "final_norm"))
+    base["layers"] = _stack(_layer_tmpl(cfg), cfg.n_layers)
+    return base
+
+
+def count_params_config(cfg: ModelConfig) -> int:
+    return param_count(build_template(cfg))
+
+
+# parameters read through a norm (upcast to f32) rather than cast to the
+# compute dtype; ``Model.compute_params`` leaves them as they are
+_NORM_LEAVES = ("ln1", "ln1_b", "ln2", "ln2_b", "final_norm", "final_norm_b",
+                "q_norm", "k_norm")
+
+
+# ---------------------------------------------------------------------------
+# Model facade
+# ---------------------------------------------------------------------------
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.template = build_template(cfg)
+
+    # -- params -------------------------------------------------------------
+
+    def init_params(self, seed: int = 0) -> dict:
+        """Random parameters from a seeded generator on the model's device
+        (``normal * scale``, zeros, ones as the template says)."""
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        return init_from_template(
+            self.template, gen, torch_dtype(self.cfg.param_dtype), self.device
+        )
+
+    def abstract_params(self) -> dict:
+        """The parameter tree on the ``meta`` device: no allocation."""
+        return abstract_from_template(self.template, torch_dtype(self.cfg.param_dtype))
+
+    def compute_params(self, params: dict) -> dict:
+        """``params`` with every leaf that the model casts to the compute
+        dtype on use (matmul weights, biases, embedding, head) cast once;
+        norm parameters stay as they are.  The values seen by the model are
+        identical, so serving from the result gives the same outputs."""
+        dt = cfg_dtype(self.cfg)
+
+        def walk(tree):
+            return {
+                k: walk(v) if isinstance(v, dict)
+                else (v if k in _NORM_LEAVES else v.to(dt))
+                for k, v in tree.items()
+            }
+
+        return walk(params)
+
+    # -- embedding / head ----------------------------------------------------
+
+    def embed(self, params, tokens):
+        return params["embed"][tokens].to(cfg_dtype(self.cfg))
+
+    def logits(self, params, h):
+        """bf16-rounded operands, f32 products and sums (the JAX code's
+        ``preferred_element_type=f32``): f32 logits.
+
+        On the card this is one GEMM on the head as it is stored, with f32
+        accumulation and an f32 output: products of bf16 values are exact in
+        f32, so only the order of the sums differs from widening both
+        operands, and no f32 copy of the head (1 GB at chatglm3-6b width) is
+        made.  The CPU has no such GEMM, so there both operands are widened."""
+        cfg = self.cfg
+        dt = cfg_dtype(cfg)
+        w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(dt)
+        h = h.to(dt)
+        if h.is_cuda and dt != torch.float32:
+            out = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
+            return out.reshape(*h.shape[:-1], w.shape[-1])
+        return h.float() @ w.float()
+
+    def _final_norm(self, params, h):
+        return apply_norm(self.cfg.norm, h, params["final_norm"], params.get("final_norm_b"))
+
+    # -- full-sequence forward -------------------------------------------------
+
+    def hidden_states(self, params, batch, collect_cache=False):
+        cfg = self.cfg
+        if cfg.embeds_input and "embeds" in batch:
+            raise NotImplementedError(f"embeds_input is not ported yet: {_NOT_PORTED}")
+        x = self.embed(params, batch["inputs"])
+        B, S = batch["inputs"].shape
+        positions = batch.get("positions")
+        if positions is None:
+            positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+        h, extras = forward_stack(params, cfg, x, positions, collect_cache=collect_cache)
+        return self._final_norm(params, h), extras
+
+    # -- serving -------------------------------------------------------------------
+
+    def prefill(self, params, batch):
+        """Full forward; returns (last-token logits [B, 1, vocab], decode
+        cache)."""
+        cfg = self.cfg
+        h, extras = self.hidden_states(params, batch, collect_cache=True)
+        logits = self.logits(params, h[:, -1:, :])[..., : cfg.vocab_size]
+        return logits, self._assemble_cache(extras)
+
+    def _assemble_cache(self, extras):
+        k, v = extras
+        kvdt = self.kv_dtype()
+        return {"k": k.to(kvdt), "v": v.to(kvdt)}
+
+    def decode_step(self, params, cache, tokens, pos: int):
+        """One decode step. tokens [B, 1] int; ``pos``: the position of the
+        new token.  Writes the new k/v into ``cache`` in place and returns
+        (logits [B, 1, vocab], cache)."""
+        x = self.embed(params, tokens)
+        h, cache = decode_stack(params, self.cfg, x, cache, pos)
+        h = self._final_norm(params, h)
+        return self.logits(params, h)[..., : self.cfg.vocab_size], cache
+
+    # -- cache templates -------------------------------------------------------
+
+    def kv_dtype(self) -> torch.dtype:
+        cfg = self.cfg
+        return torch_dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
+
+    def abstract_cache(self, batch_size: int, seq_len: int) -> dict:
+        """The decode cache on the ``meta`` device: no allocation."""
+        cfg = self.cfg
+        shp = (cfg.n_layers, batch_size, seq_len, cfg.n_kv_heads, cfg.head_dim)
+        kvdt = self.kv_dtype()
+        return {"k": torch.empty(shp, dtype=kvdt, device="meta"),
+                "v": torch.empty(shp, dtype=kvdt, device="meta")}

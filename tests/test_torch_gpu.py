@@ -1,0 +1,147 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Run on a machine with an H100:  PYTHONPATH=src python -m pytest -m gpu tests/test_torch_gpu.py
+Without a CUDA device every test skips (the fixture decides, at run time).
+
+Tolerances: f32 1e-5 (rtol and atol; the kernels sum in another order than
+the plain version), bf16 2e-2 (the plain version rounds the normalised P to
+bf16 and its PV product to bf16, the kernels round the unnormalised P and
+keep f32 sums), the f32 log-sum-exp 1e-4 absolute (sums of up to 1024
+exponentials in another order).
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.kernels import ops, ref
+from repro_torch.kernels.decode_attention import decode_attention_fwd
+from repro_torch.kernels.flash_attention import flash_attention_fwd
+
+pytestmark = pytest.mark.gpu
+
+TOL = {torch.float32: dict(rtol=1e-5, atol=1e-5), torch.bfloat16: dict(rtol=2e-2, atol=2e-2)}
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (an H100); run with -m gpu on the card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen, dtype=torch.float32, device=device).to(dtype)
+
+
+def _close(got, want, **tol):
+    np.testing.assert_allclose(got.float().cpu().numpy(), want.float().cpu().numpy(), **tol)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,dtype,causal,q_offset", [
+    (4, 512, 512, 32, 2, 128, torch.bfloat16, True, 0),   # chatglm3-6b prefill
+    (2, 256, 256, 8, 2, 128, torch.float32, True, 0),
+    (2, 128, 256, 4, 2, 64, torch.float32, False, 0),
+    (1, 64, 256, 2, 2, 64, torch.float32, True, 192),
+    (2, 256, 256, 8, 1, 64, torch.bfloat16, True, 0),
+    (1, 100, 100, 4, 2, 64, torch.float32, True, 0),       # ragged edges
+    (2, 128, 256, 4, 2, 64, torch.bfloat16, False, 0),
+    (1, 64, 256, 2, 2, 128, torch.bfloat16, True, 192),
+    (1, 100, 100, 4, 2, 128, torch.bfloat16, True, 0),     # ragged edges
+])
+def test_flash_attention_kernel_matches_ref(cuda, B, Sq, Sk, H, KV, D, dtype, causal, q_offset):
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = _randn(gen, (B, Sq, H, D), dtype, cuda)
+    k = _randn(gen, (B, Sk, KV, D), dtype, cuda)
+    v = _randn(gen, (B, Sk, KV, D), dtype, cuda)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    _close(o, o_ref, **TOL[dtype])
+    _close(lse, lse_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float32, torch.float8_e4m3fn])
+@pytest.mark.parametrize("kv_len", [1, 7, 513, 1024])
+def test_decode_attention_kernel_matches_ref(cuda, kv_dtype, kv_len):
+    B, S, H, KV, D = 4, 1024, 32, 2, 128  # chatglm3-6b decode
+    q_dtype = torch.float32 if kv_dtype == torch.float32 else torch.bfloat16
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = _randn(gen, (B, H, D), q_dtype, cuda)
+    k = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    v = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    got = decode_attention_fwd(q, k, v, kv_len)
+    want = ref.decode_attention_ref(q, k, v, kv_len)
+    torch.cuda.synchronize()
+    assert got.dtype == q_dtype
+    _close(got, want, **TOL[q_dtype])
+
+
+@pytest.mark.parametrize("B,S,H,KV,D,kv_len", [
+    (2, 640, 8, 2, 64, 600),   # S not a multiple of 512
+    (1, 256, 4, 4, 128, 200),  # MHA (G = 1)
+])
+def test_decode_attention_kernel_other_shapes(cuda, B, S, H, KV, D, kv_len):
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = _randn(gen, (B, H, D), torch.float32, cuda)
+    k = _randn(gen, (B, S, KV, D), torch.float32, cuda)
+    v = _randn(gen, (B, S, KV, D), torch.float32, cuda)
+    _close(decode_attention_fwd(q, k, v, kv_len), ref.decode_attention_ref(q, k, v, kv_len),
+           **TOL[torch.float32])
+
+
+def test_decode_reads_the_cache_in_place(cuda):
+    """The per-layer slice of a stacked cache goes in as a strided view;
+    rows past kv_len are never read (NaN there changes nothing)."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    cache = _randn(gen, (3, 2, 256, 2, 64), torch.bfloat16, cuda)
+    cache[:, :, 100:] = float("nan")
+    q = _randn(gen, (2, 8, 64), torch.bfloat16, cuda)
+    got = decode_attention_fwd(q, cache[1], cache[2], 100)
+    want = ref.decode_attention_ref(q, cache[1][:, :100], cache[2][:, :100], 100)
+    assert torch.isfinite(got).all()
+    _close(got, want, **TOL[torch.bfloat16])
+
+
+def test_ops_launch_the_kernels_on_cuda(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(4)
+    q = _randn(gen, (1, 128, 4, 64), torch.bfloat16, cuda)
+    k = _randn(gen, (1, 128, 2, 64), torch.bfloat16, cuda)
+    f0, d0 = flash_attention_fwd.launches, decode_attention_fwd.launches
+    ops.flash_attention(q, k, k, causal=True)
+    ops.decode_attention(q[:, 0], k, k, 50)
+    assert flash_attention_fwd.launches == f0 + 1
+    assert decode_attention_fwd.launches == d0 + 1
+
+
+def test_logits_bf16_gemm_matches_widened_product(cuda):
+    """On the card the head is one bf16 GEMM with an f32 output: the same
+    products as widening both operands to f32, summed in another order."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+
+    cfg = get_smoke_config("chatglm3_6b")
+    model = Model(cfg, device="cuda")
+    params = model.compute_params(model.init_params(seed=0))
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    h = _randn(gen, (3, 2, cfg.d_model), torch.bfloat16, cuda)
+    got = model.logits(params, h)
+    assert got.dtype == torch.float32 and got.shape == (3, 2, params["lm_head"].shape[1])
+    _close(got, h.float() @ params["lm_head"].float(), **TOL[torch.float32])
+
+
+def test_kernels_refuse_what_they_cannot_take(cuda):
+    q = torch.zeros((1, 128, 4, 96), dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention_fwd(q, q[:, :, :2], q[:, :, :2])
+    odd = torch.zeros((1, 128, 4, 68), dtype=torch.bfloat16, device=cuda)[..., :64]
+    with pytest.raises(ValueError):  # rows not 16-byte aligned
+        flash_attention_fwd(odd, odd[:, :, :2], odd[:, :, :2])
+    q16 = torch.zeros((1, 4, 64), dtype=torch.float16, device=cuda)
+    k16 = torch.zeros((1, 128, 2, 64), dtype=torch.float16, device=cuda)
+    with pytest.raises(TypeError):
+        decode_attention_fwd(q16, k16, k16, 10)

@@ -1,0 +1,105 @@
+"""The port's server, entry points and weight conversion on the CPU."""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import ml_dtypes
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import get_smoke_config as jget_smoke
+from repro.launch.serve import Server as JServer
+from repro_torch.configs import get_smoke_config
+from repro_torch.convert import from_numpy_tree, to_tensor
+from repro_torch.launch.serve import Server, main
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+
+
+def test_generate_matches_jax_tokens():
+    """Greedy tokens of the port's Server equal JAX's on the chatglm3 smoke
+    config at f32 compute, kernel branch (plain versions on the CPU)."""
+    jcfg = jget_smoke("chatglm3_6b").replace(compute_dtype="float32", attn_impl="pallas")
+    cfg = get_smoke_config("chatglm3_6b").replace(compute_dtype="float32", attn_impl="pallas")
+    jserver = JServer(jcfg, max_len=512)
+    jparams = jserver.model.init_params(jax.random.PRNGKey(0))
+    inputs = np.random.RandomState(0).randint(0, cfg.vocab_size, (2, 128))
+    want = np.asarray(jserver.generate(jparams, {"inputs": jnp.asarray(inputs, jnp.int32)}, 8))
+
+    server = Server(cfg, device="cpu", max_len=512)
+    params = from_numpy_tree(jax.tree.map(np.asarray, jparams))
+    got = server.generate(params, {"inputs": torch.from_numpy(inputs)}, 8)
+    assert got.shape == (2, 8)
+    np.testing.assert_array_equal(got.numpy(), want)
+    # serving from compute-dtype params gives the same tokens
+    cast = server.generate(server.model.compute_params(params),
+                           {"inputs": torch.from_numpy(inputs)}, 8)
+    torch.testing.assert_close(cast, got)
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    """No silent drop to the CPU: without a CUDA device the default
+    device="cuda" raises, in the Server, the Model and the CLI."""
+    from repro_torch.models.model import Model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("chatglm3_6b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Server(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        main(["--arch", "chatglm3_6b", "--smoke"])
+
+
+def test_serve_cli_on_cpu(capsys):
+    main(["--arch", "qwen1_5_4b", "--smoke", "--device", "cpu", "--batch", "2",
+          "--prompt-len", "128", "--gen", "4", "--attn-impl", "pallas"])
+    out = capsys.readouterr().out
+    assert "generated (2, 4) tokens" in out and "on cpu" in out
+
+
+def test_port_imports_no_jax_and_nothing_of_repro():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import repro_torch
+        names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
+        for n in names:
+            importlib.import_module(n)
+        assert len(names) >= 15, names
+        bad = sorted(m for m in sys.modules
+                     if m == "jax" or m.startswith("jax.") or m == "repro"
+                     or m.startswith("repro."))
+        assert not bad, bad
+        print("OK", len(names))
+    """)
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                       env=env, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("OK")
+
+
+def test_convert_is_bit_exact_for_bf16_and_fp8():
+    """Every bf16 and every fp8 e4m3 bit pattern (NaNs, infinities and
+    subnormals included) crosses from a JAX array unchanged."""
+    bf16_bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
+    a = np.asarray(jnp.asarray(bf16_bits.view(ml_dtypes.bfloat16)))
+    t = to_tensor(a)
+    assert t.dtype == torch.bfloat16
+    np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16), bf16_bits)
+
+    fp8_bits = np.arange(256, dtype=np.uint16).astype(np.uint8)
+    a = np.asarray(jnp.asarray(fp8_bits.view(ml_dtypes.float8_e4m3fn)))
+    t = to_tensor(a)
+    assert t.dtype == torch.float8_e4m3fn
+    np.testing.assert_array_equal(t.view(torch.uint8).numpy(), fp8_bits)
+
+    tree = from_numpy_tree({"a": {"b": np.arange(6, dtype=np.float32).reshape(2, 3)}})
+    assert tree["a"]["b"].dtype == torch.float32 and tree["a"]["b"].shape == (2, 3)
