@@ -29,7 +29,24 @@ Phases, each printing its lines; any failure exits non-zero:
      logits within the tolerances below, in bf16 and, with the same weights
      kept in f32, in f32; and at a depth of 2 layers (full width) the plain
      naive path must give the bf16 kernel path's logits within a tighter
-     limit.
+     limit;
+  5. flash backward: the dK/dV and dQ kernels against their plain version at
+     the training shape (B=2, S=2048, 32 query heads over 2 KV heads,
+     D=128, causal) in bf16 and f32 and at edge cases (non-causal; ragged S
+     with q_offset > 0), then timed beside the plain version, their bound
+     and the backward of PyTorch's scaled_dot_product_attention (a
+     yardstick);
+  6. train: chatglm3-6b at full width.  (a) At depth 2, one step's gradient
+     of every parameter on the kernel path against the plain chunked path,
+     in bf16 and in f32.  (b) At depth 16 (the depth whose f32 parameters,
+     gradients and AdamW moments fit the card), B=2, S=2048, bf16 compute,
+     ``remat="full"``: three ``repro_torch.launch.train.Trainer`` steps.
+     The launch counters are zeroed just before that run and read just
+     after it: per step, flash-attention twice per layer (the forward and
+     its recomputation), dK/dV and dQ once per layer.  The first step's loss
+     is held against the plain path's loss on the same batch and weights,
+     and a fourth step under torch.profiler gives the device's busy share
+     and the kernels with the most device time.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -38,7 +55,10 @@ repository beside this file, it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import gc
 import json
+import math
+import statistics
 import subprocess
 import sys
 import time
@@ -75,6 +95,20 @@ LOGITS_REL_TOL_BF16_DEPTH2 = 2e-2
 # 4096-term f32 sums differs (5.5e-6 measured on an H100); relative to the
 # largest logit
 HEAD_REL_TOL = 5e-5
+# gradients, kernel against plain, relative to each tensor's (leaf's)
+# largest magnitude: f32 sums over up to 16 query heads and 2048 rows in
+# another order; in bf16 both round P and dS before their products, the
+# kernels keep the GQA group sum in f32
+GRAD_REL_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
+# the depth-16 first step's loss against the plain chunked path's forward on
+# the same batch and weights (bf16 rounding at different places)
+LOSS_REL_TOL = 2e-2
+# a gradient that is zero in exact arithmetic: softmax is invariant to a
+# constant added to all of a query's scores, which is what the key bias
+# adds, so both paths compute rounding noise there; it is held to the
+# largest gradient magnitude of the whole tree instead of its own
+ZERO_GRAD_LEAVES = ("layers.attn.bk",)
+TRAIN_DEPTH = 16
 
 
 def fail(msg: str) -> None:
@@ -359,17 +393,18 @@ def check_head(torch, model, params, B: int) -> None:
     check(rel <= HEAD_REL_TOL, "the head's bf16 GEMM disagrees with the widened f32 product")
 
 
-def profile_generate(torch, server, params, batch, steps: int) -> None:
-    """Device busy share over ``server.generate`` of ``steps`` tokens: the
-    CUDA kernel times torch.profiler records against the host clock (the
-    profiler's own overhead lengthens the wall time)."""
+def profile_run(torch, label: str, fn) -> None:
+    """Device busy share over one ``fn()``: the CUDA kernel times
+    torch.profiler records against the host clock (the profiler's own
+    overhead lengthens the wall time), and the ten kernels with the most
+    device time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
-        server.generate(params, batch, steps)
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t) * 1e6
     rows = []
@@ -384,7 +419,7 @@ def profile_generate(torch, server, params, batch, steps: int) -> None:
     if busy_us == 0:
         print("[profile] device time: not measured (the profiler recorded no CUDA kernel)")
         return
-    print(f"[profile] generate({steps} tokens) under torch.profiler: wall {wall_us / 1e3:.3f} ms, "
+    print(f"[profile] {label} under torch.profiler: wall {wall_us / 1e3:.3f} ms, "
           f"CUDA kernels {busy_us / 1e3:.3f} ms, busy share {busy_us / wall_us:.4f}")
     for dev_us, count, key in sorted(rows, reverse=True)[:10]:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} x  {key[:100]}")
@@ -447,7 +482,7 @@ def phase_slice(torch, flash_fwd, decode_fwd, B: int, prompt: int, gen_tokens: i
     check(n_flash == cfg.n_layers, "the prefill did not run flash-attention once per layer")
     check(n_decode == cfg.n_layers * decode_steps,
           "the decode did not run flash-decode once per layer per step")
-    profile_generate(torch, server, params, batch, steps=8)
+    profile_run(torch, "generate(8 tokens)", lambda: server.generate(params, batch, 8))
 
     # the plain path, teacher-forced on the kernel path's tokens, in bf16
     # and (same weights from the same seed, not cast) in f32
@@ -472,6 +507,249 @@ def phase_slice(torch, flash_fwd, decode_fwd, B: int, prompt: int, gen_tokens: i
     return {"flash_attention_fwd": n_flash, "decode_attention_fwd": n_decode}
 
 
+def _bwd_cost(B, Sq, Sk, H, KV, D, causal, products: int, out_q: bool) -> tuple[int, int]:
+    """(bytes, FLOP) a backward pass must move and do: q, do, k, v read once,
+    lse and delta once, its outputs (dq, or dk and dv) written once, and
+    ``products`` products over the (query, key) pairs the mask keeps."""
+    pairs = Sq * (Sq + 1) // 2 if causal and Sq == Sk else Sq * Sk
+    nbytes = 2 * (2 * B * Sq * H * D + 2 * B * Sk * KV * D) + 2 * 4 * B * H * Sq
+    nbytes += 2 * B * Sq * H * D if out_q else 2 * 2 * B * Sk * KV * D
+    return nbytes, products * 2 * D * pairs * B * H
+
+
+def phase_flash_bwd(torch, ref, flash_fwd, dkdv, dq):
+    """Check the backward kernels at the training shape and at edge cases;
+    time them at the training shape.  Returns their two JSON records."""
+    from repro_torch.kernels.flash_attention_bwd import attention_delta
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    cases = [  # B, Sq, Sk, H, KV, D, dtype, causal, q_offset
+        (2, 2048, 2048, 32, 2, 128, torch.bfloat16, True, 0),   # the training shape
+        (2, 2048, 2048, 32, 2, 128, torch.float32, True, 0),
+        (1, 512, 512, 32, 2, 128, torch.bfloat16, False, 0),
+        (1, 333, 1000, 32, 2, 128, torch.bfloat16, True, 667),  # ragged, q_offset
+        (1, 333, 1000, 8, 2, 64, torch.float32, True, 667),
+    ]
+    errs = {}
+    for B, Sq, Sk, H, KV, D, dt, causal, q_off in cases:
+        q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+        k = torch.randn((B, Sk, KV, D), generator=gen, device=dev).to(dt)
+        v = torch.randn((B, Sk, KV, D), generator=gen, device=dev).to(dt)
+        do = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(dt)
+        o, lse = flash_fwd(q, k, v, causal=causal, q_offset=q_off)
+        delta = attention_delta(o, do)
+        kw = dict(causal=causal, q_offset=q_off)
+        got_dk, got_dv = dkdv(q, k, v, do, lse, delta, **kw)
+        got_dq = dq(q, k, v, do, lse, delta, **kw)
+        want = ref.flash_attention_bwd_ref(q, k, v, do, lse, delta, **kw)
+        torch.cuda.synchronize()
+        tol = GRAD_REL_TOL[str(dt).split(".")[-1]]
+        line = []
+        for name, got, w in zip(("dq", "dk", "dv"), (got_dq, got_dk, got_dv), want):
+            rel, _ = rel_err(torch, got, w)
+            check(bool(torch.isfinite(got).all()), f"flash backward {name}: non-finite values")
+            check(got.dtype == w.dtype and got.shape == w.shape, f"flash backward {name} shape")
+            line.append(f"{name} {rel:.3e}")
+            check(rel <= tol, f"flash backward {name} disagrees with its plain version")
+            errs.setdefault(name, float((got.float() - w.float()).abs().max()))
+        print(f"[flash_bwd] B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} {dt} causal={causal} "
+              f"q_offset={q_off}: max |err| / max |plain|: {', '.join(line)} (tol {tol})")
+        del q, k, v, do, o, lse, delta, got_dk, got_dv, got_dq, want
+
+    B, S, H, KV, D = 2, 2048, 32, 2, 128
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    do = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    o, lse = flash_fwd(q, k, v, causal=True)
+    delta = attention_delta(o, do)
+    ms_kv = graph_ms(torch, lambda: dkdv(q, k, v, do, lse, delta, causal=True))
+    ms_q = graph_ms(torch, lambda: dq(q, k, v, do, lse, delta, causal=True))
+    plain_ms = graph_ms(
+        torch, lambda: ref.flash_attention_bwd_ref(q, k, v, do, lse, delta, causal=True),
+        iters=2, reps=3)
+    # the yardstick: the backward of one SDPA call (dq, dk and dv together)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+    ot = sdpa(qt, kt, vt, is_causal=True, enable_gqa=True)
+    dot = do.transpose(1, 2)
+    lib_ms = cuda_ms(torch, lambda: torch.autograd.grad(ot, (qt, kt, vt), dot,
+                                                        retain_graph=True), iters=20)
+    recs = []
+    for name, ms, products, out_q, line in (
+        ("flash_attention_bwd_dkdv", ms_kv, 4, False, 44),
+        ("flash_attention_bwd_dq", ms_q, 3, True, 74),
+    ):
+        nbytes, flops = _bwd_cost(B, S, S, H, KV, D, True, products, out_q)
+        t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+        rec = {
+            "name": name, "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
+            "replaces": f"src/repro/kernels/flash_attention_bwd.py:{line}",
+            "launches": None, "max_abs_err": errs["dq"] if out_q else max(errs["dk"], errs["dv"]),
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations", "library_ms": lib_ms,
+        }
+        recs.append(rec)
+        print(f"[flash_bwd] training shape B={B} S={S} H={H} KV={KV} D={D} bf16 causal: {name} "
+              f"{ms:.4f} ms (device time, CUDA graph); bound {rec['bound_ms'] * 1e3:.2f} us by "
+              f"{rec['bound_by']} ({nbytes} B, {flops} FLOP)")
+    nbytes, flops = _bwd_cost(B, S, S, H, KV, D, True, 5, True)
+    nbytes += 2 * 2 * B * S * KV * D
+    print(f"[flash_bwd] both kernels {ms_kv + ms_q:.4f} ms; plain version (dq, dk, dv) "
+          f"{plain_ms:.4f} ms (CUDA graph); SDPA backward (dq, dk, dv) {lib_ms:.4f} ms "
+          f"(back-to-back calls between CUDA events); the fused five-product bound "
+          f"{max(nbytes / HBM_BPS, flops / BF16_FLOPS) * 1e3:.4f} ms ({flops} FLOP)")
+    return recs
+
+
+def check_train_head(torch) -> None:
+    """The head's forward and backward in training (``_HeadMatmul``: bf16
+    GEMMs with f32 accumulation, the cotangent rounded once to bf16) against
+    widening both operands to f32, at the training shape's 4096 tokens; both
+    timed."""
+    from repro_torch.models.model import _HeadMatmul
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    h = (0.5 * torch.randn((4096, 4096), generator=gen, device="cuda")).to(torch.bfloat16)
+    w = (0.01 * torch.randn((4096, 65280), generator=gen, device="cuda")).to(torch.bfloat16)
+    g = 1e-6 * torch.randn((4096, 65280), generator=gen, device="cuda")
+    h.requires_grad_()
+    w.requires_grad_()
+
+    def kernel():
+        return torch.autograd.grad(_HeadMatmul.apply(h, w), (h, w), g)
+
+    def widened():
+        return torch.autograd.grad(h.float() @ w.float(), (h, w), g)
+
+    got, want = kernel(), widened()
+    rels = [rel_err(torch, a, b)[0] for a, b in zip(got, want)]
+    k_ms, w_ms = cuda_ms(torch, kernel, iters=10, warmup=2), cuda_ms(torch, widened, iters=10,
+                                                                    warmup=2)
+    print(f"[train] head [4096 x 4096] @ [4096 x 65280] forward + backward: bf16 GEMMs "
+          f"{k_ms:.4f} ms, widened to f32 {w_ms:.4f} ms (CUDA events); dh, dw max |diff| / "
+          f"max |widened| {rels[0]:.3e}, {rels[1]:.3e} (tol {GRAD_REL_TOL['bfloat16']})")
+    check(max(rels) <= GRAD_REL_TOL["bfloat16"], "the head's gradient disagrees with f32")
+
+
+def _device_batch(torch, cfg, B: int, S: int, step: int = 0) -> dict:
+    from repro_torch.data import SyntheticLMSource
+
+    batch = SyntheticLMSource(cfg.vocab_size, B, S, seed=0).batch_at(step)
+    return {k: torch.from_numpy(v).to("cuda", torch.int64) for k, v in batch.items()}
+
+
+def check_grads_depth2(torch, counters: dict, B: int, S: int) -> None:
+    """Full width, 2 layers: every gradient leaf of one step on the kernel
+    path against the plain chunked path, in bf16 and in f32."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.models.common import tree_items
+    from repro_torch.models.model import Model
+
+    cfg = get_config("chatglm3_6b").replace(n_layers=2)
+    params = Model(cfg, "cuda").init_params(seed=0)
+    batch = _device_batch(torch, cfg, B, S)
+    for dtype in ("bfloat16", "float32"):
+        out = {}
+        for impl in ("pallas", "chunked"):
+            for c in counters.values():
+                c.launches = 0
+            t = time.perf_counter()
+            loss, grads = loss_and_grads(Model(cfg.replace(attn_impl=impl, compute_dtype=dtype),
+                                               "cuda"), params, batch)
+            torch.cuda.synchronize()
+            out[impl] = (float(loss), dict(tree_items(grads)), time.perf_counter() - t,
+                         {n: c.launches for n, c in counters.items()})
+        (kloss, kg, ks, kcount), (ploss, pg, ps, _) = out["pallas"], out["chunked"]
+        tree_max = max(float(g.abs().max()) for g in pg.values())
+        worst, worst_path = 0.0, ""
+        for path, want in pg.items():
+            got = kg[path]
+            check(bool(torch.isfinite(got).all()), f"depth 2 {dtype}: non-finite grad {path}")
+            scale = tree_max if path in ZERO_GRAD_LEAVES else float(want.abs().max())
+            rel = float((got - want).abs().max()) / max(scale, 1e-30)
+            if rel > worst:
+                worst, worst_path = rel, path
+        tol = GRAD_REL_TOL[dtype]
+        print(f"[train] depth 2 {dtype}, B={B} S={S}: loss kernel {kloss:.6f}, plain {ploss:.6f}; "
+              f"worst gradient leaf {worst_path} at {worst:.3e} of its largest magnitude "
+              f"(tol {tol}; {len(pg)} leaves); step {ks:.3f} s kernel path, {ps:.3f} s plain; "
+              f"launches {kcount}")
+        check(kcount == {"flash_attention_fwd": 4, "flash_attention_bwd_dkdv": 2,
+                         "flash_attention_bwd_dq": 2}, f"depth 2 launches {kcount}")
+        check(worst <= tol, f"depth 2 {dtype}: kernel-path gradients disagree with the plain path")
+        del kg, pg, out
+        gc.collect()
+
+
+def phase_train(torch, counters: dict) -> dict:
+    """(a) depth-2 gradients, (b) three Trainer steps at depth 16; returns
+    the launch counts of the Trainer run."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import Trainer
+    from repro_torch.models.model import Model
+
+    B, S, L = 2, 2048, TRAIN_DEPTH
+    check_train_head(torch)
+    check_grads_depth2(torch, counters, B, S)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = get_config("chatglm3_6b").replace(n_layers=L, attn_impl="pallas")
+    plain = Model(cfg.replace(attn_impl="chunked"), "cuda")
+    params = plain.init_params(seed=0)
+    with torch.no_grad():
+        plain_loss = float(plain.loss_fn(params, _device_batch(torch, cfg, B, S)))
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    trainer = Trainer(cfg, device="cuda", global_batch=B, seq_len=S, total_steps=3, log_every=1)
+    inner, steps = trainer.step_fn, []
+
+    def step_fn(params, opt_state, batch):
+        before = {n: c.launches for n, c in counters.items()}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = inner(params, opt_state, batch)
+        loss = float(out[2]["loss"])
+        steps.append((time.perf_counter() - t, loss,
+                      {n: c.launches - before[n] for n, c in counters.items()}))
+        return out
+
+    trainer.step_fn = step_fn
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    params, opt_state, losses = trainer.train(3, seed=0)
+    launches = {n: c.launches for n, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    batch = _device_batch(torch, cfg, B, S, step=3)
+    profile_run(torch, f"one train step at depth {L}", lambda: inner(params, opt_state, batch))
+    del params, batch
+    n_params = cfg.param_count()
+    for i, (dt, loss, count) in enumerate(steps):
+        print(f"[train] depth {L} step {i}: loss {loss:.6f}, {dt * 1e3:.3f} ms, "
+              f"{B * S / dt:.1f} tokens/s, launches {count}")
+        check(count == {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkdv": L,
+                        "flash_attention_bwd_dq": L},
+              "a step did not run flash-attention twice and each backward kernel once per layer")
+    check(len(losses) == 3 and all(map(math.isfinite, losses)), f"losses {losses}")
+    check(int(opt_state["step"]) == 4, "the optimizer did not take three steps and the profiled one")
+    loss_rel = abs(losses[0] - plain_loss) / abs(plain_loss)
+    ms = statistics.median(dt for dt, _, _ in steps[1:]) * 1e3
+    print(f"[train] chatglm3-6b at full width, depth {L} ({n_params} params), B={B} S={S}, "
+          f"bf16 compute, f32 params and AdamW state, remat=full: {ms:.3f} ms/step (median of "
+          f"steps 1-2), {B * S / ms * 1e3:.1f} tokens/s, peak memory {peak} B; first loss "
+          f"{losses[0]:.6f} against the plain chunked path's {plain_loss:.6f} "
+          f"(relative {loss_rel:.3e}, tol {LOSS_REL_TOL}); launches in the run {launches}")
+    check(loss_rel <= LOSS_REL_TOL, "the first step's loss disagrees with the plain path")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
@@ -493,16 +771,31 @@ def main() -> int:
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq,
+    )
 
     B, prompt, gen_tokens, max_len = 4, 512, 32, 1024
     recs = [
         phase_flash(torch, ref, flash_attention_fwd),
         phase_decode(torch, ref, decode_attention_fwd, kv_len_main=prompt + gen_tokens // 2),
+        *phase_flash_bwd(torch, ref, flash_attention_fwd, flash_attention_bwd_dkdv,
+                         flash_attention_bwd_dq),
     ]
+    # each path's counts: serving for the forward and flash-decode, the
+    # Trainer run for the backward kernels
     launches = phase_slice(torch, flash_attention_fwd, decode_attention_fwd,
                            B, prompt, gen_tokens, max_len)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(torch, {"flash_attention_fwd": flash_attention_fwd,
+                                "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv,
+                                "flash_attention_bwd_dq": flash_attention_bwd_dq})
+    launches.update({k: v for k, v in train.items() if k != "flash_attention_fwd"})
     for r in recs:
         r["launches"] = launches[r["name"]]
+        check(r["launches"] > 0, f"{r['name']} was not launched on its path")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": recs}))

@@ -1,10 +1,12 @@
-"""Carry arrays across from the JAX package: a nested dict of numpy arrays
+"""Carry arrays across between the packages: a nested dict of numpy arrays
 (what ``jax.tree.map(np.asarray, params)`` gives) becomes the port's tensor
-tree on a given device, leaf by leaf under the same keys.
+tree on a given device, leaf by leaf under the same keys
+(``from_numpy_tree``), and back (``to_numpy_tree``).
 
 bfloat16 and float8_e4m3fn arrays (``ml_dtypes`` types in numpy) go across
-bit for bit, through an unsigned-integer view, never through a float cast.
-The caller does the JAX-side flattening, so this module imports no JAX.
+bit for bit, through an integer view of the same width, never through a
+float cast.  The caller does the JAX-side flattening, so this module imports
+no JAX.
 """
 
 from __future__ import annotations
@@ -16,6 +18,11 @@ import torch
 _BIT_VIEWS = {
     "bfloat16": (np.uint16, torch.bfloat16),
     "float8_e4m3fn": (np.uint8, torch.float8_e4m3fn),
+}
+# torch dtype -> (numpy dtype name, signed torch view of the same width)
+_TORCH_BITS = {
+    torch.bfloat16: ("bfloat16", torch.int16),
+    torch.float8_e4m3fn: ("float8_e4m3fn", torch.int8),
 }
 
 
@@ -35,3 +42,48 @@ def from_numpy_tree(tree, device="cpu"):
     if isinstance(tree, dict):
         return {k: from_numpy_tree(v, device) for k, v in tree.items()}
     return to_tensor(tree, device)
+
+
+def tensor_bits(t: torch.Tensor) -> tuple[np.ndarray, str]:
+    """(a host numpy array holding ``t``'s values, ``t``'s numpy dtype name).
+
+    For bf16 and fp8 the array holds the raw bits as a void dtype of the
+    same width, which is how ``np.save`` stores the ``ml_dtypes`` types;
+    other dtypes come back as themselves."""
+    t = t.detach().cpu()
+    bits = _TORCH_BITS.get(t.dtype)
+    if bits is None:
+        a = t.numpy()
+        return a, a.dtype.name
+    name, view = bits
+    a = t.contiguous().view(view).numpy()
+    return a.view(np.dtype(f"V{a.itemsize}")), name
+
+
+def from_bits(a: np.ndarray, dtype_name: str, device="cpu") -> torch.Tensor:
+    """The inverse of ``tensor_bits``: a raw-bits (void), ``ml_dtypes`` or
+    plain numpy array whose values are of dtype ``dtype_name`` -> a tensor."""
+    view = _BIT_VIEWS.get(dtype_name)
+    if view is None:
+        return to_tensor(a, device)
+    bits, tdt = view
+    return torch.from_numpy(np.ascontiguousarray(a).view(bits).copy()).view(tdt).to(device)
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """One tensor -> a host numpy array with the same bits; bf16 and fp8
+    become ``ml_dtypes`` arrays (imported only for them)."""
+    a, name = tensor_bits(t)
+    if a.dtype.kind != "V":
+        return a
+    import ml_dtypes  # numpy's bf16 and fp8 types
+
+    return a.view(getattr(ml_dtypes, name))
+
+
+def to_numpy_tree(tree):
+    """A nested dict of tensors -> the same tree of host numpy arrays, bit
+    for bit."""
+    if isinstance(tree, dict):
+        return {k: to_numpy_tree(v) for k, v in tree.items()}
+    return to_numpy(tree)

@@ -2,11 +2,12 @@
 them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` becomes its own shared library with a plain C
-interface, compiled for Hopper (``sm_90a``).  Libraries go into
-``kernels/build/<hash>/``, keyed by a hash of all the sources and the
-flags, so an edited source rebuilds and an unchanged one is loaded as it
-is.  ``build_all`` starts one ``nvcc`` per source, all at once.  A missing
-``nvcc`` or a failed build raises; nothing falls back to the plain path.
+interface, compiled for Hopper (``sm_90a``); ``csrc/*.cuh`` are headers the
+sources share.  Libraries go into ``kernels/build/<hash>/``, keyed by a
+hash of all the sources, the headers and the flags, so an edited source
+rebuilds and an unchanged one is loaded as it is.  ``build_all`` starts one
+``nvcc`` per source, all at once.  A missing ``nvcc`` or a failed build
+raises; nothing falls back to the plain path.
 """
 
 from __future__ import annotations
@@ -51,7 +52,7 @@ def _sources() -> list[Path]:
 
 def build_dir() -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(CSRC.glob("*.cu*")):  # the sources and the headers they include
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_ROOT / h.hexdigest()[:16]

@@ -48,10 +48,13 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "mma_bf16.cuh"
+
 namespace {
 
+using namespace mma;
+
 constexpr float NEG_INF = -1e30f;
-using bf16 = __nv_bfloat16;
 
 // ---------------------------------------------------------------------------
 // bf16: tensor-core kernel
@@ -61,62 +64,11 @@ constexpr int MMA_BM = 64;     // query rows per block (16 per warp)
 constexpr int MMA_BN = 64;     // key rows per tile
 constexpr int MMA_NT = 128;    // 4 warps
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
-  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
-}
-
-// c += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulators
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 16 bytes global -> shared without passing through registers; with
-// `valid` false no byte is read and the 16 bytes are zero-filled
-__device__ __forceinline__ void cp_async_16(bf16* dst, const bf16* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// start copying rows [row0, row0 + 64) of a [rows, D] operand (row stride
-// in elements, 16-byte aligned rows) into shared memory with row stride
-// D + 8; rows at or past `nrows` (>= 1) become zero
+// start copying 64 rows of an operand into a padded shared-memory tile
 template <int D>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t stride,
+__device__ __forceinline__ void load64(bf16* dst, const bf16* src, int64_t stride,
                                           int row0, int nrows) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < 64 * CPR; c += MMA_NT) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const int gr = row0 + r;
-    const bool ok = gr < nrows;
-    cp_async_16(dst + r * (D + 8) + col, src + (ok ? gr : 0) * stride + col, ok);
-  }
+  mma::load_tile<D, 64, MMA_NT>(dst, src, stride, row0, nrows);
 }
 
 template <int D>
@@ -153,9 +105,9 @@ __global__ void __launch_bounds__(MMA_NT) flash_fwd_mma_kernel(
 
   const bf16* kb = k + b * k_sb + kvh * k_sh;
   const bf16* vb = v + b * v_sb + kvh * v_sh;
-  load_tile<D>(Qs, q + b * q_sb + h * q_sh, q_ss, q0, Sq);
-  load_tile<D>(Kbuf, kb, k_ss, 0, Sk);
-  load_tile<D>(Vbuf, vb, v_ss, 0, Sk);
+  load64<D>(Qs, q + b * q_sb + h * q_sh, q_ss, q0, Sq);
+  load64<D>(Kbuf, kb, k_ss, 0, Sk);
+  load64<D>(Vbuf, vb, v_ss, 0, Sk);
   cp_async_commit();
   cp_async_wait_all();
   __syncthreads();
@@ -176,8 +128,8 @@ __global__ void __launch_bounds__(MMA_NT) flash_fwd_mma_kernel(
     const bf16* Ks = Kbuf + (j % 2) * MMA_BN * LD;
     const bf16* Vs = Vbuf + (j % 2) * MMA_BN * LD;
     if (j + 1 < n_kv) {  // the next tile streams in while this one is used
-      load_tile<D>(Kbuf + ((j + 1) % 2) * MMA_BN * LD, kb, k_ss, k0 + MMA_BN, Sk);
-      load_tile<D>(Vbuf + ((j + 1) % 2) * MMA_BN * LD, vb, v_ss, k0 + MMA_BN, Sk);
+      load64<D>(Kbuf + ((j + 1) % 2) * MMA_BN * LD, kb, k_ss, k0 + MMA_BN, Sk);
+      load64<D>(Vbuf + ((j + 1) % 2) * MMA_BN * LD, vb, v_ss, k0 + MMA_BN, Sk);
       cp_async_commit();
     }
 

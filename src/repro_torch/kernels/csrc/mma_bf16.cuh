@@ -1,0 +1,90 @@
+// Tensor-core and async-copy helpers shared by the bf16 attention kernels
+// (flash_attention.cu, flash_attention_bwd.cu): ldmatrix, mma.sync
+// m16n8k16 with bf16 operands and f32 accumulators, and cp.async tile loads
+// into shared memory with padded rows (row stride D + 8 elements, so that
+// ldmatrix is free of bank conflicts).
+//
+// Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t; an accumulator
+// c[4] holds (row g, cols 2t, 2t+1) in c[0..1] and (row g+8, same cols) in
+// c[2..3]; an A fragment a[4] holds (row g, k 2t..2t+1), (row g+8, k
+// 2t..2t+1), (row g, k 2t+8..2t+9), (row g+8, k 2t+8..2t+9), so the
+// accumulators of two neighbouring 8-column n-tiles repack into one A
+// fragment over 16 k in registers.
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace mma {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const bf16* p) {
+  const uint32_t a = static_cast<uint32_t>(__cvta_generic_to_shared(p));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3]) : "r"(a));
+}
+
+// c += a (16x16, row) * b (16x8, col); bf16 operands, f32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 16 bytes global -> shared without passing through registers; with
+// `valid` false no byte is read and the 16 bytes are zero-filled
+__device__ __forceinline__ void cp_async_16(bf16* dst, const bf16* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
+}
+
+// one f32 global -> shared; zero-filled when `valid` is false
+__device__ __forceinline__ void cp_async_4(float* dst, const float* src, bool valid) {
+  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
+               :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// start copying rows [row0, row0 + ROWS) of a [rows, D] operand (row stride
+// in elements, 16-byte aligned rows) into shared memory with row stride
+// D + 8, using the block's NT threads; rows at or past `nrows` (>= 1)
+// become zero
+template <int D, int ROWS, int NT>
+__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t stride,
+                                          int row0, int nrows) {
+  constexpr int CPR = D / 8;  // 16-byte chunks per row
+  for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
+    const int r = c / CPR, col = (c % CPR) * 8;
+    const int gr = row0 + r;
+    const bool ok = gr < nrows;
+    cp_async_16(dst + r * (D + 8) + col, src + (ok ? gr : 0) * stride + col, ok);
+  }
+}
+
+}  // namespace mma

@@ -31,6 +31,12 @@ def _lib():
     return fn
 
 
+def _rows_aligned(t) -> bool:
+    """bf16 rows start on 16-byte boundaries (the tensor-core kernels load
+    them 16 bytes at a time)."""
+    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+
+
 def _check(q, k, v):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("flash_attention_fwd takes CUDA tensors")
@@ -50,9 +56,7 @@ def _check(q, k, v):
         raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
-    if q.dtype == torch.bfloat16 and not all(
-        t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3]) for t in (q, k, v)
-    ):
+    if q.dtype == torch.bfloat16 and not all(_rows_aligned(t) for t in (q, k, v)):
         raise ValueError("bf16 q, k and v rows must start on 16-byte boundaries "
                          "(the tensor-core kernel loads them 16 bytes at a time)")
 

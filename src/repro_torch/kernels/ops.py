@@ -1,5 +1,6 @@
 """Public attention ops in the model layouts, counterpart of
-``repro.kernels.ops`` (``flash_attention``, ``decode_attention``).
+``repro.kernels.ops`` (``flash_attention``, ``flash_attention_trainable``,
+``decode_attention``).
 
 Each op chooses by the device of the tensors it is given: a CPU tensor
 takes the plain PyTorch version (``ref``), a CUDA tensor the hand-written
@@ -9,9 +10,12 @@ from the kernel to the plain version.
 
 from __future__ import annotations
 
+import torch
+
 from . import ref
 from .decode_attention import decode_attention_fwd
 from .flash_attention import flash_attention_fwd
+from .flash_attention_bwd import attention_delta, flash_attention_bwd
 
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0, with_lse=False):
@@ -25,6 +29,38 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, with_lse=False):
         return (o, lse) if with_lse else o
     return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
                                    return_lse=with_lse)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward: the forward kernel emits (o, lse);
+    the backward runs the dK/dV and dQ kernels, which recompute the scores
+    from q, k, v and lse, so no [Sq, Sk] tensor is kept between the two."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset):
+        o, lse = flash_attention(q, k, v, causal=causal, q_offset=q_offset, with_lse=True)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.q_offset = causal, q_offset
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        kw = dict(causal=ctx.causal, q_offset=ctx.q_offset)
+        if q.is_cuda:
+            dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, **kw)
+        else:
+            dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, do, lse, attention_delta(o, do),
+                                                     **kw)
+        return dq, dk, dv, None, None
+
+
+def flash_attention_trainable(q, k, v, causal=True, q_offset=0):
+    """Differentiable ``flash_attention``: q [B, Sq, H, D]; k, v [B, Sk, KV,
+    D] -> [B, Sq, H, D].  Its gradients are dq in q's layout and dk, dv per
+    KV head, each group of query heads summed in f32 (the TPU wrapper sums
+    per-head gradients already rounded to k's dtype)."""
+    return _FlashAttention.apply(q, k, v, causal, q_offset)
 
 
 def decode_attention(q, k, v, kv_len):

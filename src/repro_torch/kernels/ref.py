@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the attention kernels: the ground truth each
 CUDA kernel is held against on the card, and what the kernel wrappers run
 for tensors on the CPU.  Counterpart of ``repro.kernels.ref`` (the two
-attention oracles), with the same layouts and the same rounding points."""
+attention oracles and the flash-attention backward), with the same layouts
+and the same rounding points."""
 
 from __future__ import annotations
 
@@ -44,6 +45,43 @@ def flash_attention_ref(q, k, v, *, causal: bool = True, q_offset: int = 0,
         return o
     lse = torch.logsumexp(s, dim=-1)  # [B, KV, G, Sq]
     return o, lse.reshape(B * H, Sq)
+
+
+def flash_attention_bwd_ref(q, k, v, do, lse, delta, *, causal: bool = True,
+                            q_offset: int = 0, group_sum: bool = True):
+    """The flash-attention backward: q, do [B, Sq, H, D]; k, v [B, Sk, KV, D];
+    lse, delta [B*H, Sq] f32 -> (dq [B, Sq, H, D], dk, dv).
+
+    The rounding points are the TPU kernels': f32 scores times 1/sqrt(D),
+    masked to NEG_INF, p = exp(s - lse), ds = p (dp - delta) / sqrt(D); P
+    rounded to do's dtype for dV, dS to q's dtype for dK and to k's dtype
+    for dQ; products and sums in f32.  dk, dv are [B, Sk, KV, D], each KV
+    head's query group summed in f32 and rounded once to k's (v's) dtype, as
+    the CUDA kernel does; with ``group_sum=False`` they are [B, Sk, H, D],
+    each query head's rounded to k's dtype, as the TPU kernel emits them."""
+    B, Sq, H, D = q.shape
+    Sk, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = 1.0 / (D**0.5)
+    q5 = q.reshape(B, Sq, KV, G, D)
+    do5 = do.reshape(B, Sq, KV, G, D)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q5.float(), k.float()) * scale
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+        kpos = torch.arange(Sk, device=q.device)[None, :]
+        s = torch.where(kpos <= qpos, s, torch.full_like(s, NEG_INF))
+    rows = lambda t: t.reshape(B, KV, G, Sq, 1)  # [B*H, Sq], h = kv * G + g
+    p = torch.exp(s - rows(lse))
+    dp = torch.einsum("bqkgd,bskd->bkgqs", do5.float(), v.float())
+    ds = p * (dp - rows(delta)) * scale
+    p_do = p.to(do.dtype).float()
+    dq = torch.einsum("bkgqs,bskd->bqkgd", ds.to(k.dtype).float(), k.float())
+    dq = dq.reshape(B, Sq, H, D).to(q.dtype)
+    dv = torch.einsum("bkgqs,bqkgd->bskgd", p_do, do5.float())
+    dk = torch.einsum("bkgqs,bqkgd->bskgd", ds.to(q.dtype).float(), q5.float())
+    if group_sum:
+        return dq, dk.sum(3).to(k.dtype), dv.sum(3).to(v.dtype)
+    return dq, dk.reshape(B, Sk, H, D).to(k.dtype), dv.reshape(B, Sk, H, D).to(v.dtype)
 
 
 def decode_attention_ref(q, k, v, kv_len: int):

@@ -77,7 +77,7 @@ def main(argv=None) -> None:
         cfg = cfg.replace(attn_impl=args.attn_impl)
     device = resolve_device(args.device)
     server = Server(cfg, device=device, max_len=args.prompt_len + args.gen)
-    print("access plan: not ported yet (the next slice of the port, ROADMAP.md section 1 item 2)")
+    print("access plan: not ported yet (the next slice of the port, ROADMAP.md section 1 item 3)")
 
     model = server.model
     params = model.compute_params(model.init_params(seed=0))

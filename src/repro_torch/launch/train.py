@@ -1,0 +1,140 @@
+"""Training loop of the port: config -> parameters and AdamW state on one
+device -> synthetic data pipeline -> train step -> checkpointed loop with
+a straggler detector.  Counterpart of ``repro.launch.train`` on one device
+(the mesh is ROADMAP.md, section 1, item 6).
+
+With ``attn_impl="pallas"`` on a CUDA device every step runs the CUDA
+flash-attention forward kernel twice per layer (the forward and its
+recomputation under ``remat="full"``) and the dK/dV and dQ kernels once.
+
+Usage (on the card; ``--device cpu`` runs the plain path on the CPU):
+  PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3_6b \
+      --layers 16 --steps 3 --batch 2 --seq 2048 --attn-impl pallas
+  PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3_6b --smoke \
+      --device cpu --steps 20 --batch 4 --seq 128
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+from typing import Optional
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import ShapeConfig
+from repro_torch.data import DataPipeline, SyntheticLMSource
+from repro_torch.runtime.fault import StragglerDetector
+
+from .steps import make_optimizer, make_train_step
+
+
+class Trainer:
+    def __init__(
+        self,
+        cfg,
+        device="cuda",
+        global_batch: int = 8,
+        seq_len: int = 128,
+        ckpt_dir: Optional[str] = None,
+        total_steps: int = 1000,
+        log_every: int = 10,
+    ):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self.shape = ShapeConfig("train", "train", seq_len, global_batch)
+        self.model, self.opt, self.step_fn = make_train_step(
+            cfg, make_optimizer(total_steps), self.device
+        )
+        self.ckpt = CheckpointManager(ckpt_dir, keep=3) if ckpt_dir else None
+        self.log_every = log_every
+        self.stragglers = StragglerDetector()
+
+    # -- state --------------------------------------------------------------
+
+    def init_state(self, seed: int = 0):
+        params = self.model.init_params(seed)
+        return params, self.opt.init(params)
+
+    def maybe_restore(self, params, opt_state):
+        start = 0
+        if self.ckpt and self.ckpt.latest_step() is not None:
+            # each leaf lands on its fresh counterpart's device (the step on the host)
+            start, state = self.ckpt.restore(like={"params": params, "opt": opt_state})
+            params, opt_state = state["params"], state["opt"]
+        return start, params, opt_state
+
+    # -- loop ---------------------------------------------------------------
+
+    def _to_device(self, batch: dict) -> dict:
+        return {k: torch.from_numpy(v).to(self.device, torch.int64)
+                for k, v in batch.items()}
+
+    def train(self, total_steps: int, seed: int = 0, save_every: int = 100):
+        cfg = self.cfg
+        params, opt_state = self.init_state(seed)
+        start, params, opt_state = self.maybe_restore(params, opt_state)
+        source = SyntheticLMSource(
+            cfg.vocab_size, self.shape.global_batch, self.shape.seq_len, seed=seed
+        )
+        pipeline = DataPipeline(source, start_step=start, prefetch=2)
+
+        losses = []
+        try:
+            for step, batch in pipeline:
+                if step >= total_steps:
+                    break
+                batch = self._to_device(batch)
+                t0 = time.perf_counter()
+                params, opt_state, metrics = self.step_fn(params, opt_state, batch)
+                loss = float(metrics["loss"])  # waits for the device
+                dt = time.perf_counter() - t0
+                self.stragglers.record("self", dt)
+                losses.append(loss)
+                if step % self.log_every == 0:
+                    tok_s = self.shape.global_batch * self.shape.seq_len / dt
+                    print(f"step {step:5d} loss {loss:.4f} {dt*1e3:7.1f} ms/step "
+                          f"{tok_s:,.0f} tok/s", flush=True)
+                if self.ckpt and step and step % save_every == 0:
+                    self.ckpt.save(step, {"params": params, "opt": opt_state})
+        finally:
+            pipeline.close()
+            if self.ckpt:
+                self.ckpt.wait()
+        return params, opt_state, losses
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", required=True)
+    ap.add_argument("--smoke", action="store_true", help="use the reduced config")
+    ap.add_argument("--device", default="cuda")
+    ap.add_argument("--steps", type=int, default=100)
+    ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=128)
+    ap.add_argument("--layers", type=int, default=0, help="cut the depth to this many layers")
+    ap.add_argument("--attn-impl", default=None,
+                    help="naive | chunked | pallas (the CUDA kernels); default: the config's")
+    ap.add_argument("--ckpt-dir", default=None)
+    ap.add_argument("--save-every", type=int, default=100)
+    args = ap.parse_args(argv)
+
+    cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
+    if args.layers:
+        cfg = cfg.replace(n_layers=args.layers)
+    if args.attn_impl:
+        cfg = cfg.replace(attn_impl=args.attn_impl)
+    trainer = Trainer(
+        cfg, device=args.device, global_batch=args.batch, seq_len=args.seq,
+        ckpt_dir=args.ckpt_dir, total_steps=args.steps, log_every=1,
+    )
+    _, _, losses = trainer.train(args.steps, save_every=args.save_every)
+    print(f"final loss {losses[-1]:.4f} (from {losses[0]:.4f} over {len(losses)} steps) "
+          f"on {trainer.device}")
+
+
+if __name__ == "__main__":
+    main()

@@ -6,8 +6,9 @@ Attention has three implementations, as in the JAX package:
   * ``naive``   — materializes the [.., S_q, S_k] score matrix;
   * ``chunked`` — online softmax over KV chunks in plain PyTorch;
   * ``pallas``  — the name kept from the JAX package for the kernel
-                  branch: ``kernels.ops.flash_attention`` (the CUDA kernel on
-                  a CUDA device, its plain version on the CPU).
+                  branch: ``kernels.ops.flash_attention_trainable`` (the CUDA
+                  forward and backward kernels on a CUDA device, their plain
+                  versions on the CPU).
 
 All matmuls run in the config's compute dtype; softmax and norms accumulate
 in f32.  Rounding points follow the JAX code so that the two agree.
@@ -172,9 +173,10 @@ def gqa_attention(
         and Sq % 128 == 0
         and k.shape[1] % 128 == 0
     ):
-        # the flash-attention kernel: scores and probabilities never reach
-        # device memory (the same guard as the JAX package's Pallas branch)
-        return ops.flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+        # the flash-attention kernels, forward and backward: scores and
+        # probabilities never reach device memory (the same guard as the JAX
+        # package's Pallas branch)
+        return ops.flash_attention_trainable(q, k, v, causal, q_offset)
 
     q5 = q.reshape(B, Sq, KV, G, hd)
     if impl == "naive" or Sq == 1:

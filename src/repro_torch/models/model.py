@@ -1,5 +1,5 @@
-"""Model facade for the dense family: parameter template, init, prefill and
-decode.  Counterpart of ``repro.models.model``.
+"""Model facade for the dense family: parameter template, init, the
+training loss, prefill and decode.  Counterpart of ``repro.models.model``.
 
 The parameter template (``build_template``) is the single source of truth
 for parameter shapes and initializers; its dotted paths and stacked
@@ -178,13 +178,14 @@ class Model:
         accumulation and an f32 output: products of bf16 values are exact in
         f32, so only the order of the sums differs from widening both
         operands, and no f32 copy of the head (1 GB at chatglm3-6b width) is
-        made.  The CPU has no such GEMM, so there both operands are widened."""
+        made.  The CPU has no such GEMM, so there both operands are widened.
+        Both are differentiable (``_HeadMatmul`` on the card)."""
         cfg = self.cfg
         dt = cfg_dtype(cfg)
         w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(dt)
         h = h.to(dt)
         if h.is_cuda and dt != torch.float32:
-            out = torch.mm(h.reshape(-1, h.shape[-1]), w, out_dtype=torch.float32)
+            out = _HeadMatmul.apply(h.reshape(-1, h.shape[-1]), w)
             return out.reshape(*h.shape[:-1], w.shape[-1])
         return h.float() @ w.float()
 
@@ -204,6 +205,34 @@ class Model:
             positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
         h, extras = forward_stack(params, cfg, x, positions, collect_cache=collect_cache)
         return self._final_norm(params, h), extras
+
+    # -- training loss -----------------------------------------------------------
+
+    def loss_fn(self, params, batch):
+        """Mean next-token cross-entropy of ``batch["targets"]`` (JAX
+        ``Model.loss_fn``).  The logits cover the padded vocab, unsliced, as
+        in JAX: the padding columns take part in the softmax."""
+        cfg = self.cfg
+        h, _ = self.hidden_states(params, batch)
+        targets = batch["targets"]
+        if cfg.loss_chunk and cfg.loss_chunk < h.shape[1]:
+            return self._chunked_loss(params, h, targets)
+        return _ce_loss(self.logits(params, h), targets)
+
+    def _chunked_loss(self, params, h, targets):
+        """The loss over ``loss_chunk``-long pieces of the sequence, with
+        both operands of the head widened to f32 (JAX ``_chunked_loss``);
+        a sequence tail shorter than a chunk is left out, as there."""
+        cfg = self.cfg
+        C = cfg.loss_chunk
+        B, S, _ = h.shape
+        n = S // C
+        w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).float()
+        total = torch.zeros((), dtype=torch.float32, device=h.device)
+        for i in range(n):
+            tb = targets[:, i * C : (i + 1) * C]
+            total = total + _ce_loss(h[:, i * C : (i + 1) * C].float() @ w, tb) * tb.numel()
+        return total / (B * n * C)
 
     # -- serving -------------------------------------------------------------------
 
@@ -242,3 +271,34 @@ class Model:
         kvdt = self.kv_dtype()
         return {"k": torch.empty(shp, dtype=kvdt, device="meta"),
                 "v": torch.empty(shp, dtype=kvdt, device="meta")}
+
+
+class _HeadMatmul(torch.autograd.Function):
+    """h [T, d] @ w [d, V], both in the compute dtype, as one GEMM with f32
+    accumulation and an f32 output.  ``torch.mm(..., out_dtype=...)`` has no
+    derivative of its own; here the f32 cotangent is rounded once to the
+    compute dtype and both gradients are GEMMs in that dtype with f32
+    accumulation: dh = g w^T in h's dtype, dw = h^T g in w's dtype, where
+    JAX's transpose keeps g in f32 and rounds the same two products.  No f32
+    copy of the head is made in either direction."""
+
+    @staticmethod
+    def forward(ctx, h, w):
+        ctx.save_for_backward(h, w)
+        return torch.mm(h, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w = ctx.saved_tensors
+        g = g.to(h.dtype)
+        dh = torch.mm(g, w.T) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(h.T, g) if ctx.needs_input_grad[1] else None
+        return dh, dw
+
+
+def _ce_loss(logits, targets):
+    """Mean of logsumexp(logits) - logits[target] in f32."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
+    return torch.mean(logz - gold)

@@ -4,12 +4,17 @@ the decode path.  Counterpart of the dense parts of
 
 Layer parameters are stacked on a leading ``layers`` dim as in the JAX
 package; the stack is a Python loop and layer ``l`` is the view
-``params["layers"][...][l]``.
+``params["layers"][...][l]``, or, where the train step hands the layers over
+as a list of per-layer trees, ``params["layers"][l]``.  Under autograd each
+layer is recomputed in the backward pass as the config's ``remat`` says.
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
@@ -39,9 +44,27 @@ def cfg_dtype(cfg) -> torch.dtype:
     return torch_dtype(cfg.compute_dtype)
 
 
-def layer_params(layers: dict, l: int) -> dict:
-    """Layer ``l`` of a stacked ``[L, ...]`` parameter subtree (views)."""
+def layer_params(layers, l: int) -> dict:
+    """Layer ``l`` of the layer parameters: views of a stacked ``[L, ...]``
+    subtree, or entry ``l`` of a list of per-layer subtrees."""
+    if isinstance(layers, list):
+        return layers[l]
     return tree_map(lambda a: a[l], layers)
+
+
+def _remat(fn, cfg):
+    """``fn`` under the config's remat policy (JAX ``transformer._remat``):
+    ``"full"`` keeps only the layer's inputs and recomputes the rest in the
+    backward pass (non-reentrant ``torch.utils.checkpoint``), ``"none"``
+    keeps every activation.  With autograd not recording there is nothing
+    to keep, and ``fn`` runs as it is."""
+    if cfg.remat not in ("full", "none"):
+        raise NotImplementedError(
+            f"remat={cfg.remat!r} is not ported yet: ROADMAP.md, section 1, item 2"
+        )
+    if cfg.remat == "none" or not torch.is_grad_enabled():
+        return fn
+    return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
 # ---------------------------------------------------------------------------
@@ -89,11 +112,14 @@ def forward_stack(params, cfg, x, positions, *, causal=True, collect_cache=False
     (k, v) stacked to [L, B, S, KV, hd] each."""
     dt = cfg_dtype(cfg)
     angles = rope_angles(cfg.rope, positions, cfg.head_dim, cfg.rope_theta)
+    layer = _remat(
+        lambda x, lp: dense_layer(x, lp, cfg, dt, angles, causal=causal,
+                                  collect_cache=collect_cache),
+        cfg,
+    )
     ks, vs = [], []
     for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
-        x, kv = dense_layer(x, lp, cfg, dt, angles, causal=causal,
-                            collect_cache=collect_cache)
+        x, kv = layer(x, layer_params(params["layers"], l))
         if collect_cache:
             ks.append(kv[0])
             vs.append(kv[1])

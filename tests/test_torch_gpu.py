@@ -7,16 +7,26 @@ Tolerances: f32 1e-5 (rtol and atol; the kernels sum in another order than
 the plain version), bf16 2e-2 (the plain version rounds the normalised P to
 bf16 and its PV product to bf16, the kernels round the unnormalised P and
 keep f32 sums), the f32 log-sum-exp 1e-4 absolute (sums of up to 1024
-exponentials in another order).
+exponentials in another order).  The backward kernels: f32 1e-4 and bf16
+2e-2 of each gradient's largest magnitude (sums over up to 16 query heads
+and 1024 rows in another order; bf16 rounds P and dS before products, as
+the plain version does, but the GQA group sum stays in f32).
 """
 
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.kernels import ops, ref
-from repro_torch.kernels.decode_attention import decode_attention_fwd
-from repro_torch.kernels.flash_attention import flash_attention_fwd
+torch.set_num_threads(2)  # beside the other test workers on the CPU
+
+from repro_torch.kernels import ops, ref  # noqa: E402
+from repro_torch.kernels.decode_attention import decode_attention_fwd  # noqa: E402
+from repro_torch.kernels.flash_attention import flash_attention_fwd  # noqa: E402
+from repro_torch.kernels.flash_attention_bwd import (  # noqa: E402
+    attention_delta,
+    flash_attention_bwd_dkdv,
+    flash_attention_bwd_dq,
+)
 
 pytestmark = pytest.mark.gpu
 
@@ -145,3 +155,77 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
     k16 = torch.zeros((1, 128, 2, 64), dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):
         decode_attention_fwd(q16, k16, k16, 10)
+
+
+GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+def _close_rel(got, want, tol):
+    """max |got - want| within ``tol`` of max |want|."""
+    err = float((got.float() - want.float()).abs().max())
+    assert err <= tol * float(want.float().abs().max()), (err, float(want.abs().max()))
+
+
+BWD_CASES = [  # B, Sq, Sk, H, KV, D, dtype, causal, q_offset
+    (2, 256, 256, 32, 2, 128, torch.bfloat16, True, 0),   # chatglm3-6b heads
+    (2, 256, 256, 8, 2, 128, torch.float32, True, 0),
+    (1, 128, 256, 4, 2, 64, torch.float32, False, 0),
+    (1, 128, 256, 4, 2, 64, torch.bfloat16, False, 0),
+    (1, 64, 256, 4, 4, 64, torch.float32, True, 192),
+    (1, 64, 256, 4, 1, 128, torch.bfloat16, True, 128),
+    (2, 100, 100, 4, 2, 64, torch.float32, True, 0),      # ragged edges
+    (2, 100, 100, 4, 2, 128, torch.bfloat16, True, 0),
+    (1, 77, 200, 8, 2, 64, torch.bfloat16, True, 123),    # ragged, q_offset
+    (1, 77, 200, 8, 2, 128, torch.float32, True, 123),
+]
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,dtype,causal,q_offset", BWD_CASES)
+def test_flash_attention_bwd_kernels_match_ref(cuda, B, Sq, Sk, H, KV, D, dtype, causal,
+                                               q_offset):
+    gen = torch.Generator(device=cuda).manual_seed(6)
+    q = _randn(gen, (B, Sq, H, D), dtype, cuda)
+    k = _randn(gen, (B, Sk, KV, D), dtype, cuda)
+    v = _randn(gen, (B, Sk, KV, D), dtype, cuda)
+    do = _randn(gen, (B, Sq, H, D), dtype, cuda)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
+    delta = attention_delta(o, do)
+    kw = dict(causal=causal, q_offset=q_offset)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for got, w, like in zip((dq, dk, dv), want, (q, k, v)):
+        assert got.dtype == like.dtype and got.shape == like.shape
+        assert torch.isfinite(got).all()
+        _close_rel(got, w, GRAD_TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_trainable_grads_on_cuda(cuda, dtype):
+    """Gradients of the kernel path against autograd through the plain
+    forward, which keeps every [Sq, Sk] intermediate."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    B, S, H, KV, D = 2, 256, 8, 2, 128
+    q = _randn(gen, (B, S, H, D), dtype, cuda).requires_grad_()
+    k = _randn(gen, (B, S, KV, D), dtype, cuda).requires_grad_()
+    v = _randn(gen, (B, S, KV, D), dtype, cuda).requires_grad_()
+    w = _randn(gen, (B, S, H, D), dtype, cuda)
+    n_kv, n_q = flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches
+    got = torch.autograd.grad((ops.flash_attention_trainable(q, k, v, True, 0) * w).sum(),
+                              (q, k, v))
+    assert flash_attention_bwd_dkdv.launches == n_kv + 1
+    assert flash_attention_bwd_dq.launches == n_q + 1
+    want = torch.autograd.grad((ref.flash_attention_ref(q, k, v, causal=True) * w).sum(),
+                               (q, k, v))
+    for g, r in zip(got, want):
+        _close_rel(g, r, GRAD_TOL[dtype])
+
+
+def test_bwd_kernels_refuse_what_they_cannot_take(cuda):
+    q = torch.zeros((1, 128, 4, 64), dtype=torch.bfloat16, device=cuda)
+    lse = torch.zeros((4, 128), dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError):  # lse of the wrong shape
+        flash_attention_bwd_dq(q, q[:, :, :2], q[:, :, :2], q, lse[:2], lse)
+    with pytest.raises(ValueError):  # do in another dtype
+        flash_attention_bwd_dkdv(q, q[:, :, :2], q[:, :, :2], q.float(), lse, lse)

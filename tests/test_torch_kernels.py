@@ -12,6 +12,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(2)  # beside the other test workers on the CPU
+
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention_kernel
@@ -196,7 +198,7 @@ def test_kernel_build_dir_is_keyed_by_sources_and_ignored():
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16 and d == _build.build_dir()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "decode_attention.cu", "flash_attention.cu"]
+        "decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu"]
     repo = Path(__file__).resolve().parents[1]
     ignored = (repo / ".gitignore").read_text().split()
     assert str(_build.BUILD_ROOT.relative_to(repo)) + "/" in ignored

@@ -13,6 +13,8 @@ import numpy as np
 import pytest
 import torch
 
+torch.set_num_threads(2)  # beside the other test workers on the CPU
+
 from repro.configs import get_smoke_config as jget_smoke
 from repro.launch.serve import Server as JServer
 from repro_torch.configs import get_smoke_config
