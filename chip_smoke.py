@@ -14,7 +14,8 @@ Phases, each printing its lines; any failure exits non-zero:
      time (calls captured in a CUDA graph, replayed between CUDA events)
      beside its plain version, its bound on the card and one PyTorch
      library call that computes the same function (a yardstick, never
-     called by the port); flash-decode's host cost per call besides;
+     called by the port); flash-decode's host cost per call besides; the
+     row gather bitwise at the prefill and decode shapes and at edge cases;
   4. slice: chatglm3-6b at full width (28 layers, d_model 4096, 32 query
      heads over 2 KV heads, vocab 65,024; random weights from seed 0) served
      by ``repro_torch.launch.serve.Server`` with ``attn_impl="pallas"``:
@@ -22,14 +23,31 @@ Phases, each printing its lines; any failure exits non-zero:
      a bf16 GEMM with f32 output) is held against the widened f32 product
      and both are timed.  The launch counters are zeroed
      just before that run and read just after it: flash-attention must have
-     launched once per layer (the prefill) and flash-decode once per layer
-     per decode step.  A short torch.profiler run of the same serve gives
+     launched once per layer (the prefill), flash-decode once per layer per
+     decode step and the row gather once per prefill and once per decode
+     step (the embedding).  A short torch.profiler run of the same serve gives
      the device's busy share.  Then the plain ``attn_impl="chunked"`` path,
      teacher-forced on the generated tokens, must give the kernel path's
      logits within the tolerances below, in bf16 and, with the same weights
      kept in f32, in f32; and at a depth of 2 layers (full width) the plain
      naive path must give the bf16 kernel path's logits within a tighter
      limit;
+  stream: chatglm3-6b at full width, all 28 layers, random weights from
+     seed 0, decode weights streamed from pinned host memory.  The access
+     plan of one decode step (``Server.plan``, traced on the meta device)
+     must have JAX's 15 records, 12 collections and 4 groups in JAX's order.
+     The prefill (B=4, prompt 512) runs resident, then 4 resident decode
+     steps give the reference.  One ``HostParamStore(device="cuda")`` pins
+     the bf16 weights (the link's rate is measured on the largest leaf, and
+     over all leaves with one copy lane and with eight); then, after a
+     capre warm-up, for each mode (on demand, rop, capre, and markov-miner
+     and hybrid warmed with capre's group log), 4 decode steps run through
+     ``Server.stream_decode``, one ``WeightStreamer`` per step, the modes
+     once in order and once in reverse.  Their tokens must equal the
+     resident ones, their logits lie within 1e-5 of
+     the largest logit, no fetch may time out, every plan record must be
+     served, and each step must launch flash-decode once per layer and the
+     gather once;
   5. flash backward: the dK/dV and dQ kernels against their plain version at
      the training shape (B=2, S=2048, 32 query heads over 2 KV heads,
      D=128, causal) in bf16 and f32 and at edge cases (non-causal; ragged S
@@ -56,6 +74,7 @@ repository beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import gc
+import itertools
 import json
 import math
 import statistics
@@ -109,6 +128,10 @@ LOSS_REL_TOL = 2e-2
 # largest gradient magnitude of the whole tree instead of its own
 ZERO_GRAD_LEAVES = ("layers.attn.bk",)
 TRAIN_DEPTH = 16
+# streamed decode logits against the resident decode's, relative to the
+# largest logit: the same kernels on the same bits, so expected equal
+STREAM_REL_TOL = 1e-5
+STREAM_STEPS = 4
 
 
 def fail(msg: str) -> None:
@@ -328,6 +351,69 @@ def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
     return rec
 
 
+def phase_gather(torch, ref, gather_fwd):
+    """Check the row gather bitwise at the serving shapes and edge cases;
+    time it at the prefill and decode shapes.  Returns its JSON record (the
+    prefill shape's numbers)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    V, D = 65280, 4096  # chatglm3-6b's padded vocab and width
+    table = torch.randn((V, D), generator=gen, device=dev).to(torch.bfloat16)
+    cases = [  # label, table, idx
+        ("prefill 2048 rows, int64", table, torch.randint(0, V, (2048,), generator=gen, device=dev)),
+        ("decode 4 rows, int64", table, torch.randint(0, V, (4,), generator=gen, device=dev)),
+        ("decode 4 rows, int32", table,
+         torch.randint(0, V, (4,), generator=gen, device=dev, dtype=torch.int32)),
+        ("repeated rows and the last row", table, torch.tensor([V - 1, 7, 7, 0, V - 1], device=dev)),
+        ("f32 D=130, int64", torch.randn((16, 130), generator=gen, device=dev),
+         torch.tensor([15, 3, 3, 0, 9], device=dev)),
+        ("f32 D=130, int32", torch.randn((16, 130), generator=gen, device=dev),
+         torch.tensor([15, 3, 3, 0, 9], device=dev, dtype=torch.int32)),
+        ("bf16 D=1", torch.randn((7, 1), generator=gen, device=dev).to(torch.bfloat16),
+         torch.tensor([6, 0, 6, 2], device=dev)),
+    ]
+    main_err = 0.0
+    for label, tab, idx in cases:
+        got = gather_fwd(tab, idx)
+        want = ref.prefetch_gather_ref(tab, idx)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        same = got.dtype == want.dtype and torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+        print(f"[gather] {label}: table {tuple(tab.shape)} {tab.dtype}, idx {idx.dtype}: "
+              f"bitwise equal {same}, max_abs_err {err:.3e} (tol 0)")
+        check(same, "the row gather disagrees with its plain version")
+        main_err = max(main_err, err)
+
+    out = {}
+    for label, rows in (("prefill", 2048), ("decode", 4)):
+        # a fresh index set for each of the 50 captured calls: their rows
+        # (50 x 16.8 MB at the prefill shape) do not stay in the 50 MB L2,
+        # so each call finds most of its rows cold, as a serving step does
+        idxs = [torch.randint(0, V, (rows,), generator=gen, device=dev) for _ in range(50)]
+
+        def cycling(f):
+            it = itertools.cycle(idxs)
+            return lambda: f(table, next(it))
+
+        ms = graph_ms(torch, cycling(gather_fwd), iters=50)
+        plain_ms = graph_ms(torch, cycling(ref.prefetch_gather_ref), iters=50)
+        lib_ms = graph_ms(torch, cycling(lambda t, i: torch.index_select(t, 0, i)), iters=50)
+        nbytes = 2 * rows * D * table.element_size() + rows * idxs[0].element_size()
+        bound = nbytes / HBM_BPS * 1e3
+        out[label] = (ms, plain_ms, lib_ms, bound)
+        print(f"[gather] {label} shape: {rows} rows of {D} bf16 from {V}, a new index set per "
+              f"call: kernel {ms:.5f} ms, plain {plain_ms:.5f} ms, index_select {lib_ms:.5f} ms "
+              f"(device times, CUDA graph); bound {bound * 1e3:.3f} us by bytes ({nbytes} B)")
+    ms, plain_ms, lib_ms, bound = out["prefill"]
+    return {
+        "name": "prefetch_gather_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/prefetch_gather.cu",
+        "replaces": "src/repro/kernels/prefetch_gather.py:30",
+        "launches": None, "max_abs_err": main_err, "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": lib_ms,
+    }
+
+
 def teacher_forced(torch, cfg, params, batch, tokens, max_len: int, plain: str = "chunked"):
     """Logits [B, T, vocab] of the kernel path (``attn_impl="pallas"``) and
     the plain path (``plain``), each fed the prompt and then
@@ -425,8 +511,8 @@ def profile_run(torch, label: str, fn) -> None:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} x  {key[:100]}")
 
 
-def phase_slice(torch, flash_fwd, decode_fwd, B: int, prompt: int, gen_tokens: int,
-                max_len: int) -> dict:
+def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
+                gen_tokens: int, max_len: int) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Server
     from repro_torch.launch.steps import concrete_batch
@@ -459,8 +545,9 @@ def phase_slice(torch, flash_fwd, decode_fwd, B: int, prompt: int, gen_tokens: i
     torch.cuda.reset_peak_memory_stats()
     flash_fwd.launches = 0
     decode_fwd.launches = 0
+    gather_fwd.launches = 0
     tokens, total_s = timed_generate(gen_tokens)
-    n_flash, n_decode = flash_fwd.launches, decode_fwd.launches
+    n_flash, n_decode, n_gather = flash_fwd.launches, decode_fwd.launches, gather_fwd.launches
     peak = torch.cuda.max_memory_allocated()
     # the decode loop is bound by the host, whose time varies from run to
     # run: two more runs, and the median of the three
@@ -476,12 +563,15 @@ def phase_slice(torch, flash_fwd, decode_fwd, B: int, prompt: int, gen_tokens: i
           f"peak memory {peak} B")
     print(f"[slice] launches in that run: flash_attention_fwd {n_flash} "
           f"(want {cfg.n_layers}), decode_attention_fwd {n_decode} "
-          f"(want {cfg.n_layers * decode_steps})")
+          f"(want {cfg.n_layers * decode_steps}), prefetch_gather_fwd {n_gather} "
+          f"(want {1 + decode_steps})")
     check(tuple(tokens.shape) == (B, gen_tokens), f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token out of range")
     check(n_flash == cfg.n_layers, "the prefill did not run flash-attention once per layer")
     check(n_decode == cfg.n_layers * decode_steps,
           "the decode did not run flash-decode once per layer per step")
+    check(n_gather == 1 + decode_steps,
+          "the serve did not run the row gather once per prefill and once per decode step")
     profile_run(torch, "generate(8 tokens)", lambda: server.generate(params, batch, 8))
 
     # the plain path, teacher-forced on the kernel path's tokens, in bf16
@@ -504,7 +594,189 @@ def phase_slice(torch, flash_fwd, decode_fwd, B: int, prompt: int, gen_tokens: i
         rel, rms = rel_err(torch, got, kern32)
         print(f"[slice] bf16 {label} path vs the f32 kernel path: max |logit diff| / max "
               f"|logit| {rel:.4e}, relative rms {rms:.4e}")
-    return {"flash_attention_fwd": n_flash, "decode_attention_fwd": n_decode}
+    return {"flash_attention_fwd": n_flash, "decode_attention_fwd": n_decode,
+            "prefetch_gather_fwd": n_gather}
+
+
+def _link_gbps(torch, store, paths, lanes: int) -> tuple[float, float]:
+    """(host->device GB/s, mean fetches in flight) of one fetch of each of
+    ``paths`` spread over ``lanes`` threads, each copying on its own stream
+    and waiting on its own event.  Fetches in flight near ``lanes`` mean the
+    waits overlap (the event wait releases the GIL); near 1, that the lanes
+    ran one after another."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    spans = []
+
+    def fetch(p):
+        t0 = time.perf_counter()
+        out = store.fetch(p)
+        spans.append(time.perf_counter() - t0)
+        return out.nbytes
+
+    with ThreadPoolExecutor(max_workers=lanes) as pool:
+        list(pool.map(store.fetch, paths[:lanes]))  # each lane's stream, warmed
+        torch.cuda.synchronize()
+        spans.clear()
+        t = time.perf_counter()
+        nbytes = sum(pool.map(fetch, paths))
+        dt = time.perf_counter() - t
+    return nbytes / dt / 1e9, sum(spans) / dt
+
+
+def phase_stream(torch, counters: dict, B: int, prompt: int, max_len: int) -> dict:
+    """chatglm3-6b's decode weights streamed from pinned host memory, in
+    every registered mode, against the resident decode.  Returns the
+    numbers per mode."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+    from repro_torch.runtime.prefetch import HostParamStore, WeightStreamer
+
+    cfg = get_config("chatglm3_6b").replace(attn_impl="pallas")
+    server = Server(cfg, device="cuda", max_len=max_len)
+    t = time.perf_counter()
+    plan = server.plan(B)
+    plan_s = time.perf_counter() - t
+    groups = [[r.path for r in g] for g in plan.groups()]
+    colls = sorted(r.path for r in plan.collections())
+    print(f"[stream] access plan of one decode step (B={B}, max_len {max_len}, traced on the "
+          f"meta device in {plan_s:.3f} s): {len(plan.records)} records, {len(colls)} "
+          f"collections, {len(groups)} groups {[len(g) for g in groups]}, "
+          f"{plan.total_bytes} B predicted (f32 parameters)")
+    print(f"[stream] hints: {plan.hints()}")
+    check(len(plan.records) == 15 and len(colls) == 12 and len(groups) == 4,
+          "the plan is not JAX's 15 records, 12 collections and 4 groups")
+    check(groups[0] == ["embed"] and sorted(groups[1]) == colls
+          and groups[2] == ["final_norm"] and groups[3] == ["lm_head"],
+          f"the plan's groups are not JAX's order (embed, layers, final_norm, lm_head): {groups}")
+
+    model = server.model
+    params = model.compute_params(model.init_params(seed=0))  # bf16 weights
+    batch = concrete_batch(cfg, B, prompt, device="cuda")
+    batch.pop("targets")
+    logits, cache = server.prefill_fn(params, batch)
+    cache = server._pad_cache(cache)
+    tok0 = torch.argmax(logits, dim=-1)
+
+    def clone(c):
+        return {k: v.clone() for k, v in c.items()}
+
+    resident, res_cache, tok, res_ms = [], clone(cache), tok0, []
+    for i in range(STREAM_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, res_cache = server.decode_fn(params, res_cache, tok, prompt + i)
+        torch.cuda.synchronize()
+        res_ms.append((time.perf_counter() - t) * 1e3)
+        tok = torch.argmax(logits, dim=-1)
+        resident.append((logits, tok))
+    del res_cache
+    print(f"[stream] resident decode, {STREAM_STEPS} steps from the prefill (B={B}, prompt "
+          f"{prompt}): {', '.join(f'{m:.3f}' for m in res_ms)} ms per step")
+
+    t = time.perf_counter()
+    store = HostParamStore(params, device="cuda")
+    pin_s = time.perf_counter() - t
+    data = sum(store.nbytes(p) for p in store.arrays)
+    print(f"[stream] HostParamStore(device='cuda'): {len(store.arrays)} leaves, {data} B of "
+          f"{cfg.compute_dtype} weights in {store.pinned_bytes} B of pinned host memory, "
+          f"copied and pinned in {pin_s:.3f} s")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    largest = max(store.arrays, key=store.nbytes)
+    one = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = store.fetch(largest)
+        one.append(store.nbytes(largest) / (time.perf_counter() - t) / 1e9)
+        del out
+    paths = sorted(store.arrays, key=store.nbytes, reverse=True)
+    lanes = {n: _link_gbps(torch, store, paths, n) for n in (1, 8)}
+    link = max(one)
+    print(f"[stream] link ceiling: one fetch of the largest leaf ({largest}, "
+          f"{store.nbytes(largest)} B) {', '.join(f'{g:.3f}' for g in one)} GB/s host->device "
+          f"from pinned memory; every leaf once: {lanes[1][0]:.3f} GB/s on 1 lane, "
+          f"{lanes[8][0]:.3f} GB/s on 8 lanes ({lanes[8][1]:.2f} fetches in flight on average)")
+
+    def run_mode(mode, warm, label):
+        """STREAM_STEPS streamed decode steps from the prefill's cache, one
+        streamer per step, each checked against the resident step."""
+        c, tok = clone(cache), tok0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ms, logs = [], []
+        tot = dict(stall_seconds=0.0, prefetch_hits=0, stalls=0, fetches=0, bytes_moved=0,
+                   fetch_timeouts=0, wasted_bytes=0)
+        worst = 0.0
+        for i in range(STREAM_STEPS):
+            ws = WeightStreamer(store, plan, mode=mode, k_ahead=3, workers=8,
+                                warm_group_trace=warm)
+            for ctr in counters.values():
+                ctr.launches = 0
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            logits, c = server.stream_decode(ws, c, tok, prompt + i)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            ws.close()
+            launched = {n: ctr.launches for n, ctr in counters.items()}
+            m = ws.metrics
+            for k in tot:
+                tot[k] += getattr(m, k)
+            logs.append(list(ws.group_log))
+            want_logits, want_tok = resident[i]
+            tok = torch.argmax(logits, dim=-1)
+            rel = float((logits - want_logits).abs().max() / want_logits.abs().max())
+            worst = max(worst, rel)
+            name = mode or "on-demand"
+            check(torch.equal(tok, want_tok), f"stream {name}: step {i} tokens differ from resident")
+            check(rel <= STREAM_REL_TOL, f"stream {name}: step {i} logits differ by {rel:.3e}")
+            check(m.fetch_timeouts == 0, f"stream {name}: {m.fetch_timeouts} fetch timeouts")
+            check(m.prefetch_hits + m.stalls == len(plan.records),
+                  f"stream {name}: {m.prefetch_hits + m.stalls} of {len(plan.records)} records served")
+            check(launched.get("decode_attention_fwd") == cfg.n_layers
+                  and launched.get("prefetch_gather_fwd") == 1,
+                  f"stream {name}: step {i} launches {launched}")
+        peak = torch.cuda.max_memory_allocated()
+        gbps = tot["bytes_moved"] / (sum(ms) / 1e3) / 1e9
+        print(f"[stream] {label} {mode or 'on-demand':12s}: {', '.join(f'{x:.3f}' for x in ms)} "
+              f"ms per step (median {statistics.median(ms):.3f}); stall "
+              f"{tot['stall_seconds']:.4f} s, hits {tot['prefetch_hits']}, stalls {tot['stalls']}, "
+              f"fetches {tot['fetches']}, {tot['bytes_moved']} B moved "
+              f"({tot['bytes_moved'] / STREAM_STEPS / plan.total_bytes:.4f} of the plan's f32 "
+              f"bytes per step), {gbps:.3f} GB/s effective, wasted {tot['wasted_bytes']} B, "
+              f"fetch_timeouts {tot['fetch_timeouts']}, peak memory {peak} B; logits within "
+              f"{worst:.3e} of the largest resident logit, tokens equal")
+        return dict(ms=ms, gbps=gbps, peak=peak, logs=logs, **tot)
+
+    # one pass of capre to warm the copy streams' allocator pools; its group
+    # log is what the miners are warmed with
+    capre_log = run_mode("capre", None, "warm-up")["logs"][0]
+    modes = (None, "rop", "capre", "markov-miner", "hybrid")
+    results = {m or "on-demand": [] for m in modes}
+    # the modes in order, then in reverse: a drift over the run shows as a
+    # difference between the two passes of one mode
+    for label, order in (("pass 1", modes), ("pass 2", modes[::-1])):
+        for mode in order:
+            warm = capre_log if mode in ("markov-miner", "hybrid") else None
+            results[mode or "on-demand"].append(run_mode(mode, warm, label))
+    med = {name: statistics.median(x for r in runs for x in r["ms"])
+           for name, runs in results.items()}
+    print("[stream] median ms per streamed step over both passes: "
+          + ", ".join(f"{name} {v:.3f}" for name, v in med.items())
+          + f"; resident {statistics.median(res_ms):.3f}")
+    gap = med["on-demand"] - med["capre"]
+    print(f"[stream] capre against on-demand: {gap:.3f} ms per step "
+          f"({gap / med['on-demand']:.4f} of on-demand); the link's ceiling "
+          f"{link:.3f} GB/s puts {data / link / 1e6:.3f} ms per step under any mode")
+    del store, cache
+    gc.collect()
+    torch.cuda.empty_cache()
+    return results
 
 
 def _bwd_cost(B, Sq, Sk, H, KV, D, causal, products: int, out_q: bool) -> tuple[int, int]:
@@ -775,18 +1047,24 @@ def main() -> int:
         flash_attention_bwd_dkdv,
         flash_attention_bwd_dq,
     )
+    from repro_torch.kernels.prefetch_gather import prefetch_gather_fwd
 
     B, prompt, gen_tokens, max_len = 4, 512, 32, 1024
     recs = [
         phase_flash(torch, ref, flash_attention_fwd),
         phase_decode(torch, ref, decode_attention_fwd, kv_len_main=prompt + gen_tokens // 2),
+        phase_gather(torch, ref, prefetch_gather_fwd),
         *phase_flash_bwd(torch, ref, flash_attention_fwd, flash_attention_bwd_dkdv,
                          flash_attention_bwd_dq),
     ]
-    # each path's counts: serving for the forward and flash-decode, the
-    # Trainer run for the backward kernels
-    launches = phase_slice(torch, flash_attention_fwd, decode_attention_fwd,
+    # each path's counts: serving for the forward, flash-decode and the
+    # gather, the Trainer run for the backward kernels
+    launches = phase_slice(torch, flash_attention_fwd, decode_attention_fwd, prefetch_gather_fwd,
                            B, prompt, gen_tokens, max_len)
+    gc.collect()
+    torch.cuda.empty_cache()
+    phase_stream(torch, {"decode_attention_fwd": decode_attention_fwd,
+                         "prefetch_gather_fwd": prefetch_gather_fwd}, B, prompt, max_len)
     gc.collect()
     torch.cuda.empty_cache()
     train = phase_train(torch, {"flash_attention_fwd": flash_attention_fwd,

@@ -1,8 +1,9 @@
 """PyTorch port of the dense CAPre tensor-store server.
 
 It mirrors the layout of the JAX package ``repro`` (``configs/``,
-``models/``, ``kernels/``, ``launch/``) so that each module's counterpart
-is easy to find, but imports nothing of it: what it needs is copied here.
+``models/``, ``kernels/``, ``launch/``, ``core/``, ``runtime/``,
+``predict/``, ``obs/``, ...) so that each module's counterpart is easy to
+find, but imports nothing of it: what it needs is copied here.
 
 Entry points take ``device=`` and default to ``"cuda"``.  A CUDA device
 that is not there raises; nothing drops to the CPU on its own.  On the CPU

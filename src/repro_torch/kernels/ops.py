@@ -1,6 +1,6 @@
-"""Public attention ops in the model layouts, counterpart of
+"""Public kernel ops in the model layouts, counterpart of
 ``repro.kernels.ops`` (``flash_attention``, ``flash_attention_trainable``,
-``decode_attention``).
+``decode_attention``, ``prefetch_gather``).
 
 Each op chooses by the device of the tensors it is given: a CPU tensor
 takes the plain PyTorch version (``ref``), a CUDA tensor the hand-written
@@ -16,6 +16,7 @@ from . import ref
 from .decode_attention import decode_attention_fwd
 from .flash_attention import flash_attention_fwd
 from .flash_attention_bwd import attention_delta, flash_attention_bwd
+from .prefetch_gather import prefetch_gather_fwd
 
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0, with_lse=False):
@@ -72,3 +73,13 @@ def decode_attention(q, k, v, kv_len):
     if q.is_cuda:
         return decode_attention_fwd(q, k, v, int(kv_len))
     return ref.decode_attention_ref(q, k, v, kv_len)
+
+
+def prefetch_gather(table, idx):
+    """table [N, D]; idx [B] int32 or int64 -> [B, D] = table[idx], for any D
+    and dtype: the JAX wrapper pads D to a multiple of 128 and slices the
+    result back, the CUDA kernel copies rows of any width as they are.  The
+    indices stay on the device (no ``.item()``, no host range check)."""
+    if table.is_cuda:
+        return prefetch_gather_fwd(table, idx)
+    return ref.prefetch_gather_ref(table, idx)

@@ -1,8 +1,8 @@
-"""Plain PyTorch versions of the attention kernels: the ground truth each
-CUDA kernel is held against on the card, and what the kernel wrappers run
-for tensors on the CPU.  Counterpart of ``repro.kernels.ref`` (the two
-attention oracles and the flash-attention backward), with the same layouts
-and the same rounding points."""
+"""Plain PyTorch versions of the kernels: the ground truth each CUDA kernel
+is held against on the card, and what the kernel wrappers run for tensors
+on the CPU.  Counterpart of ``repro.kernels.ref`` (the two attention
+oracles, the flash-attention backward and the row gather), with the same
+layouts and the same rounding points."""
 
 from __future__ import annotations
 
@@ -98,3 +98,8 @@ def decode_attention_ref(q, k, v, kv_len: int):
     vt = v.to(_promote(q.dtype, v.dtype))
     o = torch.einsum("bkgs,bskd->bkgd", p.to(vt.dtype), vt)
     return o.reshape(B, H, D)
+
+
+def prefetch_gather_ref(table, idx):
+    """table [N, D]; idx [B] -> [B, D]: rows ``idx`` of ``table``."""
+    return torch.index_select(table, 0, idx)

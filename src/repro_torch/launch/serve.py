@@ -1,8 +1,11 @@
 """Serving driver of the port: batched prefill, then greedy decode against a
-KV cache.  Counterpart of ``repro.launch.serve``.
+KV cache, with the CAPre access plan of one decode step printed before
+serving (the paper's prefetching hints for the tensor store).  Counterpart
+of ``repro.launch.serve``.
 
 With ``attn_impl="pallas"`` on a CUDA device the prefill runs the CUDA
-flash-attention kernel and every decode step the CUDA flash-decode kernel.
+flash-attention kernel, every decode step the CUDA flash-decode kernel, and
+both the CUDA embedding-row gather.
 
 Usage (on the card; ``--device cpu`` runs the plain path on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
@@ -18,7 +21,10 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.core.access_plan import build_access_plan
 from repro_torch.launch.steps import concrete_batch, make_decode_step, make_prefill_step
+from repro_torch.models.common import tree_items
+from repro_torch.models.transformer import decode_stack
 
 
 class Server:
@@ -28,6 +34,17 @@ class Server:
         self.max_len = max_len
         self.model, self.prefill_fn = make_prefill_step(cfg, self.device)
         _, self.decode_fn = make_decode_step(cfg, self.device)
+
+    def plan(self, batch_size: int):
+        """The CAPre access plan of one decode step, traced on the ``meta``
+        device (compile-time: nothing is allocated and the card is never
+        touched)."""
+        return build_access_plan(
+            lambda p, c, t: self.decode_fn(p, c, t, 0),
+            self.model.abstract_params(),
+            self.model.abstract_cache(batch_size, self.max_len),
+            torch.empty((batch_size, 1), dtype=torch.int64, device="meta"),
+        )
 
     @torch.inference_mode()
     def generate(self, params, batch: dict, steps: int):
@@ -44,6 +61,55 @@ class Server:
             out.append(tok)
         return torch.cat(out, dim=1)
 
+    @torch.inference_mode()
+    def stream_decode(self, streamer, cache: dict, tokens, pos: int):
+        """One decode step whose weights ``streamer`` (a
+        ``runtime.prefetch.WeightStreamer`` over this model's plan) serves
+        group by group: each part of the step (the embedding, the layer
+        stack, the final norm, the head) runs as soon as every parameter it
+        reads has been served, and its parameters are dropped once no later
+        part reads them.  Writes into ``cache`` in place, as ``decode_fn``
+        does; returns (logits [B, 1, vocab], cache)."""
+        cfg, model = self.cfg, self.model
+        paths = [p for p, _ in tree_items(model.template)]
+        head = "embed" if cfg.tie_embeddings else "lm_head"
+        out = {}
+
+        def embed(tree):
+            out["x"] = model.embed(tree, tokens)
+
+        def stack(tree):
+            out["x"], _ = decode_stack(tree, cfg, out["x"], cache, pos)
+
+        def norm(tree):
+            out["x"] = model._final_norm(tree, out["x"])
+
+        def logits(tree):
+            out["logits"] = model.logits(tree, out["x"])[..., : cfg.vocab_size]
+
+        stages = [
+            (embed, {"embed"}),
+            (stack, {p for p in paths if p.startswith("layers.")}),
+            (norm, {p for p in paths if p.split(".")[0] in ("final_norm", "final_norm_b")}),
+            (logits, {head}),
+        ]
+        served: dict = {}
+
+        def compute(_gi, arrays):
+            served.update(arrays)
+            while stages and stages[0][1] <= served.keys():
+                run, needs = stages.pop(0)
+                run(_nest({p: served[p] for p in needs}))
+                later = set().union(*(n for _, n in stages))
+                for p in needs - later:
+                    del served[p]
+
+        streamer.run_plan(compute_fn=compute)
+        if stages:
+            missing = sorted(stages[0][1] - served.keys())
+            raise RuntimeError(f"the plan never served {missing}: the step cannot run")
+        return out["logits"], cache
+
     def _pad_cache(self, cache: dict) -> dict:
         """Grow the seq dim of the cache to ``max_len`` (decode writes slot
         ``pos`` in place, so the buffer must hold every position)."""
@@ -58,6 +124,18 @@ class Server:
             buf[:, :, :S] = c
             out[key] = buf
         return out
+
+
+def _nest(flat: dict) -> dict:
+    """{dotted path: leaf} -> the nested parameter tree."""
+    tree: dict = {}
+    for path, leaf in flat.items():
+        *parents, name = path.split(".")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = leaf
+    return tree
 
 
 def main(argv=None) -> None:
@@ -77,7 +155,11 @@ def main(argv=None) -> None:
         cfg = cfg.replace(attn_impl=args.attn_impl)
     device = resolve_device(args.device)
     server = Server(cfg, device=device, max_len=args.prompt_len + args.gen)
-    print("access plan: not ported yet (the next slice of the port, ROADMAP.md section 1 item 3)")
+    plan = server.plan(args.batch)
+    print(f"access plan: {len(plan.records)} records, "
+          f"{len(plan.collections())} collections, {plan.total_bytes/1e6:.1f} MB")
+    for h in plan.hints()[:8]:
+        print("  hint:", h)
 
     model = server.model
     params = model.compute_params(model.init_params(seed=0))

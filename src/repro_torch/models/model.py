@@ -14,6 +14,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.kernels import ops
 
 from .common import (
     ParamSpec,
@@ -168,7 +169,20 @@ class Model:
     # -- embedding / head ----------------------------------------------------
 
     def embed(self, params, tokens):
-        return params["embed"][tokens].to(cfg_dtype(self.cfg))
+        """The embedding rows of ``tokens`` in the compute dtype.
+
+        Where autograd does not need the table's gradient (serving, and any
+        forward without grad), the rows come from ``ops.prefetch_gather``:
+        the CUDA gather kernel on the card, its plain version elsewhere.
+        Under autograd the lookup stays ``table[tokens]``: the gather kernel,
+        like the TPU kernel it replaces, has no backward."""
+        table = params["embed"]
+        if torch.is_grad_enabled() and table.requires_grad:
+            x = table[tokens]
+        else:
+            x = ops.prefetch_gather(table, tokens.reshape(-1))
+            x = x.reshape(*tokens.shape, table.shape[1])
+        return x.to(cfg_dtype(self.cfg))
 
     def logits(self, params, h):
         """bf16-rounded operands, f32 products and sums (the JAX code's

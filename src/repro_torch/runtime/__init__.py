@@ -1,2 +1,3 @@
-"""Runtime pieces of the training loop.  Counterpart of ``repro.runtime``;
-so far only ``fault.StragglerDetector``."""
+"""Runtime pieces of the port.  Counterpart of ``repro.runtime``: the
+plan-driven weight streamer (``prefetch``) and the training loop's
+``fault.StragglerDetector``."""

@@ -229,3 +229,99 @@ def test_bwd_kernels_refuse_what_they_cannot_take(cuda):
         flash_attention_bwd_dq(q, q[:, :, :2], q[:, :, :2], q, lse[:2], lse)
     with pytest.raises(ValueError):  # do in another dtype
         flash_attention_bwd_dkdv(q, q[:, :, :2], q[:, :, :2], q.float(), lse, lse)
+
+
+# ---------------------------------------------------------------------------
+# the row gather, the pinned host store and a streamed decode
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N,D,B,dtype,idx_dtype", [
+    (65280, 4096, 4, torch.bfloat16, torch.int64),     # chatglm3-6b decode
+    (65280, 4096, 2048, torch.bfloat16, torch.int64),  # its prefill
+    (64, 128, 8, torch.float32, torch.int32),
+    (1000, 384, 17, torch.bfloat16, torch.int32),
+    (16, 130, 5, torch.float32, torch.int64),          # 8-byte copies
+    (16, 130, 5, torch.bfloat16, torch.int32),         # 4-byte copies
+    (7, 1, 9, torch.bfloat16, torch.int64),            # 2-byte copies
+    (33, 3, 6, torch.uint8, torch.int32),              # 1-byte copies
+])
+def test_prefetch_gather_kernel_is_bitwise_the_plain_gather(cuda, N, D, B, dtype, idx_dtype):
+    from repro_torch.kernels.prefetch_gather import prefetch_gather_fwd
+
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    item = torch.empty((), dtype=dtype).element_size()
+    table = torch.randint(0, 256, (N, D * item), generator=gen, device=cuda,
+                          dtype=torch.uint8).view(dtype)  # any bits, NaNs included
+    idx = torch.randint(0, N, (B,), generator=gen, device=cuda).to(idx_dtype)
+    idx[0] = N - 1  # the last row
+    if B > 2:
+        idx[1] = idx[2]  # a repeated row
+    got = prefetch_gather_fwd(table, idx)
+    want = ref.prefetch_gather_ref(table, idx)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == (B, D)
+    assert torch.equal(got.view(torch.uint8), want.view(torch.uint8))
+
+
+def test_prefetch_gather_takes_strided_tables_and_indices(cuda):
+    from repro_torch.kernels.prefetch_gather import prefetch_gather_fwd
+
+    base = torch.arange(40 * 12, dtype=torch.float32, device=cuda).reshape(40, 12)
+    table = base[:, 2:9]  # rows 48 bytes apart, 28 bytes long, offset 8
+    idx = torch.tensor([[3, 1], [39, 0], [5, 5]], device=cuda)[:, 0]  # stride 2
+    n0 = prefetch_gather_fwd.launches
+    got = ops.prefetch_gather(table, idx)
+    assert prefetch_gather_fwd.launches == n0 + 1
+    assert torch.equal(got, table[idx])
+
+
+def test_host_param_store_round_trips_the_bytes(cuda):
+    from repro_torch.runtime.prefetch import HostParamStore
+
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    params = {"a": _randn(gen, (33, 7), torch.bfloat16, cuda),
+              "b": {"c": _randn(gen, (5,), torch.float32, cuda),
+                    "d": torch.randint(0, 9, (3, 3), generator=gen, device=cuda)}}
+    store = HostParamStore(params, device="cuda")
+    assert store.pinned_bytes >= sum(store.nbytes(p) for p in store.arrays)
+    for path, want in (("a", params["a"]), ("b.c", params["b"]["c"]), ("b.d", params["b"]["d"])):
+        assert store.arrays[path].is_pinned()
+        got = store.fetch(path)
+        assert got.is_cuda and got.dtype == want.dtype
+        assert torch.equal(got, want)
+
+
+def test_streamed_decode_equals_resident_decode(cuda):
+    """A decode step whose weights stream from pinned host memory under each
+    mode gives the resident step's logits, bit for bit, and runs both
+    kernels of the step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.prefetch_gather import prefetch_gather_fwd
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+    from repro_torch.runtime.prefetch import HostParamStore, WeightStreamer
+
+    # head_dim 64: the flash kernel of the prefill takes 64 and 128
+    cfg = get_smoke_config("chatglm3_6b").replace(head_dim=64, attn_impl="pallas")
+    server = Server(cfg, device="cuda", max_len=256)
+    params = server.model.compute_params(server.model.init_params(seed=0))
+    batch = concrete_batch(cfg, 2, 128, device="cuda")
+    batch.pop("targets")
+    logits, cache = server.prefill_fn(params, batch)
+    cache = server._pad_cache(cache)
+    tok = torch.argmax(logits, dim=-1)
+    want, _ = server.decode_fn(params, {k: v.clone() for k, v in cache.items()}, tok, 128)
+    plan = server.plan(2)
+    store = HostParamStore(params, device="cuda")
+    for mode in (None, "rop", "capre", "markov", "hybrid"):
+        ws = WeightStreamer(store, plan, mode=mode, k_ahead=3, workers=8,
+                            warm_group_trace=[-1, 0, 1, 2, 3])
+        g0, d0 = prefetch_gather_fwd.launches, decode_attention_fwd.launches
+        got, _ = server.stream_decode(ws, {k: v.clone() for k, v in cache.items()}, tok, 128)
+        ws.close()
+        torch.cuda.synchronize()
+        assert prefetch_gather_fwd.launches == g0 + 1
+        assert decode_attention_fwd.launches == d0 + cfg.n_layers
+        assert ws.metrics.fetch_timeouts == 0 and ws.metrics.fetches == len(plan.records)
+        assert torch.equal(got, want), mode

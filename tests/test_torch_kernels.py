@@ -11,6 +11,8 @@ import ml_dtypes
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 torch.set_num_threads(2)  # beside the other test workers on the CPU
 
@@ -163,14 +165,18 @@ def test_plain_ops_on_cpu_launch_no_kernel():
     the CUDA kernels stay where they were."""
     from repro_torch.kernels.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.prefetch_gather import prefetch_gather_fwd
 
-    f0, d0 = flash_attention_fwd.launches, decode_attention_fwd.launches
+    counters = (flash_attention_fwd, decode_attention_fwd, prefetch_gather_fwd)
+    before = [c.launches for c in counters]
     q = torch.randn(1, 128, 4, 64)
     k = torch.randn(1, 128, 2, 64)
     torch.testing.assert_close(ops.flash_attention(q, k, k), ref.flash_attention_ref(q, k, k))
     torch.testing.assert_close(ops.decode_attention(q[:, 0], k, k, 9),
                                ref.decode_attention_ref(q[:, 0], k, k, 9))
-    assert (flash_attention_fwd.launches, decode_attention_fwd.launches) == (f0, d0)
+    idx = torch.tensor([3, 0, 3])
+    assert torch.equal(ops.prefetch_gather(k[0, :, 0], idx), k[0, idx, 0])
+    assert [c.launches for c in counters] == before
 
 
 def test_kernel_wrappers_refuse_cpu_tensors():
@@ -179,15 +185,19 @@ def test_kernel_wrappers_refuse_cpu_tensors():
     fallback inside a wrapper."""
     from repro_torch.kernels.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.prefetch_gather import prefetch_gather_fwd
 
-    f0, d0 = flash_attention_fwd.launches, decode_attention_fwd.launches
+    counters = (flash_attention_fwd, decode_attention_fwd, prefetch_gather_fwd)
+    before = [c.launches for c in counters]
     q = torch.randn(1, 128, 4, 64)
     k = torch.randn(1, 128, 2, 64)
     with pytest.raises(ValueError, match="CUDA"):
         flash_attention_fwd(q, k, k)
     with pytest.raises(ValueError, match="CUDA"):
         decode_attention_fwd(q[:, 0], k, k, 9)
-    assert (flash_attention_fwd.launches, decode_attention_fwd.launches) == (f0, d0)
+    with pytest.raises(ValueError, match="CUDA"):
+        prefetch_gather_fwd(k[0, :, 0], torch.tensor([1]))
+    assert [c.launches for c in counters] == before
 
 
 def test_kernel_build_dir_is_keyed_by_sources_and_ignored():
@@ -198,7 +208,74 @@ def test_kernel_build_dir_is_keyed_by_sources_and_ignored():
     d = _build.build_dir()
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16 and d == _build.build_dir()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
-        "decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu"]
+        "decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
+        "prefetch_gather.cu"]
     repo = Path(__file__).resolve().parents[1]
     ignored = (repo / ".gitignore").read_text().split()
     assert str(_build.BUILD_ROOT.relative_to(repo)) + "/" in ignored
+
+
+# ---------------------------------------------------------------------------
+# prefetch gather: the sweep of tests/test_kernels.py:88-110, bit for bit
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("N,D,B", [(64, 128, 8), (1000, 384, 17), (16, 130, 5)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64])
+def test_prefetch_gather_matches_jax(N, D, B, dtype, idx_dtype):
+    """The port's plain gather (what ``ops.prefetch_gather`` runs on the CPU)
+    against JAX's ``ops.prefetch_gather`` (the Pallas kernel in interpret
+    mode, D padded to a lane multiple and sliced back): equal bits."""
+    from repro_torch.convert import to_numpy
+
+    rng = np.random.RandomState(3)
+    tj, tt = _pair(rng.randn(N, D), dtype)
+    idx = rng.randint(0, N, size=B)
+    want = jops.prefetch_gather(tj, jnp.asarray(idx, jnp.int32))
+    got = ops.prefetch_gather(tt, torch.from_numpy(idx).to(idx_dtype))
+    assert got.dtype == tt.dtype and got.shape == (B, D)
+    np.testing.assert_array_equal(to_numpy(got), np.asarray(want))
+    np.testing.assert_array_equal(to_numpy(ref.prefetch_gather_ref(tt, torch.from_numpy(idx))),
+                                  np.asarray(jref.prefetch_gather_ref(tj, jnp.asarray(idx))))
+
+
+@settings(max_examples=25, deadline=None)
+@given(n=st.integers(2, 64), b=st.integers(1, 16), d=st.integers(1, 200), data=st.data())
+def test_prefetch_gather_property(n, b, d, data):
+    """Hint-driven gather == direct indexing, for any hint set and width."""
+    idx = data.draw(st.lists(st.integers(0, n - 1), min_size=b, max_size=b))
+    table = torch.arange(n * d, dtype=torch.float32).reshape(n, d)
+    got = ops.prefetch_gather(table, torch.tensor(idx))
+    np.testing.assert_array_equal(got.numpy(), table.numpy()[idx])
+
+
+@pytest.mark.parametrize("arch", ["chatglm3_6b", "minitron_8b"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_model_embed_matches_jax(arch, dtype):
+    """``Model.embed`` (the gather path: no autograd) equals JAX's
+    ``jnp.take`` lookup, bit for bit, at f32 and bf16 compute; under
+    autograd the port keeps indexing, with the same values."""
+    import jax
+
+    from repro.configs import get_smoke_config as jget_smoke
+    from repro.models.model import Model as JModel
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import from_numpy_tree, to_numpy
+    from repro_torch.models.model import Model
+
+    jmodel = JModel(jget_smoke(arch).replace(compute_dtype=dtype))
+    jparams = jmodel.init_params(jax.random.PRNGKey(0))
+    model = Model(get_smoke_config(arch).replace(compute_dtype=dtype), device="cpu")
+    params = from_numpy_tree({"embed": np.asarray(jparams["embed"])})
+    tokens = np.random.RandomState(4).randint(0, model.cfg.vocab_size, (3, 7))
+    want = np.asarray(jmodel.embed(jparams, jnp.asarray(tokens, jnp.int32)))
+    with torch.inference_mode():
+        got = model.embed(params, torch.from_numpy(tokens))
+    assert tuple(got.shape) == (3, 7, model.cfg.d_model)
+    np.testing.assert_array_equal(to_numpy(got), want)
+    table = params["embed"].requires_grad_()
+    with torch.enable_grad():
+        grad_path = model.embed({"embed": table}, torch.from_numpy(tokens))
+    assert grad_path.requires_grad
+    np.testing.assert_array_equal(to_numpy(grad_path.detach()), want)

@@ -65,6 +65,9 @@ def test_serve_cli_on_cpu(capsys):
           "--prompt-len", "128", "--gen", "4", "--attn-impl", "pallas"])
     out = capsys.readouterr().out
     assert "generated (2, 4) tokens" in out and "on cpu" in out
+    # the access plan of one decode step, printed before serving
+    assert "access plan: 15 records, 12 collections" in out
+    assert "  hint: embed\n" in out and "  hint: layers.ln1[]" in out
 
 
 def test_port_imports_no_jax_and_nothing_of_repro():
@@ -74,7 +77,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
         for n in names:
             importlib.import_module(n)
-        assert len(names) >= 15, names
+        new = {"repro_torch.core.access_plan", "repro_torch.obs.metrics",
+               "repro_torch.obs.spans", "repro_torch.predict.registry",
+               "repro_torch.predict.stream", "repro_torch.runtime.prefetch",
+               "repro_torch.kernels.prefetch_gather"}
+        assert new <= set(names), sorted(new - set(names))
+        assert len(names) >= 30, names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
