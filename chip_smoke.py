@@ -66,6 +66,25 @@ Phases, each printing its lines; any failure exits non-zero:
      and a fourth step under torch.profiler gives the device's busy share
      and the kernels with the most device time.
 
+  scans: the mamba and RG-LRU scan kernels against their plain versions
+     (outputs and the mamba scan's last state) at S in {1, 7, 128, 512}
+     with and without an initial state, in f32 and bf16, at the serving
+     widths and at channel counts that are not a multiple of a block; then
+     timed (CUDA graphs) at the serving shapes, prefill and decode, beside
+     their plain versions and their byte bounds (no PyTorch call computes
+     either scan);
+  7. falcon-mamba-7b and 8. recurrentgemma-2b at full width and depth (64
+     and 26 layers; random weights from seed 0), each served by
+     ``Server.generate`` with ``attn_impl="pallas"``, B=4, prompt 512, 32
+     generated tokens, bf16 weights: prefill ms, decode ms per step,
+     tokens/s, peak memory, and the launch counts of that run (the mamba
+     scan once per layer per prefill and per decode step, 2,048 in all; the
+     RG-LRU scan once per recurrent layer, 576; the gather 32; no attention
+     kernel).  Then the kernel path against the plain loop over time
+     (``"chunked"``), teacher-forced on the generated tokens (prefill and 8
+     steps), in bf16 (at full depth, and at depth 3 with a tighter limit)
+     and, with the same weights drawn again in f32, in f32.
+
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
 repository beside this file, it exits non-zero and prints no result.
@@ -128,6 +147,21 @@ LOSS_REL_TOL = 2e-2
 # largest gradient magnitude of the whole tree instead of its own
 ZERO_GRAD_LEAVES = ("layers.attn.bk",)
 TRAIN_DEPTH = 16
+# the recurrent models' bf16 logits, kernel path against the plain loop over
+# time, as a fraction of the largest logit.  Both paths round at the same
+# places (the scans' states and sums in f32, their outputs rounded once to
+# bf16) and the RG-LRU kernel is bitwise its plain version; only the order
+# of the mamba scan's 16-term f32 sum of y differs, which flips the bf16
+# rounding of a few of y's elements by one unit (0.4%).  Random layers
+# amplify a perturbation ~100x over falcon-mamba-7b's 64 (f32: ~1e-7 per
+# scan output, 1.0e-5 at the logits), so at full depth those flips reach
+# ~2e-2 (1.954e-2 measured on an H100), and the full-depth limit is the
+# dense phase's, which catches gross errors only (both bf16 paths sit ~6.7%
+# from f32).  The tight bf16 check is at depth 3 (full width, one of each
+# kind of the hybrid's pattern), where little is amplified
+RECURRENT_REL_TOL_BF16 = LOGITS_REL_TOL_BF16
+RECURRENT_REL_TOL_BF16_DEPTH3 = 2e-2
+RECURRENT = ("falcon_mamba_7b", "recurrentgemma_2b")
 # streamed decode logits against the resident decode's, relative to the
 # largest logit: the same kernels on the same bits, so expected equal
 STREAM_REL_TOL = 1e-5
@@ -445,13 +479,15 @@ def rel_err(torch, got, want) -> tuple[float, float]:
             float(d.pow(2).mean().sqrt() / want.float().pow(2).mean().sqrt()))
 
 
-def check_paths(torch, label, cfg, kern, plain, tol, plain_impl="chunked") -> None:
+def check_paths(torch, label, cfg, kern, plain, tol, plain_impl="chunked",
+                tag="slice") -> None:
     B, T = kern.shape[:2]
     check(tuple(kern.shape) == (B, T, cfg.vocab_size), f"logits {tuple(kern.shape)}")
     check(bool(torch.isfinite(kern).all()), f"{label}: non-finite logits on the kernel path")
+    check(bool(torch.isfinite(plain).all()), f"{label}: non-finite logits on the plain path")
     rel, rms = rel_err(torch, kern, plain)
     agree = float((kern.argmax(-1) == plain.argmax(-1)).float().mean())
-    print(f"[slice] {label}: kernel path vs plain {plain_impl} path, prefill + {T - 1} steps "
+    print(f"[{tag}] {label}: kernel path vs plain {plain_impl} path, prefill + {T - 1} steps "
           f"teacher-forced: max |logit diff| / max |logit| {rel:.4e} (tol {tol}), "
           f"relative rms {rms:.4e}, top-1 agreement {agree:.4f}")
     check(rel <= tol, f"{label}: kernel path logits disagree with the plain path")
@@ -511,6 +547,40 @@ def profile_run(torch, label: str, fn) -> None:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} x  {key[:100]}")
 
 
+def time_serve(torch, server, params, batch, gen_tokens: int, counters: dict) -> dict:
+    """Serve ``batch`` through ``server.generate``, as a user would: a
+    4-token warm-up (cuBLAS handles, the allocator), the prefill alone
+    three times, then ``gen_tokens`` tokens three times.  The launch
+    counters are zeroed just before the first full run and read just after
+    it, and the peak memory is that run's.  The decode loop is bound by the
+    host, whose time varies from run to run, hence the medians."""
+    def timed_generate(steps: int):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = server.generate(params, batch, steps)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    timed_generate(4)
+    prefill_s = sorted(timed_generate(1)[1] for _ in range(3))[1]
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    tokens, first_s = timed_generate(gen_tokens)
+    launched = {n: c.launches for n, c in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    totals = sorted([first_s] + [timed_generate(gen_tokens)[1] for _ in range(2)])
+    total_s = totals[1]
+    B = tokens.shape[0]
+    decode_ms = (total_s - prefill_s) / (gen_tokens - 1) * 1e3
+    line = (f"B={B} prompt={batch['inputs'].shape[1]} generated={gen_tokens} "
+            f"max_len={server.max_len} {server.cfg.compute_dtype}: prefill "
+            f"{prefill_s * 1e3:.3f} ms (median of 3), decode {decode_ms:.3f} ms/token step, "
+            f"{B * gen_tokens / total_s:.1f} tokens/s end to end ({total_s:.3f} s, median of "
+            f"{', '.join(f'{t:.3f}' for t in totals)} s), peak memory {peak} B")
+    return {"tokens": tokens, "launched": launched, "line": line}
+
+
 def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
                 gen_tokens: int, max_len: int) -> dict:
     from repro_torch.configs import get_config
@@ -532,35 +602,12 @@ def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
     batch.pop("targets")
     check_head(torch, model, params, B)
 
-    def timed_generate(steps: int):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = server.generate(params, batch, steps)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t
-
-    timed_generate(4)  # warm-up: cuBLAS handles, allocator
-    prefill_s = sorted(timed_generate(1)[1] for _ in range(3))[1]
-
-    torch.cuda.reset_peak_memory_stats()
-    flash_fwd.launches = 0
-    decode_fwd.launches = 0
-    gather_fwd.launches = 0
-    tokens, total_s = timed_generate(gen_tokens)
-    n_flash, n_decode, n_gather = flash_fwd.launches, decode_fwd.launches, gather_fwd.launches
-    peak = torch.cuda.max_memory_allocated()
-    # the decode loop is bound by the host, whose time varies from run to
-    # run: two more runs, and the median of the three
-    totals = sorted([total_s] + [timed_generate(gen_tokens)[1] for _ in range(2)])
-    total_s = totals[1]
-
+    run = time_serve(torch, server, params, batch, gen_tokens,
+                     {"flash": flash_fwd, "decode": decode_fwd, "gather": gather_fwd})
+    tokens = run["tokens"]
+    n_flash, n_decode, n_gather = (run["launched"][k] for k in ("flash", "decode", "gather"))
     decode_steps = gen_tokens - 1
-    decode_ms = (total_s - prefill_s) / decode_steps * 1e3
-    print(f"[slice] B={B} prompt={prompt} generated={gen_tokens} max_len={max_len} "
-          f"{cfg.compute_dtype}: prefill {prefill_s * 1e3:.3f} ms (median of 3), decode "
-          f"{decode_ms:.3f} ms/token step, {B * gen_tokens / total_s:.1f} tokens/s end to "
-          f"end ({total_s:.3f} s, median of {', '.join(f'{t:.3f}' for t in totals)} s), "
-          f"peak memory {peak} B")
+    print(f"[slice] {run['line']}")
     print(f"[slice] launches in that run: flash_attention_fwd {n_flash} "
           f"(want {cfg.n_layers}), decode_attention_fwd {n_decode} "
           f"(want {cfg.n_layers * decode_steps}), prefetch_gather_fwd {n_gather} "
@@ -1022,6 +1069,180 @@ def phase_train(torch, counters: dict) -> dict:
     return launches
 
 
+def _check_scan(torch, label: str, got, want, tol: float) -> float:
+    ok, err = allclose(torch, got, want, tol)
+    print(f"[scans] {label}: max_abs_err {err:.3e} (tol {tol})")
+    check(ok and got.dtype == want.dtype and got.shape == want.shape,
+          f"{label}: the kernel disagrees with its plain version")
+    return err
+
+
+def phase_scans(torch, ref, mamba_fwd, rglru_fwd) -> list:
+    """Check both scan kernels against their plain versions; time them at
+    the serving shapes.  Returns their two JSON records (the prefill
+    shape's numbers; launches filled in later)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(12)
+    errs = {"mamba_scan_fwd": 0.0, "rglru_scan_fwd": 0.0}
+    cases = [(4, S, 8192, 16) for S in (1, 7, 128, 512)] + [(2, 7, 8200, 16), (3, 33, 300, 5)]
+    for (B, S, Ch, N), dt, with_h0 in itertools.product(
+            cases, (torch.float32, torch.bfloat16), (False, True)):
+        dA = (0.3 + 0.69 * torch.rand((B, S, Ch, N), generator=gen, device=dev)).to(dt)
+        dBu = (0.1 * torch.randn((B, S, Ch, N), generator=gen, device=dev)).to(dt)
+        C = torch.randn((B, S, N), generator=gen, device=dev).to(dt)
+        h0 = torch.randn((B, Ch, N), generator=gen, device=dev) if with_h0 else None
+        y, h = mamba_fwd(dA, dBu, C, h0, with_state=True)
+        y_ref, h_ref = ref.mamba_scan_ref(dA, dBu, C, h0, with_state=True)
+        torch.cuda.synchronize()
+        label = f"mamba B={B} S={S} Ch={Ch} N={N} {dt} h0={with_h0}"
+        err = _check_scan(torch, label + " y", y, y_ref, TOL[str(dt).split(".")[-1]])
+        _check_scan(torch, label + " h_S", h, h_ref, TOL["float32"])
+        if dt == torch.float32:
+            errs["mamba_scan_fwd"] = max(errs["mamba_scan_fwd"], err)
+        del dA, dBu, C, h0, y, h, y_ref, h_ref
+    cases = [(4, S, 2560) for S in (1, 7, 128, 512)] + [(2, 7, 2500), (3, 33, 300)]
+    for (B, S, W), dt, with_h0 in itertools.product(
+            cases, (torch.float32, torch.bfloat16), (False, True)):
+        a = (0.5 + 0.49 * torch.rand((B, S, W), generator=gen, device=dev)).to(dt)
+        g = (0.1 * torch.randn((B, S, W), generator=gen, device=dev)).to(dt)
+        h0 = torch.randn((B, W), generator=gen, device=dev) if with_h0 else None
+        y, y_ref = rglru_fwd(a, g, h0), ref.rglru_scan_ref(a, g, h0)
+        torch.cuda.synchronize()
+        label = f"rglru B={B} S={S} W={W} {dt} h0={with_h0}"
+        err = _check_scan(torch, label, y, y_ref, TOL[str(dt).split(".")[-1]])
+        if dt == torch.float32:
+            check(torch.equal(y, y_ref), f"{label}: f32 output not bitwise its plain version")
+            errs["rglru_scan_fwd"] = max(errs["rglru_scan_fwd"], err)
+
+    # the serving shapes, in the model's calls: prefill from zeros and
+    # decode (S = 1) from a state, f32 inputs, the mamba scan's last state
+    # written out
+    recs, f32 = [], 4  # bytes per f32 element
+    B, Ch, N = 4, 8192, 16
+    times = {}
+    for label, S in (("prefill", 512), ("decode", 1)):
+        dA = torch.rand((B, S, Ch, N), generator=gen, device=dev)
+        dBu = torch.randn((B, S, Ch, N), generator=gen, device=dev)
+        C = torch.randn((B, S, N), generator=gen, device=dev)
+        h0 = torch.randn((B, Ch, N), generator=gen, device=dev) if S == 1 else None
+        ms = graph_ms(torch, lambda: mamba_fwd(dA, dBu, C, h0, with_state=True), iters=20)
+        plain_ms = graph_ms(torch, lambda: ref.mamba_scan_ref(dA, dBu, C, h0, with_state=True),
+                            iters=2, reps=3)
+        nbytes = f32 * (2 * B * S * Ch * N + B * S * N + B * S * Ch + B * Ch * N
+                        + (B * Ch * N if h0 is not None else 0))
+        flops = 4 * B * S * Ch * N  # h: a multiply and an add; y: a multiply and an add
+        times[label] = (ms, plain_ms, max(nbytes / HBM_BPS, flops / F32_FLOPS) * 1e3)
+        print(f"[scans] mamba {label} shape B={B} S={S} Ch={Ch} N={N} f32: kernel {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms (device times, CUDA graph); bound "
+              f"{times[label][2] * 1e3:.3f} us by bytes ({nbytes} B, {flops} FLOP); no library "
+              f"call computes the scan")
+        del dA, dBu, C, h0
+    ms, plain_ms, bound = times["prefill"]
+    recs.append({
+        "name": "mamba_scan_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/mamba_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:46",
+        "launches": None, "max_abs_err": errs["mamba_scan_fwd"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+    })
+    B, W = 4, 2560
+    for label, S in (("prefill", 512), ("decode", 1)):
+        a = torch.rand((B, S, W), generator=gen, device=dev)
+        g = torch.randn((B, S, W), generator=gen, device=dev)
+        h0 = torch.randn((B, W), generator=gen, device=dev) if S == 1 else None
+        ms = graph_ms(torch, lambda: rglru_fwd(a, g, h0), iters=20)
+        plain_ms = graph_ms(torch, lambda: ref.rglru_scan_ref(a, g, h0), iters=2, reps=3)
+        nbytes = f32 * (3 * B * S * W + (B * W if h0 is not None else 0))
+        flops = 2 * B * S * W
+        times[label] = (ms, plain_ms, max(nbytes / HBM_BPS, flops / F32_FLOPS) * 1e3)
+        print(f"[scans] rglru {label} shape B={B} S={S} W={W} f32: kernel {ms:.5f} ms, plain "
+              f"{plain_ms:.5f} ms (device times, CUDA graph); bound {times[label][2] * 1e3:.3f} "
+              f"us by bytes ({nbytes} B, {flops} FLOP); no library call computes the scan")
+    ms, plain_ms, bound = times["prefill"]
+    recs.append({
+        "name": "rglru_scan_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:42",
+        "launches": None, "max_abs_err": errs["rglru_scan_fwd"], "ms": ms, "plain_ms": plain_ms,
+        "bound_ms": bound, "bound_by": "bytes", "library_ms": None,
+    })
+    return recs
+
+
+def phase_recurrent(torch, arch: str, counters: dict, B: int, prompt: int,
+                    gen_tokens: int) -> dict:
+    """One recurrent model (ssm or hybrid) at full width and depth, served
+    through ``Server.generate``; the launch counts of that run, then the
+    kernel path against the plain path in bf16 and f32.  Returns the
+    launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+    from repro_torch.models.transformer import block_kinds
+
+    tag = arch.split("_")[0]
+    cfg = get_config(arch).replace(attn_impl="pallas")
+    max_len = prompt + gen_tokens
+    server = Server(cfg, device="cuda", max_len=max_len)
+    model = server.model
+    t0 = time.perf_counter()
+    # bf16 weights; A_log, D, lam and the norms stay f32; the f32 weights
+    # are dropped (the f32 check below draws them again from the same seed)
+    params = model.compute_params(model.init_params(seed=0))
+    torch.cuda.synchronize()
+    kinds = block_kinds(cfg) if cfg.family == "hybrid" else ["mamba"] * cfg.n_layers
+    print(f"[{tag}] {cfg.name} ({cfg.family}): {cfg.n_layers} layers "
+          f"({', '.join(f'{kinds.count(k)} {k}' for k in sorted(set(kinds)))}), d_model "
+          f"{cfg.d_model}, vocab {cfg.vocab_size}, {cfg.param_count()} params; f32 init and "
+          f"{cfg.compute_dtype} cast in {time.perf_counter() - t0:.3f} s")
+    batch = concrete_batch(cfg, B, prompt, device="cuda")
+    batch.pop("targets")
+    scan = "mamba_scan_fwd" if cfg.family == "ssm" else "rglru_scan_fwd"
+    per_call = cfg.n_layers if cfg.family == "ssm" else kinds.count("rec")
+    decode_steps = gen_tokens - 1
+    want = {n: 0 for n in counters}
+    want[scan] = per_call * (1 + decode_steps)
+    want["prefetch_gather_fwd"] = 1 + decode_steps
+
+    run = time_serve(torch, server, params, batch, gen_tokens, counters)
+    tokens, launched = run["tokens"], run["launched"]
+    print(f"[{tag}] {run['line']}")
+    print(f"[{tag}] launches in that run: {launched} (want {want})")
+    check(tuple(tokens.shape) == (B, gen_tokens), f"tokens shape {tuple(tokens.shape)}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token out of range")
+    check(launched == want, f"{cfg.name}: the serve's launch counts are not the path's")
+    profile_run(torch, f"{cfg.name} generate(8 tokens)",
+                lambda: server.generate(params, batch, 8))
+
+    # the plain path, teacher-forced on the first 9 generated tokens, in
+    # bf16, in bf16 at depth 3, and (the same weights, not cast) in f32
+    forced = tokens[:, :9]
+    kern16, plain16 = teacher_forced(torch, cfg, params, batch, forced, max_len)
+    check(torch.equal(kern16.argmax(-1), forced), "replayed kernel path disagrees with generate")
+    check_paths(torch, "bf16 compute", cfg, kern16, plain16, RECURRENT_REL_TOL_BF16, tag=tag)
+    del params, server, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg3 = cfg.replace(n_layers=3)
+    model3 = Server(cfg3, device="cuda", max_len=max_len).model
+    kern3, plain3 = teacher_forced(torch, cfg3, model3.compute_params(model3.init_params(seed=0)),
+                                   batch, forced, max_len)
+    check_paths(torch, "bf16 compute, depth 3", cfg3, kern3, plain3,
+                RECURRENT_REL_TOL_BF16_DEPTH3, tag=tag)
+    cfg32 = cfg.replace(compute_dtype="float32")
+    params32 = Server(cfg32, device="cuda", max_len=max_len).model.init_params(seed=0)
+    kern32, plain32 = teacher_forced(torch, cfg32, params32, batch, forced, max_len)
+    check_paths(torch, "f32 compute", cfg32, kern32, plain32, LOGITS_REL_TOL_F32, tag=tag)
+    for label, got in (("kernel", kern16), ("plain chunked", plain16)):
+        rel, rms = rel_err(torch, got, kern32)
+        print(f"[{tag}] bf16 {label} path vs the f32 kernel path: max |logit diff| / max "
+              f"|logit| {rel:.4e}, relative rms {rms:.4e}")
+    del params32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
@@ -1047,7 +1268,9 @@ def main() -> int:
         flash_attention_bwd_dkdv,
         flash_attention_bwd_dq,
     )
+    from repro_torch.kernels.mamba_scan import mamba_scan_fwd
     from repro_torch.kernels.prefetch_gather import prefetch_gather_fwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
 
     B, prompt, gen_tokens, max_len = 4, 512, 32, 1024
     recs = [
@@ -1056,6 +1279,7 @@ def main() -> int:
         phase_gather(torch, ref, prefetch_gather_fwd),
         *phase_flash_bwd(torch, ref, flash_attention_fwd, flash_attention_bwd_dkdv,
                          flash_attention_bwd_dq),
+        *phase_scans(torch, ref, mamba_scan_fwd, rglru_scan_fwd),
     ]
     # each path's counts: serving for the forward, flash-decode and the
     # gather, the Trainer run for the backward kernels
@@ -1071,6 +1295,17 @@ def main() -> int:
                                 "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv,
                                 "flash_attention_bwd_dq": flash_attention_bwd_dq})
     launches.update({k: v for k, v in train.items() if k != "flash_attention_fwd"})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the recurrent families' serving paths; the scans' counts come from
+    # these runs
+    serve_counters = {"flash_attention_fwd": flash_attention_fwd,
+                      "decode_attention_fwd": decode_attention_fwd,
+                      "prefetch_gather_fwd": prefetch_gather_fwd,
+                      "mamba_scan_fwd": mamba_scan_fwd, "rglru_scan_fwd": rglru_scan_fwd}
+    for arch in RECURRENT:
+        run = phase_recurrent(torch, arch, serve_counters, B, prompt, gen_tokens)
+        launches.update({k: v for k, v in run.items() if k.endswith("scan_fwd") and v})
     for r in recs:
         r["launches"] = launches[r["name"]]
         check(r["launches"] > 0, f"{r['name']} was not launched on its path")

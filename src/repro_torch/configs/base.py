@@ -2,9 +2,10 @@
 backs ``--arch <id>`` selection.
 
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
-package).  The port serves the dense family so far, so the registry holds
-the four dense architectures; each ``<id>.py`` carries the exact published
-numbers and a ``smoke()`` reduction (same family, tiny dims).
+package).  The port serves the dense, ssm and hybrid families so far, so
+the registry holds their six architectures; each ``<id>.py`` carries the
+exact published numbers and a ``smoke()`` reduction (same family, tiny
+dims).
 """
 
 from __future__ import annotations
@@ -90,7 +91,10 @@ class ModelConfig:
     # attention implementation: naive | chunked (online softmax in plain
     # PyTorch) | pallas (the name kept from the JAX package: the hand-written
     # CUDA flash-attention and flash-decode kernels on a CUDA device, their
-    # plain versions on the CPU)
+    # plain versions on the CPU).  In the port "pallas" also routes the ssm
+    # and hybrid families' scans to the CUDA mamba and RG-LRU scan kernels;
+    # the other values run them as a loop over time
+    # (``models/ssm.py:selective_scan``, ``models/rglru.py:rglru_scan``)
     attn_impl: str = "chunked"
     attn_chunk: int = 1024
 
@@ -169,13 +173,15 @@ def runnable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
 # Registry
 # ---------------------------------------------------------------------------
 
-# the dense family; the other six architectures of ``repro.configs`` join
-# with their families' slices
+# the dense, ssm and hybrid families; the other four architectures of
+# ``repro.configs`` join with their families' slices
 ARCH_IDS = (
     "chatglm3_6b",
     "yi_34b",
     "qwen1_5_4b",
     "minitron_8b",
+    "falcon_mamba_7b",
+    "recurrentgemma_2b",
 )
 
 

@@ -6,13 +6,17 @@ tree on a given device, leaf by leaf under the same keys
 bfloat16 and float8_e4m3fn arrays (``ml_dtypes`` types in numpy) go across
 bit for bit, through an integer view of the same width, never through a
 float cast.  The caller does the JAX-side flattening, so this module imports
-no JAX.
+no JAX.  Like every entry point of the port, the functions that make
+tensors default to ``device="cuda"`` and raise without a card unless given
+``device="cpu"``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from repro_torch import resolve_device
 
 # numpy dtype name -> (unsigned view of the same width, torch dtype)
 _BIT_VIEWS = {
@@ -26,22 +30,24 @@ _TORCH_BITS = {
 }
 
 
-def to_tensor(a, device="cpu") -> torch.Tensor:
+def to_tensor(a, device="cuda") -> torch.Tensor:
     """One numpy array -> a tensor on ``device`` with the same bits."""
+    dev = resolve_device(device)
     a = np.asarray(a)
     view = _BIT_VIEWS.get(a.dtype.name)
     if view is not None:
         bits, tdt = view
-        return torch.from_numpy(a.view(bits).copy()).view(tdt).to(device)
-    return torch.from_numpy(a.copy()).to(device)
+        return torch.from_numpy(a.view(bits).copy()).view(tdt).to(dev)
+    return torch.from_numpy(a.copy()).to(dev)
 
 
-def from_numpy_tree(tree, device="cpu"):
+def from_numpy_tree(tree, device="cuda"):
     """A nested dict of numpy arrays -> the same tree of tensors on
     ``device``."""
+    dev = resolve_device(device)
     if isinstance(tree, dict):
-        return {k: from_numpy_tree(v, device) for k, v in tree.items()}
-    return to_tensor(tree, device)
+        return {k: from_numpy_tree(v, dev) for k, v in tree.items()}
+    return to_tensor(tree, dev)
 
 
 def tensor_bits(t: torch.Tensor) -> tuple[np.ndarray, str]:
@@ -60,14 +66,15 @@ def tensor_bits(t: torch.Tensor) -> tuple[np.ndarray, str]:
     return a.view(np.dtype(f"V{a.itemsize}")), name
 
 
-def from_bits(a: np.ndarray, dtype_name: str, device="cpu") -> torch.Tensor:
+def from_bits(a: np.ndarray, dtype_name: str, device="cuda") -> torch.Tensor:
     """The inverse of ``tensor_bits``: a raw-bits (void), ``ml_dtypes`` or
     plain numpy array whose values are of dtype ``dtype_name`` -> a tensor."""
+    dev = resolve_device(device)
     view = _BIT_VIEWS.get(dtype_name)
     if view is None:
-        return to_tensor(a, device)
+        return to_tensor(a, dev)
     bits, tdt = view
-    return torch.from_numpy(np.ascontiguousarray(a).view(bits).copy()).view(tdt).to(device)
+    return torch.from_numpy(np.ascontiguousarray(a).view(bits).copy()).view(tdt).to(dev)
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:

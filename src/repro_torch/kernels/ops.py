@@ -1,6 +1,6 @@
 """Public kernel ops in the model layouts, counterpart of
 ``repro.kernels.ops`` (``flash_attention``, ``flash_attention_trainable``,
-``decode_attention``, ``prefetch_gather``).
+``decode_attention``, ``prefetch_gather``, ``rglru_scan``, ``mamba_scan``).
 
 Each op chooses by the device of the tensors it is given: a CPU tensor
 takes the plain PyTorch version (``ref``), a CUDA tensor the hand-written
@@ -16,7 +16,9 @@ from . import ref
 from .decode_attention import decode_attention_fwd
 from .flash_attention import flash_attention_fwd
 from .flash_attention_bwd import attention_delta, flash_attention_bwd
+from .mamba_scan import mamba_scan_fwd
 from .prefetch_gather import prefetch_gather_fwd
+from .rglru_scan import rglru_scan_fwd
 
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0, with_lse=False):
@@ -83,3 +85,28 @@ def prefetch_gather(table, idx):
     if table.is_cuda:
         return prefetch_gather_fwd(table, idx)
     return ref.prefetch_gather_ref(table, idx)
+
+
+def rglru_scan(a, g, h0=None):
+    """a, g [B, S, W]; h0 [B, W] f32 or None (zeros) -> y [B, S, W] in a's
+    dtype: h_t = a_t * h_{t-1} + g_t, y_t = h_t, with an f32 state.
+
+    The CUDA kernel reads the model's layout as it is; the JAX wrapper folds
+    batch into channels ([S, B * W]), has no h0 and takes block sizes, which
+    have no counterpart here (the kernel takes any S and W)."""
+    if a.is_cuda:
+        return rglru_scan_fwd(a, g, h0)
+    return ref.rglru_scan_ref(a, g, h0)
+
+
+def mamba_scan(dA, dBu, C, h0=None, with_state=False):
+    """dA, dBu [B, S, Ch, N]; C [B, S, N]; h0 [B, Ch, N] f32 or None (zeros)
+    -> y [B, S, Ch] in dA's dtype: h_t = dA_t * h_{t-1} + dBu_t, y_t = h_t .
+    C_t, with an f32 state; with ``with_state``, (y, h_S [B, Ch, N] f32).
+
+    The JAX wrapper vmaps batch over the TPU kernel, which starts from zero
+    and drops its last state; the CUDA kernel takes h0 and returns h_S,
+    what the model's prefill and decode need, and any S and Ch."""
+    if dA.is_cuda:
+        return mamba_scan_fwd(dA, dBu, C, h0, with_state)
+    return ref.mamba_scan_ref(dA, dBu, C, h0, with_state)

@@ -1,8 +1,8 @@
 """Plain PyTorch versions of the kernels: the ground truth each CUDA kernel
 is held against on the card, and what the kernel wrappers run for tensors
 on the CPU.  Counterpart of ``repro.kernels.ref`` (the two attention
-oracles, the flash-attention backward and the row gather), with the same
-layouts and the same rounding points."""
+oracles, the flash-attention backward, the row gather and the two scans),
+with the same layouts and the same rounding points."""
 
 from __future__ import annotations
 
@@ -103,3 +103,36 @@ def decode_attention_ref(q, k, v, kv_len: int):
 def prefetch_gather_ref(table, idx):
     """table [N, D]; idx [B] -> [B, D]: rows ``idx`` of ``table``."""
     return torch.index_select(table, 0, idx)
+
+
+def rglru_scan_ref(a, g, h0=None):
+    """a, g [..., S, M] -> y [..., S, M] in a's dtype, with h_t = a_t *
+    h_{t-1} + g_t and y_t = h_t in an f32 state starting from h0 [..., M]
+    f32 (zeros when None): [S, M] as the JAX oracle takes it, [B, S, W] as
+    the model passes it."""
+    h = (torch.zeros(a.shape[:-2] + a.shape[-1:], dtype=torch.float32, device=a.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(a.shape[-2]):
+        h = a[..., t, :].float() * h + g[..., t, :].float()
+        ys.append(h)
+    if not ys:
+        return torch.empty_like(a)
+    return torch.stack(ys, dim=-2).to(a.dtype)
+
+
+def mamba_scan_ref(dA, dBu, C, h0=None, with_state: bool = False):
+    """dA, dBu [..., S, Ch, N]; C [..., S, N] -> y [..., S, Ch] in dA's
+    dtype, with h_t = dA_t * h_{t-1} + dBu_t and y_t = h_t . C_t in an f32
+    state starting from h0 [..., Ch, N] f32 (zeros when None): [S, Ch, N] as
+    the JAX oracle takes it, [B, S, Ch, N] as the model passes it.  With
+    ``with_state`` also returns the last state [..., Ch, N] f32."""
+    h = (torch.zeros(dA.shape[:-3] + dA.shape[-2:], dtype=torch.float32, device=dA.device)
+         if h0 is None else h0.float())
+    ys = []
+    for t in range(dA.shape[-3]):
+        h = dA[..., t, :, :].float() * h + dBu[..., t, :, :].float()
+        ys.append(torch.einsum("...cn,...n->...c", h, C[..., t, :].float()))
+    y = (torch.stack(ys, dim=-2) if ys else dA.new_empty(dA.shape[:-1], dtype=torch.float32))
+    y = y.to(dA.dtype)
+    return (y, h) if with_state else y

@@ -3,13 +3,17 @@ KV cache, with the CAPre access plan of one decode step printed before
 serving (the paper's prefetching hints for the tensor store).  Counterpart
 of ``repro.launch.serve``.
 
-With ``attn_impl="pallas"`` on a CUDA device the prefill runs the CUDA
-flash-attention kernel, every decode step the CUDA flash-decode kernel, and
-both the CUDA embedding-row gather.
+With ``attn_impl="pallas"`` on a CUDA device the dense family's prefill
+runs the CUDA flash-attention kernel and every decode step the CUDA
+flash-decode kernel; the ssm family's prefill and decode run the CUDA mamba
+scan once per layer, the hybrid's the CUDA RG-LRU scan once per recurrent
+layer (its windowed attention takes the plain path, as in JAX); all take
+the embedding rows with the CUDA row gather.
 
 Usage (on the card; ``--device cpu`` runs the plain path on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
       --batch 4 --prompt-len 512 --gen 32 --attn-impl pallas
+  (also ``--arch falcon_mamba_7b`` and ``--arch recurrentgemma_2b``)
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.access_plan import build_access_plan
 from repro_torch.launch.steps import concrete_batch, make_decode_step, make_prefill_step
 from repro_torch.models.common import tree_items
-from repro_torch.models.transformer import decode_stack
+from repro_torch.models.transformer import decode_layers
 
 
 class Server:
@@ -79,7 +83,7 @@ class Server:
             out["x"] = model.embed(tree, tokens)
 
         def stack(tree):
-            out["x"], _ = decode_stack(tree, cfg, out["x"], cache, pos)
+            out["x"], _ = decode_layers(tree, cfg, out["x"], cache, pos)
 
         def norm(tree):
             out["x"] = model._final_norm(tree, out["x"])
@@ -89,7 +93,7 @@ class Server:
 
         stages = [
             (embed, {"embed"}),
-            (stack, {p for p in paths if p.startswith("layers.")}),
+            (stack, {p for p in paths if p.split(".")[0] in _STACKS}),
             (norm, {p for p in paths if p.split(".")[0] in ("final_norm", "final_norm_b")}),
             (logits, {head}),
         ]
@@ -111,19 +115,35 @@ class Server:
         return out["logits"], cache
 
     def _pad_cache(self, cache: dict) -> dict:
-        """Grow the seq dim of the cache to ``max_len`` (decode writes slot
-        ``pos`` in place, so the buffer must hold every position)."""
-        S = cache["k"].shape[2]
-        if S >= self.max_len:
+        """Grow the seq dim of the k/v cache to the slots decode writes in
+        place: ``max_len`` (dense: slot ``pos``), or ``min(local_window,
+        max_len)`` (hybrid: slot ``pos % local_window``; a prompt shorter
+        than the window leaves fewer).  The ssm cache has no seq dim.
+
+        The JAX server pads only the dense, moe and encdec caches, so its
+        hybrid decode after a prompt shorter than the window writes outside
+        the ring (clamped onto the last prompt key) and masks modulo the
+        wrong length."""
+        cfg = self.cfg
+        if cfg.family == "ssm":
             return cache
-        out = {}
+        slots = min(cfg.local_window, self.max_len) if cfg.family == "hybrid" else self.max_len
+        S = cache["k"].shape[2]
+        if S >= slots:
+            return cache
+        out = dict(cache)
         for key in ("k", "v"):
             c = cache[key]
-            shp = (c.shape[0], c.shape[1], self.max_len) + tuple(c.shape[3:])
+            shp = (c.shape[0], c.shape[1], slots) + tuple(c.shape[3:])
             buf = torch.zeros(shp, dtype=c.dtype, device=c.device)
             buf[:, :, :S] = c
             out[key] = buf
         return out
+
+
+# the top-level parameter groups of a layer stack, per family: ``layers``
+# (dense, ssm), ``rec_layers`` and ``attn_layers`` (hybrid)
+_STACKS = ("layers", "rec_layers", "attn_layers")
 
 
 def _nest(flat: dict) -> dict:

@@ -1,11 +1,12 @@
-"""Model facade for the dense family: parameter template, init, the
-training loss, prefill and decode.  Counterpart of ``repro.models.model``.
+"""Model facade for the dense, ssm and hybrid families: parameter template,
+init, the training loss, prefill and decode.  Counterpart of
+``repro.models.model``.
 
 The parameter template (``build_template``) is the single source of truth
 for parameter shapes and initializers; its dotted paths and stacked
 ``[L, ...]`` shapes are exactly the JAX package's.  The other families
-(moe, ssm, hybrid, encdec) raise ``NotImplementedError`` naming the ROADMAP
-item that ports them.
+(moe, encdec) raise ``NotImplementedError`` naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
@@ -24,7 +25,14 @@ from .common import (
     tree_map,
 )
 from .layers import apply_norm
-from .transformer import cfg_dtype, decode_stack, forward_stack, torch_dtype
+from .transformer import (
+    block_kinds,
+    cfg_dtype,
+    decode_layers,
+    forward_hybrid,
+    forward_stack,
+    torch_dtype,
+)
 
 _NOT_PORTED = "ROADMAP.md, section 1, item 5 (other families)"
 
@@ -87,11 +95,42 @@ def _mlp_tmpl(cfg: ModelConfig) -> dict:
     return t
 
 
-def _layer_tmpl(cfg: ModelConfig) -> dict:
+def _mamba_tmpl(cfg: ModelConfig) -> dict:
+    d, di, N, R, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
+    return {
+        "in_proj": ParamSpec((d, 2 * di), ("embed", "ff")),
+        "conv_w": ParamSpec((di, K), ("ff", None)),
+        "conv_b": ParamSpec((di,), ("ff",), init="zeros"),
+        "x_proj": ParamSpec((di, R + 2 * N), ("ff", None)),
+        "dt_w": ParamSpec((R, di), (None, "ff")),
+        "dt_b": ParamSpec((di,), ("ff",), init="zeros"),
+        "A_log": ParamSpec((di, N), ("ff", None), init="ones"),
+        "D": ParamSpec((di,), ("ff",), init="ones"),
+        "out_proj": ParamSpec((di, d), ("ff", "embed")),
+    }
+
+
+def _rec_tmpl(cfg: ModelConfig) -> dict:
+    d, w, K = cfg.d_model, cfg.lru_width, cfg.ssm_conv
+    return {
+        "wy": ParamSpec((d, w), ("embed", "ff")),
+        "wx": ParamSpec((d, w), ("embed", "ff")),
+        "conv_w": ParamSpec((w, K), ("ff", None)),
+        "conv_b": ParamSpec((w,), ("ff",), init="zeros"),
+        "w_a": ParamSpec((w, w), ("ff", None)),
+        "w_x": ParamSpec((w, w), ("ff", None)),
+        "lam": ParamSpec((w,), ("ff",), init="ones"),
+        "out_w": ParamSpec((w, d), ("ff", "embed")),
+    }
+
+
+def _layer_tmpl(cfg: ModelConfig, mixer: str = "attn") -> dict:
+    """One pre-norm layer: ``ln1``, ``ln2``, the mixer (``attn`` or the
+    hybrid's ``rec``) and the MLP."""
     t = {}
     t.update(_norm_tmpl(cfg, "ln1"))
     t.update(_norm_tmpl(cfg, "ln2"))
-    t["attn"] = _attn_tmpl(cfg)
+    t[mixer] = _attn_tmpl(cfg) if mixer == "attn" else _rec_tmpl(cfg)
     t["mlp"] = _mlp_tmpl(cfg)
     return t
 
@@ -103,14 +142,23 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def build_template(cfg: ModelConfig) -> dict:
-    if cfg.family != "dense":
+    if cfg.family not in ("dense", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {_NOT_PORTED}")
     V, d = padded_vocab(cfg), cfg.d_model
     base = {"embed": ParamSpec((V, d), ("vocab", "embed"), scale=0.01)}
     if not cfg.tie_embeddings:
         base["lm_head"] = ParamSpec((d, V), ("embed", "vocab"), scale=0.01)
     base.update(_norm_tmpl(cfg, "final_norm"))
-    base["layers"] = _stack(_layer_tmpl(cfg), cfg.n_layers)
+    if cfg.family == "dense":
+        base["layers"] = _stack(_layer_tmpl(cfg), cfg.n_layers)
+    elif cfg.family == "ssm":
+        lt = _norm_tmpl(cfg, "ln1")
+        lt["mamba"] = _mamba_tmpl(cfg)
+        base["layers"] = _stack(lt, cfg.n_layers)
+    else:
+        kinds = block_kinds(cfg)
+        base["rec_layers"] = _stack(_layer_tmpl(cfg, "rec"), kinds.count("rec"))
+        base["attn_layers"] = _stack(_layer_tmpl(cfg, "attn"), kinds.count("attn"))
     return base
 
 
@@ -119,9 +167,11 @@ def count_params_config(cfg: ModelConfig) -> int:
 
 
 # parameters read through a norm (upcast to f32) rather than cast to the
-# compute dtype; ``Model.compute_params`` leaves them as they are
-_NORM_LEAVES = ("ln1", "ln1_b", "ln2", "ln2_b", "final_norm", "final_norm_b",
-                "q_norm", "k_norm")
+# compute dtype, and the ssm and hybrid parameters read in f32 (A_log, D:
+# ``models/ssm.py``; lam: ``models/rglru.py``; rounding them would change
+# every step's decay); ``Model.compute_params`` leaves them as they are
+_KEEP_LEAVES = ("ln1", "ln1_b", "ln2", "ln2_b", "final_norm", "final_norm_b",
+                "q_norm", "k_norm", "A_log", "D", "lam")
 
 
 # ---------------------------------------------------------------------------
@@ -153,14 +203,14 @@ class Model:
     def compute_params(self, params: dict) -> dict:
         """``params`` with every leaf that the model casts to the compute
         dtype on use (matmul weights, biases, embedding, head) cast once;
-        norm parameters stay as they are.  The values seen by the model are
+        norm parameters and those read in f32 stay as they are.  The values seen by the model are
         identical, so serving from the result gives the same outputs."""
         dt = cfg_dtype(self.cfg)
 
         def walk(tree):
             return {
                 k: walk(v) if isinstance(v, dict)
-                else (v if k in _NORM_LEAVES else v.to(dt))
+                else (v if k in _KEEP_LEAVES else v.to(dt))
                 for k, v in tree.items()
             }
 
@@ -217,7 +267,8 @@ class Model:
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
-        h, extras = forward_stack(params, cfg, x, positions, collect_cache=collect_cache)
+        forward = forward_hybrid if cfg.family == "hybrid" else forward_stack
+        h, extras = forward(params, cfg, x, positions, collect_cache=collect_cache)
         return self._final_norm(params, h), extras
 
     # -- training loss -----------------------------------------------------------
@@ -259,16 +310,31 @@ class Model:
         return logits, self._assemble_cache(extras)
 
     def _assemble_cache(self, extras):
-        k, v = extras
+        cfg = self.cfg
         kvdt = self.kv_dtype()
+        if cfg.family == "ssm":
+            conv, ssm = extras
+            return {"conv": conv, "ssm": ssm}
+        if cfg.family == "hybrid":
+            (conv, rec), (k, v) = extras
+            # keep the last W positions; decode continues the ring at pos % W,
+            # so position p must sit at slot p % W: roll the slice to align.
+            # A prompt shorter than W keeps its S slots here and is padded
+            # to min(W, max_len) by ``Server._pad_cache``
+            W, S = cfg.local_window, k.shape[2]
+            if S > W:
+                k = torch.roll(k[:, :, -W:], shifts=S % W, dims=2)
+                v = torch.roll(v[:, :, -W:], shifts=S % W, dims=2)
+            return {"conv": conv, "rec": rec, "k": k.to(kvdt), "v": v.to(kvdt)}
+        k, v = extras
         return {"k": k.to(kvdt), "v": v.to(kvdt)}
 
     def decode_step(self, params, cache, tokens, pos: int):
         """One decode step. tokens [B, 1] int; ``pos``: the position of the
-        new token.  Writes the new k/v into ``cache`` in place and returns
-        (logits [B, 1, vocab], cache)."""
+        new token.  Writes the new k/v (and recurrent states) into ``cache``
+        in place and returns (logits [B, 1, vocab], cache)."""
         x = self.embed(params, tokens)
-        h, cache = decode_stack(params, self.cfg, x, cache, pos)
+        h, cache = decode_layers(params, self.cfg, x, cache, pos)
         h = self._final_norm(params, h)
         return self.logits(params, h)[..., : self.cfg.vocab_size], cache
 
@@ -279,12 +345,30 @@ class Model:
         return torch_dtype(cfg.kv_cache_dtype or cfg.compute_dtype)
 
     def abstract_cache(self, batch_size: int, seq_len: int) -> dict:
-        """The decode cache on the ``meta`` device: no allocation."""
+        """The decode cache on the ``meta`` device: no allocation.  k/v in
+        the KV-cache dtype, conv tails in the compute dtype, recurrent
+        states in f32; the hybrid's ring holds min(window, seq_len) slots."""
         cfg = self.cfg
-        shp = (cfg.n_layers, batch_size, seq_len, cfg.n_kv_heads, cfg.head_dim)
-        kvdt = self.kv_dtype()
-        return {"k": torch.empty(shp, dtype=kvdt, device="meta"),
-                "v": torch.empty(shp, dtype=kvdt, device="meta")}
+        kvdt, cdt = self.kv_dtype(), cfg_dtype(cfg)
+        KV, hd = cfg.n_kv_heads, cfg.head_dim
+
+        def meta(shape, dtype):
+            return torch.empty(shape, dtype=dtype, device="meta")
+
+        if cfg.family == "ssm":
+            L = cfg.n_layers
+            return {"conv": meta((L, batch_size, cfg.ssm_conv - 1, cfg.d_inner), cdt),
+                    "ssm": meta((L, batch_size, cfg.d_inner, cfg.ssm_state), torch.float32)}
+        if cfg.family == "hybrid":
+            kinds = block_kinds(cfg)
+            n_rec, n_attn = kinds.count("rec"), kinds.count("attn")
+            W = min(cfg.local_window, seq_len)
+            return {"conv": meta((n_rec, batch_size, cfg.ssm_conv - 1, cfg.lru_width), cdt),
+                    "rec": meta((n_rec, batch_size, cfg.lru_width), torch.float32),
+                    "k": meta((n_attn, batch_size, W, KV, hd), kvdt),
+                    "v": meta((n_attn, batch_size, W, KV, hd), kvdt)}
+        shp = (cfg.n_layers, batch_size, seq_len, KV, hd)
+        return {"k": meta(shp, kvdt), "v": meta(shp, kvdt)}
 
 
 class _HeadMatmul(torch.autograd.Function):

@@ -1,12 +1,15 @@
-"""Transformer assembly for the dense family: blocks, the layer stack and
-the decode path.  Counterpart of the dense parts of
+"""Transformer assembly for the dense, ssm and hybrid families: blocks, the
+layer stacks and the decode paths.  Counterpart of those parts of
 ``repro.models.transformer``.
 
 Layer parameters are stacked on a leading ``layers`` dim as in the JAX
 package; the stack is a Python loop and layer ``l`` is the view
 ``params["layers"][...][l]``, or, where the train step hands the layers over
-as a list of per-layer trees, ``params["layers"][l]``.  Under autograd each
-layer is recomputed in the backward pass as the config's ``remat`` says.
+as a list of per-layer trees, ``params["layers"][l]``.  The hybrid's
+interleaved (rec, rec, attn) pattern takes its layers from
+``rec_layers`` and ``attn_layers`` by static slices (``static_layer_params``),
+as JAX's Python loop does.  Under autograd each layer is recomputed in the
+backward pass as the config's ``remat`` says.
 """
 
 from __future__ import annotations
@@ -18,8 +21,9 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.kernels import ops
 
-from .common import constrain, tree_map
+from .common import constrain, tree_items, tree_map
 from .layers import (
+    NEG_INF,
     apply_norm,
     apply_rope,
     attn_output,
@@ -28,6 +32,8 @@ from .layers import (
     qkv_project,
     rope_angles,
 )
+from .rglru import recurrent_block
+from .ssm import mamba_block
 
 _DTYPES = {
     "float32": torch.float32,
@@ -50,6 +56,29 @@ def layer_params(layers, l: int) -> dict:
     if isinstance(layers, list):
         return layers[l]
     return tree_map(lambda a: a[l], layers)
+
+
+def static_layer_params(layers, l: int) -> dict:
+    """Layer ``l`` of stacked ``[L, ...]`` layer parameters, each leaf taken
+    as the static slice ``a[l : l + 1]`` squeezed, in JAX's leaf order (keys
+    sorted).  This is how the JAX hybrid's Python loop indexes its layers
+    (``jax.tree.map(lambda a: a[i], ...)`` with a static ``i``), so the
+    access plan sees one slice per leaf, as in JAX's jaxpr: no loop entry
+    and no collection (``layer_params`` opens a loop entry)."""
+    out: dict = {}
+    for path, a in tree_items(layers):
+        node = out
+        *parents, name = path.split(".")
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[name] = a[l : l + 1].squeeze(0)
+    return out
+
+
+def block_kinds(cfg) -> list[str]:
+    """The hybrid's layer kinds ("rec" or "attn"), layer by layer."""
+    pattern = cfg.block_pattern
+    return [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
 
 
 def _remat(fn, cfg):
@@ -91,7 +120,7 @@ def attn_block(x, lp, cfg, dt, angles, *, causal=True, local_window=0,
 
 def ffn_block(x, lp, cfg, dt):
     h = apply_norm(cfg.norm, x, lp["ln2"], lp.get("ln2_b"))
-    if cfg.family != "dense":
+    if cfg.family == "moe":
         raise NotImplementedError(
             f"family {cfg.family!r} is not ported yet: ROADMAP.md, section 1, item 5"
         )
@@ -107,25 +136,74 @@ def dense_layer(x, lp, cfg, dt, angles, *, causal=True, local_window=0,
     return ffn_block(x, lp, cfg, dt), kv
 
 
+def mamba_layer(x, lp, cfg, dt, collect_cache=False):
+    h = apply_norm(cfg.norm, x, lp["ln1"], lp.get("ln1_b"))
+    y, conv_state, ssm_state = mamba_block(h, lp["mamba"], cfg, dt)
+    x = constrain(x + y, "batch", "seq", "embed")
+    return x, ((conv_state, ssm_state) if collect_cache else None)
+
+
+def rec_layer(x, lp, cfg, dt, collect_cache=False):
+    h = apply_norm(cfg.norm, x, lp["ln1"], lp.get("ln1_b"))
+    y, conv_state, rec_state = recurrent_block(h, lp["rec"], cfg, dt)
+    x = constrain(x + y, "batch", "seq", "embed")
+    x = ffn_block(x, lp, cfg, dt)
+    return x, ((conv_state, rec_state) if collect_cache else None)
+
+
+def _stack_pairs(pairs):
+    """[(a_l, b_l)] per layer -> (stacked a, stacked b)."""
+    return tuple(torch.stack(xs) for xs in zip(*pairs))
+
+
 def forward_stack(params, cfg, x, positions, *, causal=True, collect_cache=False):
-    """The dense stack; with ``collect_cache`` also returns the per-layer
-    (k, v) stacked to [L, B, S, KV, hd] each."""
+    """The homogeneous stacks (dense, ssm); with ``collect_cache`` also
+    returns the per-layer caches stacked on a leading layer dim: (k, v)
+    [L, B, S, KV, hd] each (dense), (conv [L, B, K-1, d_inner], ssm
+    [L, B, d_inner, N]) (ssm)."""
     dt = cfg_dtype(cfg)
-    angles = rope_angles(cfg.rope, positions, cfg.head_dim, cfg.rope_theta)
-    layer = _remat(
-        lambda x, lp: dense_layer(x, lp, cfg, dt, angles, causal=causal,
-                                  collect_cache=collect_cache),
-        cfg,
-    )
-    ks, vs = [], []
+    if cfg.family == "ssm":
+        body = lambda x, lp: mamba_layer(x, lp, cfg, dt, collect_cache)  # noqa: E731
+    else:
+        angles = rope_angles(cfg.rope, positions, cfg.head_dim, cfg.rope_theta)
+        body = lambda x, lp: dense_layer(x, lp, cfg, dt, angles, causal=causal,  # noqa: E731
+                                         collect_cache=collect_cache)
+    layer = _remat(body, cfg)
+    caches = []
     for l in range(cfg.n_layers):
-        x, kv = layer(x, layer_params(params["layers"], l))
-        if collect_cache:
-            ks.append(kv[0])
-            vs.append(kv[1])
+        x, cache = layer(x, layer_params(params["layers"], l))
+        caches.append(cache)
     if not collect_cache:
         return x, None
-    return x, (torch.stack(ks), torch.stack(vs))
+    return x, _stack_pairs(caches)
+
+
+def forward_hybrid(params, cfg, x, positions, *, collect_cache=False):
+    """recurrentgemma: a Python loop over the (rec, rec, attn) pattern; the
+    attention layers attend within ``cfg.local_window``.  With
+    ``collect_cache`` also returns ((conv, rec), (k, v)), each stacked over
+    its kind's layers."""
+    dt = cfg_dtype(cfg)
+    angles = rope_angles(cfg.rope, positions, cfg.head_dim, cfg.rope_theta)
+    rec = _remat(lambda x, lp: rec_layer(x, lp, cfg, dt, collect_cache), cfg)
+    attn = _remat(
+        lambda x, lp: dense_layer(x, lp, cfg, dt, angles, causal=True,
+                                  local_window=cfg.local_window, collect_cache=collect_cache),
+        cfg,
+    )
+    rec_caches, attn_caches = [], []
+    for kind in block_kinds(cfg):
+        if kind == "rec":
+            lp = static_layer_params(params["rec_layers"], len(rec_caches))
+            x, cache = rec(x, lp)
+            rec_caches.append(cache)
+        else:
+            lp = static_layer_params(params["attn_layers"], len(attn_caches))
+            x, kv = attn(x, lp)
+            attn_caches.append(kv)
+    if not collect_cache:
+        return x, None
+    return x, (_stack_pairs(rec_caches), _stack_pairs(attn_caches))
 
 
 # ---------------------------------------------------------------------------
@@ -133,21 +211,32 @@ def forward_stack(params, cfg, x, positions, *, causal=True, collect_cache=False
 # ---------------------------------------------------------------------------
 
 
-def _decode_attn(x, lp, cfg, dt, k_cache, v_cache, pos: int, angles):
+def _decode_attn(x, lp, cfg, dt, k_cache, v_cache, pos: int, angles, *, window: int = 0):
     """One-token attention against a cache [B, S, KV, hd]: writes the new
-    k/v at ``pos`` and attends to slots [0, pos]; ``angles``:
-    ``rope_angles`` of position ``pos``.
+    k/v at ``pos`` (or ``pos % window`` for ring caches) and attends to the
+    positions it holds; ``angles``: ``rope_angles`` of position ``pos``.
 
     The write is in place into ``k_cache`` / ``v_cache`` (views of the
     stacked cache): the counterpart of the JAX code's
-    ``dynamic_update_slice`` on a donated buffer."""
+    ``dynamic_update_slice`` on a donated buffer.  A slot outside the cache
+    raises ``IndexError`` where JAX's write would be clamped onto the last
+    slot, so a ring must hold ``min(window, max_len)`` slots
+    (``Server._pad_cache``)."""
     h = apply_norm(cfg.norm, x, lp["ln1"], lp.get("ln1_b"))
     q, k, v = qkv_project(h, lp["attn"], cfg, dt)
     q = apply_rope(q, angles)
     k = apply_rope(k, angles)
-    k_cache[:, pos] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v[:, 0].to(v_cache.dtype)
-    if cfg.attn_impl == "pallas" and k_cache.shape[1] % 128 == 0:
+    slot = pos % window if window else pos
+    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    if window:
+        # ring buffer: mask by the absolute position each slot holds
+        S = k_cache.shape[1]
+        idx = torch.arange(S, device=x.device)
+        ring_pos = pos - ((slot - idx) % S)
+        valid = (ring_pos >= 0) & (ring_pos >= pos - window + 1)
+        o = _masked_decode_attention(q, k_cache, v_cache, valid, cfg)
+    elif cfg.attn_impl == "pallas" and k_cache.shape[1] % 128 == 0:
         # the flash-decode kernel reads the cache in its stored dtype (fp8
         # caches halve the traffic) and only the first pos + 1 slots
         o = ops.decode_attention(q[:, 0], k_cache, v_cache, pos + 1).to(dt)[:, None]
@@ -157,6 +246,20 @@ def _decode_attn(x, lp, cfg, dt, k_cache, v_cache, pos: int, angles):
             impl="naive", q_offset=pos, kv_len=pos + 1,
         )
     return x + attn_output(o, lp["attn"], cfg, dt)
+
+
+def _masked_decode_attention(q, k_cache, v_cache, valid, cfg):
+    """q [B, 1, H, hd] against every slot of k/v [B, S, KV, hd] where
+    ``valid`` [S]; the cache upcast to q's dtype, scores in f32."""
+    B, S, KV, hd = k_cache.shape
+    H = cfg.n_heads
+    G = H // KV
+    q5 = q.reshape(B, 1, KV, G, hd)
+    s = torch.einsum("bqkgd,bskd->bkgqs", q5.float(), k_cache.to(q.dtype).float()) / (hd**0.5)
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1).to(q.dtype)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.to(q.dtype))
+    return o.reshape(B, 1, H, hd)
 
 
 def decode_stack(params, cfg, x, cache, pos: int):
@@ -170,3 +273,56 @@ def decode_stack(params, cfg, x, cache, pos: int):
         x = _decode_attn(x, lp, cfg, dt, cache["k"][l], cache["v"][l], pos, angles)
         x = ffn_block(x, lp, cfg, dt)
     return x, cache
+
+
+def decode_ssm(params, cfg, x, cache):
+    """ssm decode over all layers: one recurrence step per layer from the
+    cache's (conv, ssm) states, which it overwrites in place; returns (x,
+    cache)."""
+    dt = cfg_dtype(cfg)
+    for l in range(cfg.n_layers):
+        lp = layer_params(params["layers"], l)
+        hn = apply_norm(cfg.norm, x, lp["ln1"], lp.get("ln1_b"))
+        y, conv, ssm = mamba_block(hn, lp["mamba"], cfg, dt, conv_state=cache["conv"][l],
+                                   ssm_state=cache["ssm"][l])
+        x = x + y
+        cache["conv"][l] = conv
+        cache["ssm"][l] = ssm
+    return x, cache
+
+
+def decode_hybrid(params, cfg, x, cache, pos: int):
+    """hybrid decode: one step per rec layer from its (conv, rec) states,
+    one ring-window attention per attn layer; overwrites the cache in
+    place and returns (x, cache)."""
+    dt = cfg_dtype(cfg)
+    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
+    angles = rope_angles(cfg.rope, positions, cfg.head_dim, cfg.rope_theta)
+    rec_i = attn_i = 0
+    for kind in block_kinds(cfg):
+        if kind == "rec":
+            lp = static_layer_params(params["rec_layers"], rec_i)
+            hn = apply_norm(cfg.norm, x, lp["ln1"], lp.get("ln1_b"))
+            y, conv, rec = recurrent_block(hn, lp["rec"], cfg, dt,
+                                           conv_state=cache["conv"][rec_i],
+                                           rec_state=cache["rec"][rec_i])
+            x = ffn_block(x + y, lp, cfg, dt)
+            cache["conv"][rec_i] = conv
+            cache["rec"][rec_i] = rec
+            rec_i += 1
+        else:
+            lp = static_layer_params(params["attn_layers"], attn_i)
+            x = _decode_attn(x, lp, cfg, dt, cache["k"][attn_i], cache["v"][attn_i], pos,
+                             angles, window=cfg.local_window)
+            x = ffn_block(x, lp, cfg, dt)
+            attn_i += 1
+    return x, cache
+
+
+def decode_layers(params, cfg, x, cache, pos: int):
+    """The layer stack of one decode step, for the config's family."""
+    if cfg.family == "ssm":
+        return decode_ssm(params, cfg, x, cache)
+    if cfg.family == "hybrid":
+        return decode_hybrid(params, cfg, x, cache, pos)
+    return decode_stack(params, cfg, x, cache, pos)

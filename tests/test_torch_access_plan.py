@@ -4,10 +4,11 @@ the ``meta`` device) against the JAX package's (traced with
 
 Twins of tests/test_access_plan.py:34-97 (a toy loop over stacked
 parameters, ``torch.cond`` for ``lax.cond``, a real decode plan, the ROP
-plan), then parity: for the four dense smoke configs and for chatglm3-6b at
-full size, ``Server.plan`` of both packages has the same records (path,
-shape, bytes, collection and branch flags) and the same groups (records of
-equal first use) in the same order.  ``first_use`` values and ``uses``
+plan), then parity: for the four dense, the ssm and the hybrid smoke
+configs and for chatglm3-6b and falcon-mamba-7b at full size,
+``Server.plan`` of both packages has the same records (path, shape, bytes,
+collection and branch flags) and the same groups (records of equal first
+use) in the same order.  ``first_use`` values and ``uses``
 differ by construction (the port counts aten nodes and a use per layer, JAX
 counts equations and one scan), so parity leaves them out.
 """
@@ -193,3 +194,28 @@ def test_plan_of_concrete_params_equals_abstract():
     c = build_access_plan(step, model.init_params(seed=0), cache, tokens)
     assert _records(a) == _records(c) and _groups(a) == _groups(c)
     assert not cache["k"].any()  # the decode's in-place cache write never ran
+
+
+@pytest.mark.parametrize("arch,records,collections,groups", [
+    ("falcon_mamba_7b", 13, 10, 4),     # the layer stack: one scanned group
+    ("recurrentgemma_2b", 24, 0, 24),   # a Python loop of static slices
+])
+def test_decode_plan_matches_jax_recurrent_smoke(arch, records, collections, groups):
+    plan = Server(get_smoke_config(arch), device="cpu", max_len=64).plan(2)
+    jplan = JServer(jget_smoke(arch), max_len=64).plan(2)
+    _assert_same_plan(plan, jplan)
+    assert (len(plan.records), len(plan.collections()), len(_groups(plan))) == \
+        (records, collections, groups)
+
+
+def test_decode_plan_matches_jax_falcon_mamba_full_size():
+    """falcon-mamba-7b at full size, abstract on both sides: 13 records, the
+    10 stacked layer leaves as collections in one group, 4 groups."""
+    plan = Server(get_config("falcon_mamba_7b"), device="cpu", max_len=544).plan(4)
+    jplan = JServer(jget_config("falcon_mamba_7b"), max_len=544).plan(4)
+    _assert_same_plan(plan, jplan)
+    groups = _groups(plan)
+    assert [len(g) for g in groups] == [1, 10, 1, 1]
+    assert groups[0] == {"embed"} and groups[2] == {"final_norm"} and groups[3] == {"lm_head"}
+    assert groups[1] == {r.path for r in plan.collections()}
+    assert plan.total_bytes == 29_090_660_352  # f32, as the abstract parameters are

@@ -4,7 +4,8 @@ Run on a machine with an H100:  PYTHONPATH=src python -m pytest -m gpu tests/tes
 Without a CUDA device every test skips (the fixture decides, at run time).
 
 Tolerances: f32 1e-5 (rtol and atol; the kernels sum in another order than
-the plain version), bf16 2e-2 (the plain version rounds the normalised P to
+the plain version; the scans: the mamba scan's N-term sum of y in another
+order), bf16 2e-2 (the plain version rounds the normalised P to
 bf16 and its PV product to bf16, the kernels round the unnormalised P and
 keep f32 sums), the f32 log-sum-exp 1e-4 absolute (sums of up to 1024
 exponentials in another order).  The backward kernels: f32 1e-4 and bf16
@@ -325,3 +326,112 @@ def test_streamed_decode_equals_resident_decode(cuda):
         assert decode_attention_fwd.launches == d0 + cfg.n_layers
         assert ws.metrics.fetch_timeouts == 0 and ws.metrics.fetches == len(plan.records)
         assert torch.equal(got, want), mode
+
+
+# ---------------------------------------------------------------------------
+# the recurrent scans (mamba, RG-LRU)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("B,S,Ch,N", [
+    (4, 512, 8192, 16),  # falcon-mamba-7b prefill
+    (4, 1, 8192, 16),    # falcon-mamba-7b decode
+    (2, 7, 300, 16),     # channels not a multiple of the block
+    (1, 128, 97, 4),     # N below a warp's share
+    (3, 33, 64, 5),      # N not a power of two
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_mamba_scan_kernel_matches_ref(cuda, B, S, Ch, N, dtype, with_h0):
+    from repro_torch.kernels.mamba_scan import mamba_scan_fwd
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    dA = (0.3 + 0.69 * torch.rand((B, S, Ch, N), generator=gen, device=cuda)).to(dtype)
+    dBu = (0.1 * torch.randn((B, S, Ch, N), generator=gen, device=cuda)).to(dtype)
+    C = torch.randn((B, S, N), generator=gen, device=cuda).to(dtype)
+    h0 = torch.randn((B, Ch, N), generator=gen, device=cuda) if with_h0 else None
+    y, h = mamba_scan_fwd(dA, dBu, C, h0, with_state=True)
+    y_ref, h_ref = ref.mamba_scan_ref(dA, dBu, C, h0, with_state=True)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (B, S, Ch) and h.dtype == torch.float32
+    _close(y, y_ref, **TOL[dtype])
+    _close(h, h_ref, **TOL[torch.float32])  # the state is f32 for either input
+
+
+@pytest.mark.parametrize("B,S,W", [
+    (4, 512, 2560),   # recurrentgemma-2b prefill
+    (4, 1, 2560),     # recurrentgemma-2b decode
+    (2, 7, 300),      # channels not a multiple of the block
+    (3, 129, 384),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_scan_kernel_matches_ref(cuda, B, S, W, dtype, with_h0):
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    a = (0.5 + 0.49 * torch.rand((B, S, W), generator=gen, device=cuda)).to(dtype)
+    g = (0.1 * torch.randn((B, S, W), generator=gen, device=cuda)).to(dtype)
+    h0 = torch.randn((B, W), generator=gen, device=cuda) if with_h0 else None
+    y = rglru_scan_fwd(a, g, h0)
+    want = ref.rglru_scan_ref(a, g, h0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (B, S, W)
+    if dtype == torch.float32:  # the same products and sums, rounded alike
+        assert torch.equal(y, want)
+    _close(y, want, **TOL[dtype])
+
+
+def test_scan_ops_launch_the_kernels_and_refuse_what_they_cannot_take(cuda):
+    from repro_torch.kernels.mamba_scan import mamba_scan_fwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+
+    x = torch.rand((2, 3, 16, 8), device=cuda)
+    m0, r0 = mamba_scan_fwd.launches, rglru_scan_fwd.launches
+    ops.mamba_scan(x, x, x[..., 0, :])
+    ops.rglru_scan(x[..., 0], x[..., 0])
+    assert (mamba_scan_fwd.launches, rglru_scan_fwd.launches) == (m0 + 1, r0 + 1)
+    with pytest.raises(ValueError):  # N > 32
+        mamba_scan_fwd(torch.zeros((1, 2, 4, 33), device=cuda),
+                       torch.zeros((1, 2, 4, 33), device=cuda),
+                       torch.zeros((1, 2, 33), device=cuda))
+    with pytest.raises(TypeError):
+        rglru_scan_fwd(x[..., 0].half(), x[..., 0].half())
+    with pytest.raises(ValueError):  # h0 must be f32
+        rglru_scan_fwd(x[..., 0], x[..., 0], torch.zeros((2, 16), device=cuda).bfloat16())
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "recurrentgemma_2b"])
+def test_recurrent_kernel_path_matches_plain_path(cuda, arch):
+    """The smoke models in f32 on the card: prefill and three decode steps
+    on the kernel path (``attn_impl="pallas"``) against the plain loop over
+    time (``"chunked"``), within 1e-5 of the largest logit, with one scan
+    launch per recurrent layer per call."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.mamba_scan import mamba_scan_fwd
+    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+    from repro_torch.models.transformer import block_kinds
+
+    base = get_smoke_config(arch).replace(compute_dtype="float32")
+    counter = mamba_scan_fwd if base.family == "ssm" else rglru_scan_fwd
+    per_call = (base.n_layers if base.family == "ssm"
+                else block_kinds(base).count("rec"))
+    params = Server(base, device="cuda").model.init_params(seed=0)
+    batch = concrete_batch(base, 2, 16, device="cuda")
+    out = {}
+    for impl in ("pallas", "chunked"):
+        server = Server(base.replace(attn_impl=impl), device="cuda", max_len=19)
+        n0 = counter.launches
+        logits, cache = server.prefill_fn(params, {"inputs": batch["inputs"]})
+        cache = server._pad_cache(cache)
+        steps = [logits]
+        for i in range(3):
+            logits, cache = server.decode_fn(params, cache, batch["targets"][:, i : i + 1],
+                                             16 + i)
+            steps.append(logits)
+        out[impl] = torch.cat(steps, dim=1)
+        assert counter.launches - n0 == (4 * per_call if impl == "pallas" else 0)
+    scale = float(out["chunked"].abs().max())
+    assert float((out["pallas"] - out["chunked"]).abs().max()) <= 1e-5 * scale

@@ -31,7 +31,7 @@ def _pair(a: np.ndarray, dtype: str):
     from repro_torch.convert import to_tensor
 
     a = np.asarray(a, np.float32).astype(NP_DTYPES[dtype])
-    return jnp.asarray(a), to_tensor(a)
+    return jnp.asarray(a), to_tensor(a, device="cpu")
 
 
 def _close(got: torch.Tensor, want, **tol):
@@ -209,7 +209,7 @@ def test_kernel_build_dir_is_keyed_by_sources_and_ignored():
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16 and d == _build.build_dir()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
         "decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-        "prefetch_gather.cu"]
+        "mamba_scan.cu", "prefetch_gather.cu", "rglru_scan.cu"]
     repo = Path(__file__).resolve().parents[1]
     ignored = (repo / ".gitignore").read_text().split()
     assert str(_build.BUILD_ROOT.relative_to(repo)) + "/" in ignored
@@ -267,7 +267,7 @@ def test_model_embed_matches_jax(arch, dtype):
     jmodel = JModel(jget_smoke(arch).replace(compute_dtype=dtype))
     jparams = jmodel.init_params(jax.random.PRNGKey(0))
     model = Model(get_smoke_config(arch).replace(compute_dtype=dtype), device="cpu")
-    params = from_numpy_tree({"embed": np.asarray(jparams["embed"])})
+    params = from_numpy_tree({"embed": np.asarray(jparams["embed"])}, device="cpu")
     tokens = np.random.RandomState(4).randint(0, model.cfg.vocab_size, (3, 7))
     want = np.asarray(jmodel.embed(jparams, jnp.asarray(tokens, jnp.int32)))
     with torch.inference_mode():

@@ -73,7 +73,7 @@ def test_prefill_and_decode_match_jax(arch, impl, dtype):
     jcfg = jget_smoke(arch).replace(attn_impl=impl, compute_dtype=dtype)
     cfg = get_smoke_config(arch).replace(attn_impl=impl, compute_dtype=dtype)
     jparams = JModel(jcfg).init_params(jax.random.PRNGKey(0))
-    params = from_numpy_tree(jax.tree.map(np.asarray, jparams))
+    params = from_numpy_tree(jax.tree.map(np.asarray, jparams), device="cpu")
     rng = np.random.RandomState(0)
     inputs = rng.randint(0, cfg.vocab_size, (B, PROMPT))
     forced = rng.randint(0, cfg.vocab_size, (B, STEPS))
@@ -95,7 +95,7 @@ def test_fp8_kv_cache_decode_close_to_bf16():
     jcfg = jget_smoke("chatglm3_6b").replace(attn_impl="pallas")
     cfg = get_smoke_config("chatglm3_6b").replace(attn_impl="pallas")
     jparams = JModel(jcfg).init_params(jax.random.PRNGKey(0))
-    params = from_numpy_tree(jax.tree.map(np.asarray, jparams))
+    params = from_numpy_tree(jax.tree.map(np.asarray, jparams), device="cpu")
     inputs = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, PROMPT))
     m_ref = Model(cfg, device="cpu")
     m_fp8 = Model(cfg.replace(kv_cache_dtype="float8_e4m3fn"), device="cpu")

@@ -35,7 +35,7 @@ def test_generate_matches_jax_tokens():
     want = np.asarray(jserver.generate(jparams, {"inputs": jnp.asarray(inputs, jnp.int32)}, 8))
 
     server = Server(cfg, device="cpu", max_len=512)
-    params = from_numpy_tree(jax.tree.map(np.asarray, jparams))
+    params = from_numpy_tree(jax.tree.map(np.asarray, jparams), device="cpu")
     got = server.generate(params, {"inputs": torch.from_numpy(inputs)}, 8)
     assert got.shape == (2, 8)
     np.testing.assert_array_equal(got.numpy(), want)
@@ -60,6 +60,34 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         main(["--arch", "chatglm3_6b", "--smoke"])
 
 
+def test_convert_defaults_to_the_card(monkeypatch):
+    """Like every entry point, the conversions make tensors on the card by
+    default and raise without one; ``device="cpu"`` takes the CPU."""
+    from repro_torch.convert import from_bits
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    tree = {"a": {"b": np.zeros((2, 3), np.float32)}}
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_numpy_tree(tree)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        to_tensor(np.zeros(3, np.float32))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        from_bits(np.zeros(3, np.uint16), "bfloat16")
+    assert from_numpy_tree(tree, device="cpu")["a"]["b"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch,plan", [
+    ("falcon_mamba_7b", "access plan: 13 records, 10 collections"),
+    ("recurrentgemma_2b", "access plan: 24 records, 0 collections"),
+])
+def test_serve_cli_on_cpu_recurrent(capsys, arch, plan):
+    main(["--arch", arch, "--smoke", "--device", "cpu", "--batch", "2",
+          "--prompt-len", "12", "--gen", "4", "--attn-impl", "pallas"])
+    out = capsys.readouterr().out
+    assert "generated (2, 4) tokens" in out and "on cpu" in out
+    assert plan in out and "  hint: embed\n" in out
+
+
 def test_serve_cli_on_cpu(capsys):
     main(["--arch", "qwen1_5_4b", "--smoke", "--device", "cpu", "--batch", "2",
           "--prompt-len", "128", "--gen", "4", "--attn-impl", "pallas"])
@@ -80,9 +108,12 @@ def test_port_imports_no_jax_and_nothing_of_repro():
         new = {"repro_torch.core.access_plan", "repro_torch.obs.metrics",
                "repro_torch.obs.spans", "repro_torch.predict.registry",
                "repro_torch.predict.stream", "repro_torch.runtime.prefetch",
-               "repro_torch.kernels.prefetch_gather"}
+               "repro_torch.kernels.prefetch_gather", "repro_torch.kernels.mamba_scan",
+               "repro_torch.kernels.rglru_scan", "repro_torch.models.ssm",
+               "repro_torch.models.rglru", "repro_torch.configs.falcon_mamba_7b",
+               "repro_torch.configs.recurrentgemma_2b"}
         assert new <= set(names), sorted(new - set(names))
-        assert len(names) >= 30, names
+        assert len(names) >= 36, names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
@@ -101,15 +132,16 @@ def test_convert_is_bit_exact_for_bf16_and_fp8():
     subnormals included) crosses from a JAX array unchanged."""
     bf16_bits = np.arange(1 << 16, dtype=np.uint32).astype(np.uint16)
     a = np.asarray(jnp.asarray(bf16_bits.view(ml_dtypes.bfloat16)))
-    t = to_tensor(a)
+    t = to_tensor(a, device="cpu")
     assert t.dtype == torch.bfloat16
     np.testing.assert_array_equal(t.view(torch.int16).numpy().view(np.uint16), bf16_bits)
 
     fp8_bits = np.arange(256, dtype=np.uint16).astype(np.uint8)
     a = np.asarray(jnp.asarray(fp8_bits.view(ml_dtypes.float8_e4m3fn)))
-    t = to_tensor(a)
+    t = to_tensor(a, device="cpu")
     assert t.dtype == torch.float8_e4m3fn
     np.testing.assert_array_equal(t.view(torch.uint8).numpy(), fp8_bits)
 
-    tree = from_numpy_tree({"a": {"b": np.arange(6, dtype=np.float32).reshape(2, 3)}})
+    tree = from_numpy_tree({"a": {"b": np.arange(6, dtype=np.float32).reshape(2, 3)}},
+                           device="cpu")
     assert tree["a"]["b"].dtype == torch.float32 and tree["a"]["b"].shape == (2, 3)

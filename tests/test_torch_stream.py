@@ -43,7 +43,7 @@ def _jax_params(cfg_name: str, seed: int = 0, **overrides):
     """(JAX params, the same values as the port's tensor tree)."""
     jparams = JModel(jget_smoke(cfg_name).replace(**overrides)).init_params(
         jax.random.PRNGKey(seed))
-    return jparams, from_numpy_tree(jax.tree.map(np.asarray, jparams))
+    return jparams, from_numpy_tree(jax.tree.map(np.asarray, jparams), device="cpu")
 
 
 def _decode_plan(model: Model, batch: int = 2, cache_len: int = 16, pos: int = 8):
@@ -388,6 +388,33 @@ def test_streamed_decode_equals_resident_decode():
         ws.close()
         assert torch.equal(got, want), mode
         assert all(torch.equal(streamed[k], resident[k]) for k in cache)
+        assert ws.metrics.fetches == len(plan.records) and ws.metrics.fetch_timeouts == 0
+
+
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "recurrentgemma_2b"])
+def test_streamed_recurrent_decode_equals_resident_decode(arch):
+    """The ssm and hybrid decode steps, streamed under each mode, give the
+    resident step's logits and cache (conv and recurrent states, the
+    hybrid's ring) bit for bit."""
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32", attn_impl="pallas")
+    _, params = _jax_params(arch)
+    server = Server(cfg, device="cpu", max_len=24)
+    inputs = np.random.RandomState(1).randint(0, cfg.vocab_size, (2, 16))
+    logits, cache = server.prefill_fn(params, {"inputs": torch.from_numpy(inputs)})
+    cache = server._pad_cache(cache)
+    tok = torch.argmax(logits, dim=-1)
+    resident = {k: v.clone() for k, v in cache.items()}
+    want, _ = server.decode_fn(params, resident, tok, 16)
+    plan = server.plan(2)
+    store = HostParamStore(params, bandwidth_gbps=100.0, base_latency_s=0.0, device="cpu")
+    for mode in (None, "rop", "capre", "markov", "hybrid"):
+        ws = WeightStreamer(store, plan=plan, mode=mode, k_ahead=3, workers=8,
+                            warm_group_trace=list(range(-1, len(plan.groups()))))
+        streamed = {k: v.clone() for k, v in cache.items()}
+        got, _ = server.stream_decode(ws, streamed, tok, 16)
+        ws.close()
+        assert torch.equal(got, want), mode
+        assert all(torch.equal(streamed[k], resident[k]) for k in cache), mode
         assert ws.metrics.fetches == len(plan.records) and ws.metrics.fetch_timeouts == 0
 
 

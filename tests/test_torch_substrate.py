@@ -127,7 +127,7 @@ def test_port_restores_a_jax_checkpoint(tmp_path):
     jtree["extra"] = {"half": jnp.asarray(np.arange(6, dtype=np.float32).astype(
         ml_dtypes.bfloat16))}
     JCheckpointManager(tmp_path, async_save=False).save(3, jtree)
-    want = from_numpy_tree(jax.tree.map(np.asarray, jtree))
+    want = from_numpy_tree(jax.tree.map(np.asarray, jtree), device="cpu")
     step, got = CheckpointManager(tmp_path).restore(like=want)
     assert step == 3
     _assert_trees_equal(got, want)
@@ -136,7 +136,7 @@ def test_port_restores_a_jax_checkpoint(tmp_path):
 def test_jax_restores_a_port_checkpoint(tmp_path):
     jtree = _train_state()
     CheckpointManager(tmp_path, async_save=False).save(
-        4, from_numpy_tree(jax.tree.map(np.asarray, jtree)))
+        4, from_numpy_tree(jax.tree.map(np.asarray, jtree), device="cpu"))
     like = jax.tree.map(lambda x: jax.ShapeDtypeStruct(x.shape, x.dtype), jtree)
     step, got = JCheckpointManager(tmp_path).restore(like=like)
     assert step == 4
@@ -242,12 +242,12 @@ def test_adamw_matches_jax_over_three_updates():
     opt = AdamW(learning_rate=warmup_cosine(1e-2, 2, 10))
     jparams = jax.tree.map(jnp.asarray, tree)
     jstate = jopt.init(jparams)
-    params = from_numpy_tree(tree)
+    params = from_numpy_tree(tree, device="cpu")
     state = opt.init(params)
     for i, gscale in enumerate((0.1, 5.0, 0.01)):
         grads = jax.tree.map(lambda a: (gscale * rng.randn(*a.shape)).astype(np.float32), tree)
         jparams, jstate, jm = jopt.update(jax.tree.map(jnp.asarray, grads), jstate, jparams)
-        params, state, m = opt.update(from_numpy_tree(grads), state, params)
+        params, state, m = opt.update(from_numpy_tree(grads, device="cpu"), state, params)
         assert int(state["step"]) == int(jstate["step"]) == i + 1
         assert m["lr"] == pytest.approx(float(jm["lr"]), rel=1e-6)
         assert float(m["grad_norm"]) == pytest.approx(float(jm["grad_norm"]), rel=1e-5)

@@ -51,7 +51,7 @@ def _jax_params(jcfg, seed=0):
 
 
 def _to_torch(jtree):
-    return from_numpy_tree(jax.tree.map(np.asarray, jtree))
+    return from_numpy_tree(jax.tree.map(np.asarray, jtree), device="cpu")
 
 
 # leaves whose gradient is zero in exact arithmetic: softmax is invariant to

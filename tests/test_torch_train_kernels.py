@@ -41,7 +41,7 @@ CASES = [  # B, Sq, Sk, H, KV, D, causal, q_offset
 
 def _pair(a, dtype):
     a = np.asarray(a, np.float32).astype(NP_DTYPES[dtype])
-    return jnp.asarray(a), to_tensor(a)
+    return jnp.asarray(a), to_tensor(a, device="cpu")
 
 
 def _fold(x):
@@ -107,8 +107,8 @@ def test_bwd_ref_matches_jax_kernel_per_query_head(case, dtype):
         _fold(qj), _fold(kj), _fold(vj), _fold(doj), lse, delta, causal=causal,
         q_offset=q_offset, interpret=True,
     )
-    got = ref.flash_attention_bwd_ref(qt, kt, vt, dot, to_tensor(np.asarray(lse)),
-                                      to_tensor(np.asarray(delta)), causal=causal,
+    got = ref.flash_attention_bwd_ref(qt, kt, vt, dot, to_tensor(np.asarray(lse), device="cpu"),
+                                      to_tensor(np.asarray(delta), device="cpu"), causal=causal,
                                       q_offset=q_offset, group_sum=False)
     for g, want, like in zip(got, (dq, dk, dv), (qt, kt, vt)):
         assert g.dtype == like.dtype
