@@ -14,8 +14,14 @@ Phases, each printing its lines; any failure exits non-zero:
      time (calls captured in a CUDA graph, replayed between CUDA events)
      beside its plain version, its bound on the card and one PyTorch
      library call that computes the same function (a yardstick, never
-     called by the port); flash-decode's host cost per call besides; the
-     row gather bitwise at the prefill and decode shapes and at edge cases;
+     called by the port); the flash forward's bf16 kernel for each way it
+     packs query heads (G = 1, 7, 16; Sq not a multiple of 128; q_offset;
+     D 64) and at the training shape, there also timed beside SDPA;
+     flash-decode's tensor-core variant for G in {1, 4, 7, 16, 32}, D 64
+     and 128, bf16 and fp8 caches, kv_len around its steps and splits and
+     a 32768-slot cache, and both variants at the serving shape (which one
+     ran is printed); flash-decode's host cost per call besides; the row
+     gather bitwise at the prefill and decode shapes and at edge cases;
   4. slice: chatglm3-6b at full width (28 layers, d_model 4096, 32 query
      heads over 2 KV heads, vocab 65,024; random weights from seed 0) served
      by ``repro_torch.launch.serve.Server`` with ``attn_impl="pallas"``:
@@ -24,14 +30,15 @@ Phases, each printing its lines; any failure exits non-zero:
      and both are timed.  The launch counters are zeroed
      just before that run and read just after it: flash-attention must have
      launched once per layer (the prefill), flash-decode once per layer per
-     decode step and the row gather once per prefill and once per decode
-     step (the embedding).  A short torch.profiler run of the same serve gives
+     decode step, all on the tensor cores, and the row gather once per
+     prefill and once per decode step (the embedding).  A short torch.profiler run of the same serve gives
      the device's busy share.  Then the plain ``attn_impl="chunked"`` path,
      teacher-forced on the generated tokens, must give the kernel path's
      logits within the tolerances below, in bf16 and, with the same weights
-     kept in f32, in f32; and at a depth of 2 layers (full width) the plain
-     naive path must give the bf16 kernel path's logits within a tighter
-     limit;
+     kept in f32, in f32 (whose decode must run flash-decode's CUDA-core
+     variant, once per layer per step); and at a depth of 2 layers (full
+     width) the plain naive path must give the bf16 kernel path's logits
+     within a tighter limit;
   stream: chatglm3-6b at full width, all 28 layers, random weights from
      seed 0, decode weights streamed from pinned host memory.  The access
      plan of one decode step (``Server.plan``, traced on the meta device)
@@ -279,6 +286,13 @@ def phase_flash(torch, ref, flash_fwd):
         (1, 256, 2, 2, 64, torch.float32, True, 192, 64),
         (2, 256, 8, 2, 64, torch.bfloat16, True, 0, 256),
         (1, 256, 2, 2, 128, torch.bfloat16, True, 192, 64),
+        # the bf16 kernel's packings: G = 1 (one head, 128 rows a block), G = 7
+        # (one head of the last pair idle), G = 16; Sq not a multiple of 128
+        (2, 200, 2, 2, 128, torch.bfloat16, True, 0, 200),
+        (1, 269, 14, 2, 128, torch.bfloat16, True, 192, 77),
+        (1, 130, 7, 1, 64, torch.bfloat16, False, 0, 130),
+        (2, 300, 32, 2, 64, torch.bfloat16, True, 0, 300),
+        (2, 2048, 32, 2, 128, torch.bfloat16, True, 0, 2048),  # training shape
     ]
     main_err = None
     for B, S, H, KV, D, dt, causal, q_off, Sq in cases:
@@ -325,12 +339,77 @@ def phase_flash(torch, ref, flash_fwd):
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device times, CUDA "
           f"graph); bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']} ({nbytes} B, "
           f"{flops} FLOP)")
+
+    # the training shape (the forward runs twice per layer per train step)
+    B, S = 2, 2048
+    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    t_ms = graph_ms(torch, lambda: flash_fwd(q, k, v, causal=True), iters=10)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    t_lib = graph_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S
+    flops = 4 * B * H * D * (S * (S + 1) // 2)
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    print(f"[flash] training shape B={B} S={S} H={H} KV={KV} D={D} bf16 causal: kernel "
+          f"{t_ms:.4f} ms, sdpa {t_lib:.4f} ms (device times, CUDA graph); bound "
+          f"{max(t_bytes, t_ops) * 1e3:.2f} us by {'bytes' if t_bytes >= t_ops else 'operations'} "
+          f"({nbytes} B, {flops} FLOP); {flops / t_ms / 1e9:.1f} TFLOP/s, sdpa "
+          f"{flops / t_lib / 1e9:.1f}")
     return rec
+
+
+DECODE_LENS = (1, 15, 16, 17, 63, 64, 65, 528, 1024)
+
+
+def check_decode_variants(torch, ref, decode_fwd) -> None:
+    """The tensor-core flash-decode for query groups that leave rows of its
+    16-head tile empty (G = 1, 4, 7), fill it (16) or take two tiles (32),
+    D 64 and 128, bf16 and fp8 caches, at lengths around its 16-key steps
+    and splits, and one cache of 32768 slots; one line per (G, D, cache)
+    with the worst error over the lengths."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(3)
+    n_mma = decode_fwd.launches_mma
+    n_checks = 0
+    B, KV, S = 2, 2, 1024
+    for G, D, kv_dt in itertools.product((1, 4, 7, 16, 32), (64, 128),
+                                         (torch.bfloat16, torch.float8_e4m3fn)):
+        q = torch.randn((B, KV * G, D), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(kv_dt)
+        v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(kv_dt)
+        worst = 0.0
+        for kv_len in DECODE_LENS:
+            ok, err = allclose(torch, decode_fwd(q, k, v, kv_len),
+                               ref.decode_attention_ref(q, k, v, kv_len), TOL["bfloat16"])
+            check(ok, f"tensor-core flash-decode disagrees (G={G} D={D} {kv_dt} "
+                      f"kv_len={kv_len})")
+            worst = max(worst, err)
+            n_checks += 1
+        print(f"[decode] tensor cores G={G} D={D} cache {kv_dt}, kv_len {DECODE_LENS}: "
+              f"max_abs_err {worst:.3e} (tol {TOL['bfloat16']})")
+    S, H, D = 32768, 32, 128
+    for kv_dt in (torch.bfloat16, torch.float8_e4m3fn):
+        q = torch.randn((1, H, D), generator=gen, device=dev).to(torch.bfloat16)
+        k = torch.randn((1, S, KV, D), generator=gen, device=dev).to(kv_dt)
+        v = torch.randn((1, S, KV, D), generator=gen, device=dev).to(kv_dt)
+        ok, err = allclose(torch, decode_fwd(q, k, v, S), ref.decode_attention_ref(q, k, v, S),
+                           TOL["bfloat16"])
+        print(f"[decode] tensor cores B=1 H={H} KV={KV} D={D} cache {kv_dt} kv_len={S}: "
+              f"max_abs_err {err:.3e} (tol {TOL['bfloat16']})")
+        check(ok, "tensor-core flash-decode disagrees on a 32768-slot cache")
+        n_checks += 1
+    torch.cuda.synchronize()
+    check(decode_fwd.launches_mma - n_mma == n_checks,
+          "the bf16 / fp8 decode checks did not all run on the tensor cores")
 
 
 def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
     """Check flash-decode at the decode shape for every cache dtype and
     several lengths; time it at ``kv_len_main``."""
+    from repro_torch.kernels.decode_attention import variant
+
+    check_decode_variants(torch, ref, decode_fwd)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     B, S, H, KV, D = 4, 1024, 32, 2, 128
@@ -346,12 +425,15 @@ def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
             torch.cuda.synchronize()
             tol = TOL[str(q_dt).split(".")[-1]]
             ok, err = allclose(torch, got, want, tol)
+            kind = variant(q_dt, kv_dt, D)
             print(f"[decode] B={B} S={S} H={H} KV={KV} D={D} q {q_dt} cache {kv_dt} "
-                  f"kv_len={kv_len}: max_abs_err {err:.3e} (tol {tol})")
+                  f"kv_len={kv_len} ({kind}): max_abs_err {err:.3e} (tol {tol})")
             check(ok, "flash-decode disagrees with its plain version")
             if kv_dt == torch.bfloat16:
                 main_err = max(main_err, err)
 
+    print(f"[decode] serving shape B={B} H={H} KV={KV} D={D}, bf16 query and cache: "
+          f"max_abs_err {main_err:.3e} over kv_len 1, 7, 513, 1024")
     q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -366,8 +448,8 @@ def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
     wrap_us = host_us(torch, lambda: decode_fwd(q, k, v, L))
     loop_ms = cuda_ms(torch, lambda: decode_fwd(q, k, v, L), iters=200, warmup=20)
     nbytes = 2 * (2 * q.numel() + 2 * B * L * KV * D)
-    flops = 4 * B * H * L * D
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    flops = 4 * B * H * L * D  # bf16 products on the tensor cores (the timed variant)
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
     rec = {
         "name": "decode_attention_fwd", "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -547,6 +629,10 @@ def profile_run(torch, label: str, fn) -> None:
         print(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} x  {key[:100]}")
 
 
+# a wrapper's launch count, and flash-decode's per variant (tensor cores, CUDA cores)
+LAUNCH_COUNTS = ("launches", "launches_mma", "launches_simt")
+
+
 def time_serve(torch, server, params, batch, gen_tokens: int, counters: dict) -> dict:
     """Serve ``batch`` through ``server.generate``, as a user would: a
     4-token warm-up (cuBLAS handles, the allocator), the prefill alone
@@ -565,9 +651,13 @@ def time_serve(torch, server, params, batch, gen_tokens: int, counters: dict) ->
     prefill_s = sorted(timed_generate(1)[1] for _ in range(3))[1]
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
-        c.launches = 0
+        for attr in LAUNCH_COUNTS:
+            if hasattr(c, attr):
+                setattr(c, attr, 0)
     tokens, first_s = timed_generate(gen_tokens)
     launched = {n: c.launches for n, c in counters.items()}
+    by_variant = {f"{n}.{a}": getattr(c, a) for n, c in counters.items()
+                  for a in LAUNCH_COUNTS[1:] if hasattr(c, a)}
     peak = torch.cuda.max_memory_allocated()
     totals = sorted([first_s] + [timed_generate(gen_tokens)[1] for _ in range(2)])
     total_s = totals[1]
@@ -578,7 +668,7 @@ def time_serve(torch, server, params, batch, gen_tokens: int, counters: dict) ->
             f"{prefill_s * 1e3:.3f} ms (median of 3), decode {decode_ms:.3f} ms/token step, "
             f"{B * gen_tokens / total_s:.1f} tokens/s end to end ({total_s:.3f} s, median of "
             f"{', '.join(f'{t:.3f}' for t in totals)} s), peak memory {peak} B")
-    return {"tokens": tokens, "launched": launched, "line": line}
+    return {"tokens": tokens, "launched": launched, "by_variant": by_variant, "line": line}
 
 
 def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
@@ -608,10 +698,13 @@ def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
     n_flash, n_decode, n_gather = (run["launched"][k] for k in ("flash", "decode", "gather"))
     decode_steps = gen_tokens - 1
     print(f"[slice] {run['line']}")
+    n_mma, n_simt = (run["by_variant"][f"decode.{a}"] for a in LAUNCH_COUNTS[1:])
     print(f"[slice] launches in that run: flash_attention_fwd {n_flash} "
           f"(want {cfg.n_layers}), decode_attention_fwd {n_decode} "
-          f"(want {cfg.n_layers * decode_steps}), prefetch_gather_fwd {n_gather} "
-          f"(want {1 + decode_steps})")
+          f"(want {cfg.n_layers * decode_steps}; tensor cores {n_mma}, CUDA cores {n_simt}), "
+          f"prefetch_gather_fwd {n_gather} (want {1 + decode_steps})")
+    check(n_mma == cfg.n_layers * decode_steps,
+          "the bf16 decode did not run the tensor-core flash-decode once per layer per step")
     check(tuple(tokens.shape) == (B, gen_tokens), f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token out of range")
     check(n_flash == cfg.n_layers, "the prefill did not run flash-attention once per layer")
@@ -634,8 +727,14 @@ def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
     check_paths(torch, "bf16 compute, depth 2", cfg2, kern2, plain2,
                 LOGITS_REL_TOL_BF16_DEPTH2, plain_impl="naive")
     cfg32 = cfg.replace(compute_dtype="float32")
+    decode_fwd.launches_mma = decode_fwd.launches_simt = 0
     kern32, plain32 = teacher_forced(torch, cfg32, model.init_params(seed=0), batch, tokens,
                                      max_len)
+    n_f32 = cfg.n_layers * (tokens.shape[1] - 1)
+    print(f"[slice] f32 check: flash-decode on the CUDA cores {decode_fwd.launches_simt} "
+          f"(want {n_f32}), on the tensor cores {decode_fwd.launches_mma} (want 0)")
+    check(decode_fwd.launches_simt == n_f32 and decode_fwd.launches_mma == 0,
+          "the f32 decode did not run the CUDA-core flash-decode")
     check_paths(torch, "f32 compute", cfg32, kern32, plain32, LOGITS_REL_TOL_F32)
     for label, got in (("kernel", kern16), ("plain chunked", plain16)):
         rel, rms = rel_err(torch, got, kern32)

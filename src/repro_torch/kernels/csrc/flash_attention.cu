@@ -4,22 +4,21 @@
 // src/repro/kernels/flash_attention.py (Pallas, grid (B*H, Sq/bq, Sk/bk)
 // with the KV axis walked in order and the online-softmax state in VMEM).
 //
-// What bounds it on the H100: at the serving shapes (prefill, B=4, S=512,
+// What bounds it on the H100: at the serving shape (prefill, B=4, S=512,
 // H=32 over KV=2, D=128, bf16, causal) the function moves ~36 MB (q and o
 // dominate, K/V are 16x smaller under GQA) and does ~8.6 GFLOP, so the
 // card's floor is bytes: ~11 us at 3.35 TB/s against ~9 us of bf16 tensor
-// work.  Both are far below what this kernel reaches: it issues its
-// tensor-core products with mma.sync from 4 warps per block, at 2 blocks
-// per SM (registers), and overlaps only the next K/V tile's load with
-// them; wgmma, TMA and warp specialisation are later work.
+// work.  At the training shape (B=2, S=2048) it does ~69 GFLOP, ~70 us at
+// 989 TFLOP/s: operations.  What this kernel meets first at both is the
+// rate at which L2 feeds K/V tiles to the SMs and the softmax between the
+// two products (see PERF.md).
 //
-// Design, common to both kernels below:
-//   * one block per (q tile, head h, batch b): blocks run in parallel in no
-//     order, so the TPU kernel's sequential KV grid axis becomes a loop
-//     inside the block over K/V tiles staged in shared memory;
+// Common to both kernels below:
 //   * q, k, v are read in the model layouts [B, Sq, H, D] and [B, Sk, KV, D]
 //     through their strides, so the wrapper's head fold costs no copy; the
 //     KV head of query head h is h / (H / KV) (GQA without repeating K/V);
+//   * the TPU kernel's sequential KV grid axis becomes a loop inside a
+//     block over K/V tiles staged in shared memory;
 //   * causal: tiles wholly above the diagonal (with q_offset) are skipped,
 //     not computed masked as on the TPU;
 //   * numerics follow the TPU kernel: scores in f32 times 1/sqrt(D), masked
@@ -27,203 +26,373 @@
 //     before the PV product while l sums the unrounded P, l clamped at
 //     1e-30, o = acc / l in q's dtype and lse = m + log(l) in f32.
 //
-// bf16 (the serving path): tensor cores through mma.sync m16n8k16 with f32
-// accumulation.  A block of 4 warps takes 64 query rows, 16 per warp; Q
-// stays in registers as MMA fragments; K/V tiles of 64 rows are loaded
-// into padded shared memory (row stride D + 8, so ldmatrix is free of bank
-// conflicts) by cp.async, double-buffered so that the next tile streams in
-// while this one is used; S = Q K^T stays in registers, and P is repacked from the S
-// accumulators straight into the A fragments of the PV product, rounded to
-// bf16 exactly where the TPU kernel rounds it.
+// bf16 (the serving and training path): wgmma, TMA and warp specialisation,
+// persistent.  One block per SM walks work items, heaviest causal q tiles
+// first.  An item is 64 query rows of two query heads that share a KV head
+// (or, with one query head per KV head, 128 rows of one head), so every
+// K/V tile is loaded once for both.  A producer warp (its registers cut
+// with setmaxnreg) keeps TMA loads in flight through tensor maps over the
+// model strides, with 128-byte swizzle: Q into a double buffer, K and V
+// tiles of 128 keys into a 2-stage ring whose K and V halves are released
+// apart (K after Q K^T, V after P V).  Two consumer warpgroups, 64 rows
+// each, run S = Q K^T as wgmma m64n128k16 from shared memory (both operands
+// K-major), the online softmax on the accumulators in registers (the scale
+// folded into the exponent, 2^x on the special-function unit, masks only on
+// tiles that cross the diagonal or the ragged end), and O += P V as wgmma
+// with P as register A fragments and V read MN-major from shared memory;
+// tile j's softmax runs while tile j - 1's P V is on the tensor cores.
 //
-// f32: products on the CUDA cores (SIMT) in f32, a 16 x 16 thread grid over
-// 64 query rows and 32-row K/V tiles; the tensor cores' f32 input (TF32)
-// would round the operands.
+// f32: products on the CUDA cores (SIMT) in f32, one block per (64-row q
+// tile, head, batch row), a 16 x 16 thread grid over 64 query rows and
+// 32-row K/V tiles; the tensor cores' f32 input (TF32) would round the
+// operands.
 //
 // The launcher has a plain C interface (loaded with ctypes) and returns
 // the cudaError_t of the launch.
 
+#include <cuda.h>
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "mma_bf16.cuh"
 
 namespace {
 
-using namespace mma;
+using namespace hopper;
+using mma::bf16;
+using mma::pack_bf16;
 
 constexpr float NEG_INF = -1e30f;
 
 // ---------------------------------------------------------------------------
-// bf16: tensor-core kernel
+// bf16: warp-specialised wgmma kernel
 // ---------------------------------------------------------------------------
 
-constexpr int MMA_BM = 64;     // query rows per block (16 per warp)
-constexpr int MMA_BN = 64;     // key rows per tile
-constexpr int MMA_NT = 128;    // 4 warps
+constexpr int WS_BM = 64;     // query rows per consumer warpgroup
+constexpr int WS_BN = 128;    // keys per K/V tile
+constexpr int WS_NST = 2;     // K/V ring stages
+constexpr int WS_NT = 384;    // producer warpgroup + two consumer warpgroups
+constexpr int QSLAB = WS_BM * 128;   // one [64 rows][64 bf16] slab of a Q tile, bytes
+constexpr int KVSLAB = WS_BN * 128;  // one [128 rows][64 bf16] slab of a K or V tile
+constexpr float LOG2E = 1.4426950408889634f;
+constexpr float LN2 = 0.6931471805599453f;
 
-// start copying 64 rows of an operand into a padded shared-memory tile
 template <int D>
-__device__ __forceinline__ void load64(bf16* dst, const bf16* src, int64_t stride,
-                                          int row0, int nrows) {
-  mma::load_tile<D, 64, MMA_NT>(dst, src, stride, row0, nrows);
+struct WsLayout {
+  static constexpr int QTILE = WS_BM * D * 2;        // D / 64 slabs
+  static constexpr int KVTILE = WS_BN * D * 2;
+  static constexpr int Q = 0;                        // [2 buffers][2 warpgroups] Q tiles
+  static constexpr int K = 4 * QTILE;
+  static constexpr int V = K + WS_NST * KVTILE;
+  // barriers: q_full[2], q_empty[2], k_full[], v_full[], k_empty[], v_empty[]
+  static constexpr int BAR = V + WS_NST * KVTILE;
+  static constexpr int BYTES = BAR + 8 * (4 + 4 * WS_NST) + 1024;  // + alignment slack
+};
+
+// one work item: a q tile of one or two query heads that share a KV head
+struct WsWork {
+  int b, kvh, h[2], row0[2], valid[2], n_kv[2], n_kv_max;
+};
+
+// items in order of decreasing work (causal: the last q tiles first)
+__device__ __forceinline__ WsWork ws_work(int item, int units, int n_qt, int KV, int G,
+                                          int Sq, int Sk, int causal, int q_offset) {
+  WsWork w;
+  const int pairs = G >= 2 ? (G + 1) / 2 : 1;
+  const int qt = n_qt - 1 - item / units;
+  const int u = item % units;
+  w.b = u / (KV * pairs);
+  w.kvh = (u / pairs) % KV;
+  const int pair = u % pairs;
+  const int n_kv_all = (Sk + WS_BN - 1) / WS_BN;
+  w.n_kv_max = 0;
+#pragma unroll
+  for (int c = 0; c < 2; ++c) {
+    if (G >= 2) {  // two heads, the same 64 rows
+      w.h[c] = w.kvh * G + 2 * pair + c;
+      w.row0[c] = qt * WS_BM;
+      w.valid[c] = 2 * pair + c < G;
+    } else {       // one head, 128 rows
+      w.h[c] = w.kvh;
+      w.row0[c] = qt * 2 * WS_BM + c * WS_BM;
+      w.valid[c] = w.row0[c] < Sq;
+    }
+    int n = n_kv_all;
+    if (causal) n = min(n, (q_offset + min(w.row0[c] + WS_BM, Sq) - 1) / WS_BN + 1);
+    w.n_kv[c] = w.valid[c] ? n : 0;
+    w.n_kv_max = max(w.n_kv_max, w.n_kv[c]);
+  }
+  return w;
 }
 
+// Persistent: block i takes items i, i + gridDim.x, ...; the K/V ring and
+// its barrier phases run on across items, so the next item's Q and K/V
+// loads overlap this item's last products and its epilogue.
 template <int D>
-__global__ void __launch_bounds__(MMA_NT) flash_fwd_mma_kernel(
-    const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
+__global__ void __launch_bounds__(WS_NT, 1) flash_fwd_ws_kernel(
+    const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+    const __grid_constant__ CUtensorMap vmap,
     bf16* __restrict__ o, float* __restrict__ lse,
     int H, int KV, int Sq, int Sk,
-    int64_t q_sb, int64_t q_ss, int64_t q_sh,
-    int64_t k_sb, int64_t k_ss, int64_t k_sh,
-    int64_t v_sb, int64_t v_ss, int64_t v_sh,
     int64_t o_sb, int64_t o_ss, int64_t o_sh,
-    int causal, int q_offset, float scale) {
-  constexpr int LD = D + 8;           // padded shared-memory row (elements)
-  constexpr int KT = D / 16;          // k-steps of the QK^T product
-  constexpr int NS = MMA_BN / 8;      // n-tiles of S (8 keys each)
-  constexpr int NO = D / 8;           // n-tiles of O (8 dims each)
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Kbuf = Qs + MMA_BM * LD;       // two K tiles: tile j in buffer j % 2
-  bf16* Vbuf = Kbuf + 2 * MMA_BN * LD; // two V tiles
+    int causal, int q_offset, float scale, int units) {
+  using L = WsLayout<D>;
+  constexpr int NSLAB = D / 64;
+  constexpr int NS = WS_BN / 8;  // n-tiles of S (8 keys each)
+  constexpr int NO = D / 8;      // n-tiles of O (8 dims each)
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* q_full = bars;       // per Q buffer
+  uint64_t* q_empty = bars + 2;
+  uint64_t* k_full = bars + 4;
+  uint64_t* v_full = k_full + WS_NST;
+  uint64_t* k_empty = v_full + WS_NST;   // K and V stages are freed apart: K after
+  uint64_t* v_empty = k_empty + WS_NST;  // Q K^T, V after P V
 
-  const int q0 = blockIdx.x * MMA_BM;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int g = lane / 4, t = lane % 4;  // accumulator row and column pair
-
-  int n_kv = (Sk + MMA_BN - 1) / MMA_BN;
-  if (causal) {
-    const int q_last = q_offset + min(q0 + MMA_BM, Sq) - 1;
-    n_kv = min(n_kv, q_last / MMA_BN + 1);
-  }
-
-  const bf16* kb = k + b * k_sb + kvh * k_sh;
-  const bf16* vb = v + b * v_sb + kvh * v_sh;
-  load64<D>(Qs, q + b * q_sb + h * q_sh, q_ss, q0, Sq);
-  load64<D>(Kbuf, kb, k_ss, 0, Sk);
-  load64<D>(Vbuf, vb, v_ss, 0, Sk);
-  cp_async_commit();
-  cp_async_wait_all();
-  __syncthreads();
-  uint32_t qf[KT][4];  // this warp's 16 query rows as A fragments
-#pragma unroll
-  for (int kt = 0; kt < KT; ++kt)
-    ldmatrix_x4(qf[kt], Qs + (warp * 16 + lane % 16) * LD + kt * 16 + (lane / 16) * 8);
-
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};  // rows g and g + 8
-  float acc[NO][4];
-#pragma unroll
-  for (int j = 0; j < NO; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-
-  const int qpos0 = q_offset + q0 + warp * 16 + g;
-
-  for (int j = 0; j < n_kv; ++j) {
-    const int k0 = j * MMA_BN;
-    const bf16* Ks = Kbuf + (j % 2) * MMA_BN * LD;
-    const bf16* Vs = Vbuf + (j % 2) * MMA_BN * LD;
-    if (j + 1 < n_kv) {  // the next tile streams in while this one is used
-      load64<D>(Kbuf + ((j + 1) % 2) * MMA_BN * LD, kb, k_ss, k0 + MMA_BN, Sk);
-      load64<D>(Vbuf + ((j + 1) % 2) * MMA_BN * LD, vb, v_ss, k0 + MMA_BN, Sk);
-      cp_async_commit();
-    }
-
-    float s[NS][4];
-#pragma unroll
-    for (int n = 0; n < NS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int kt = 0; kt < KT; ++kt) {
-#pragma unroll
-      for (int np = 0; np < NS / 2; ++np) {
-        uint32_t kf[4];  // B fragments of key n-tiles 2np and 2np + 1
-        ldmatrix_x4(kf, Ks + (np * 16 + lane % 8 + (lane / 16) * 8) * LD + kt * 16 +
-                            ((lane / 8) % 2) * 8);
-        mma_bf16(s[2 * np], qf[kt], kf[0], kf[1]);
-        mma_bf16(s[2 * np + 1], qf[kt], kf[2], kf[3]);
-      }
-    }
-
-    // scale and mask; element e of n-tile n is (row g + 8 * (e / 2),
-    // key k0 + 8 n + 2 t + e % 2)
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kpos = k0 + n * 8 + 2 * t + (e & 1);
-        float x = s[n][e] * scale;
-        if (causal && kpos > qpos0 + (e >> 1) * 8) x = NEG_INF;
-        if (kpos >= Sk) x = -CUDART_INF_F;  // ragged edge: contributes p = 0
-        s[n][e] = x;
-        mx[e >> 1] = fmaxf(mx[e >> 1], x);
-      }
-    }
-    float corr[2], m_new[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {  // the 4 lanes of a quad share a row
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      m_new[i] = fmaxf(m[i], mx[i]);
-      corr[i] = expf(m[i] - m_new[i]);
-    }
-    float ps[2] = {0.f, 0.f};
-    uint32_t pf[NS / 2][4];  // P as A fragments of the PV product (16 keys each)
-#pragma unroll
-    for (int n = 0; n < NS; ++n) {
-      const float p0 = expf(s[n][0] - m_new[0]), p1 = expf(s[n][1] - m_new[0]);
-      const float p2 = expf(s[n][2] - m_new[1]), p3 = expf(s[n][3] - m_new[1]);
-      ps[0] += p0 + p1;
-      ps[1] += p2 + p3;
-      pf[n / 2][(n % 2) * 2] = pack_bf16(p0, p1);
-      pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(p2, p3);
-    }
-#pragma unroll
+  const int G = H / KV;
+  const int bm = G >= 2 ? WS_BM : 2 * WS_BM;
+  const int n_qt = (Sq + bm - 1) / bm;
+  const int n_items = n_qt * units;
+  if (threadIdx.x == 0) {
     for (int i = 0; i < 2; ++i) {
-      ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 1);
-      ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 2);
-      l[i] = l[i] * corr[i] + ps[i];
-      m[i] = m_new[i];
+      mbar_init(q_full + i, 1);
+      mbar_init(q_empty + i, 8);  // one arrival per consumer warp
     }
-#pragma unroll
-    for (int d = 0; d < NO; ++d) {
-      acc[d][0] *= corr[0];
-      acc[d][1] *= corr[0];
-      acc[d][2] *= corr[1];
-      acc[d][3] *= corr[1];
+    for (int i = 0; i < WS_NST; ++i) {
+      mbar_init(k_full + i, 1);
+      mbar_init(v_full + i, 1);
+      mbar_init(k_empty + i, 8);
+      mbar_init(v_empty + i, 8);
     }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the TMA loads in flight
+    reg_dealloc<40>();
+    if (threadIdx.x == 0) {
+      tma_prefetch_map(&qmap);
+      tma_prefetch_map(&kmap);
+      tma_prefetch_map(&vmap);
+      int it = 0;  // K/V tiles loaded so far
+      for (int item = blockIdx.x, k = 0; item < n_items; item += gridDim.x, ++k) {
+        const WsWork w = ws_work(item, units, n_qt, KV, G, Sq, Sk, causal, q_offset);
+        // Q buffer k % 2: free once the Q K^T of item k - 2 are done
+        const int qb = k & 1;
+        if (k >= 2) mbar_wait(q_empty + qb, ((k >> 1) - 1) & 1);
+        mbar_expect_tx(q_full + qb, (w.valid[0] + w.valid[1]) * L::QTILE);
 #pragma unroll
-    for (int kk = 0; kk < NS / 2; ++kk) {
-#pragma unroll
-      for (int dp = 0; dp < NO / 2; ++dp) {
-        uint32_t vf[4];  // B fragments of dim n-tiles 2dp and 2dp + 1
-        ldmatrix_x4_trans(vf, Vs + (kk * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
-                                  dp * 16 + (lane / 16) * 8);
-        mma_bf16(acc[2 * dp], pf[kk], vf[0], vf[1]);
-        mma_bf16(acc[2 * dp + 1], pf[kk], vf[2], vf[3]);
+        for (int c = 0; c < 2; ++c)
+          if (w.valid[c])
+            for (int sl = 0; sl < NSLAB; ++sl)
+              tma_load_4d(smem + L::Q + (2 * qb + c) * L::QTILE + sl * QSLAB, &qmap,
+                          q_full + qb, sl * 64, w.h[c], w.row0[c], w.b);
+        for (int j = 0; j < w.n_kv_max; ++j, ++it) {
+          const int st = it % WS_NST;
+          const uint32_t free_ph = ((it / WS_NST) - 1) & 1;
+          if (it >= WS_NST) mbar_wait(k_empty + st, free_ph);
+          mbar_expect_tx(k_full + st, L::KVTILE);
+          for (int sl = 0; sl < NSLAB; ++sl)
+            tma_load_4d(smem + L::K + st * L::KVTILE + sl * KVSLAB, &kmap, k_full + st,
+                        sl * 64, w.kvh, j * WS_BN, w.b);
+          if (it >= WS_NST) mbar_wait(v_empty + st, free_ph);
+          mbar_expect_tx(v_full + st, L::KVTILE);
+          for (int sl = 0; sl < NSLAB; ++sl)
+            tma_load_4d(smem + L::V + st * L::KVTILE + sl * KVSLAB, &vmap, v_full + st,
+                        sl * 64, w.kvh, j * WS_BN, w.b);
+        }
       }
     }
-    // tile j + 1 has landed for every thread, and no warp reads buffer
-    // j % 2 any more, which the next iteration refills with tile j + 2
-    cp_async_wait_all();
-    __syncthreads();
-  }
+  } else {
+    // consumers: warpgroup c takes 64 query rows of head w.h[c] of each item
+    reg_alloc<232>();
+    const int c = wg - 1;
+    const int warp = (threadIdx.x / 32) % 4, lane = threadIdx.x % 32;
+    const int g = lane / 4, t = lane % 4;
+    const float scale2 = scale * LOG2E;  // scores in log2 units: exp2 of them is exp
+    float acc[4 * NO];
+    float s[4 * NS];          // S of the newest tile; its P in f32 after the softmax
+    uint32_t pf[NS / 2][4];   // P of the previous tile as register A fragments (16 keys each)
+    float m[2], l[2];         // rows g, g + 8 of the warp
 
+    // S = Q K^T of one tile into s: both operands K-major, 4 k16 steps per
+    // 64-dim slab (issued, not waited for)
+    auto issue_s = [&](const unsigned char* Qs, int st) {
+      const unsigned char* Ks = smem + L::K + st * L::KVTILE;
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qi = q0 + warp * 16 + g + i * 8;
-    if (qi >= Sq) continue;
-    const float ls = fmaxf(l[i], 1e-30f);
-    bf16* orow = o + b * o_sb + qi * o_ss + h * o_sh;
+      for (int sl = 0; sl < NSLAB; ++sl)
 #pragma unroll
-    for (int d = 0; d < NO; ++d)
-      *reinterpret_cast<__nv_bfloat162*>(orow + d * 8 + 2 * t) =
-          __floats2bfloat162_rn(acc[d][2 * i] / ls, acc[d][2 * i + 1] / ls);
-    if (t == 0) lse[((int64_t)b * H + h) * Sq + qi] = m[i] + logf(ls);
+        for (int kk = 0; kk < 4; ++kk)
+          wgmma_m64n128k16_ss(s, desc_sw128(Qs + sl * QSLAB + kk * 32, 16, 1024),
+                              desc_sw128(Ks + sl * KVSLAB + kk * 32, 16, 1024), sl | kk);
+      wgmma_commit();
+    };
+    // O += P V: V MN-major ([key][d]), 64-dim slabs LBO apart, 8-key groups
+    // SBO apart, a k16 step is 16 rows (issued, not waited for)
+    auto issue_pv = [&](int st) {
+      const unsigned char* Vs = smem + L::V + st * L::KVTILE;
+#pragma unroll
+      for (int kk = 0; kk < NS / 2; ++kk) {
+        const uint64_t dv = desc_sw128(Vs + kk * 16 * 128, KVSLAB, 1024);
+        if constexpr (D == 128) wgmma_m64n128k16_rs_t(acc, pf[kk], dv);
+        else wgmma_m64n64k16_rs_t(acc, pf[kk], dv);
+      }
+      wgmma_commit();
+    };
+    // scale and mask tile j's scores, update m and l, leave P (f32) in s;
+    // element 4 n + e is (row g + 8 (e / 2), key 64 j + 8 n + 2 t + e % 2)
+    auto softmax = [&](int j, int qpos0, float (&corr)[2]) {
+      const int k0 = j * WS_BN;
+      // only tiles that cross the diagonal or the ragged end need masks
+      // (the same for the whole warp: its rows are qpos0 - g + [0, 16));
+      // the max is taken over the raw scores (scale > 0), the scale folded
+      // into the exponent: p = 2^(s scale log2 e - m)
+      const bool edge = (causal && k0 + WS_BN - 1 > qpos0 - g) || k0 + WS_BN > Sk;
+      if (edge) {
+#pragma unroll
+        for (int n = 0; n < NS; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int kpos = k0 + n * 8 + 2 * t + (e & 1);
+            if (causal && kpos > qpos0 + (e >> 1) * 8) s[4 * n + e] = NEG_INF;
+            if (kpos >= Sk) s[4 * n + e] = -CUDART_INF_F;  // ragged edge: p = 0
+          }
+      }
+      float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * n], s[4 * n + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * n + 2], s[4 * n + 3]));
+      }
+      float m_new[2], ps[2] = {0.f, 0.f};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {  // the 4 lanes of a quad share a row
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        m_new[i] = fmaxf(m[i], mx[i] * scale2);
+        corr[i] = ex2(m[i] - m_new[i]);
+      }
+#pragma unroll
+      for (int n = 0; n < NS; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = ex2(fmaf(s[4 * n + e], scale2, -m_new[e >> 1]));
+          ps[e >> 1] += p;
+          s[4 * n + e] = p;
+        }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 1);
+        ps[i] += __shfl_xor_sync(0xffffffffu, ps[i], 2);
+        l[i] = l[i] * corr[i] + ps[i];  // l sums the unrounded P
+        m[i] = m_new[i];
+      }
+    };
+    // P rounded to bf16 (where the TPU kernel rounds it) into the A fragments
+    auto pack_p = [&]() {
+#pragma unroll
+      for (int n = 0; n < NS; ++n) {
+        pf[n / 2][(n % 2) * 2] = pack_bf16(s[4 * n], s[4 * n + 1]);
+        pf[n / 2][(n % 2) * 2 + 1] = pack_bf16(s[4 * n + 2], s[4 * n + 3]);
+      }
+    };
+    auto release = [&](uint64_t* bar) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(bar);
+    };
+
+    int it = 0;  // K/V tiles consumed so far
+    for (int item = blockIdx.x, k = 0; item < n_items; item += gridDim.x, ++k) {
+      const WsWork w = ws_work(item, units, n_qt, KV, G, Sq, Sk, causal, q_offset);
+      const int h = c ? w.h[1] : w.h[0], row0 = c ? w.row0[1] : w.row0[0];
+      const int n_kv = c ? w.n_kv[1] : w.n_kv[0];  // 0 for a warpgroup without rows
+      const int qpos0 = q_offset + row0 + warp * 16 + g;  // rows qpos0, qpos0 + 8
+      m[0] = m[1] = NEG_INF;
+      l[0] = l[1] = 0.f;
+#pragma unroll
+      for (int i = 0; i < 4 * NO; ++i) acc[i] = 0.f;
+      const int qb = k & 1;
+      const unsigned char* Qs = smem + L::Q + (2 * qb + c) * L::QTILE;
+      mbar_wait(q_full + qb, (k >> 1) & 1);
+      if (n_kv > 0) {
+        // tile j's softmax runs while tile j - 1's P V is on the tensor cores
+        float corr[2];
+        mbar_wait(k_full + it % WS_NST, (it / WS_NST) & 1);
+        wgmma_fence();
+        issue_s(Qs, it % WS_NST);
+        wgmma_wait<0>();
+        fence_regs(s);
+        release(k_empty + it % WS_NST);
+        softmax(0, qpos0, corr);
+        pack_p();
+        for (int j = 1; j < n_kv; ++j) {
+          const int st = (it + j) % WS_NST, pst = (it + j - 1) % WS_NST;
+          mbar_wait(k_full + st, ((it + j) / WS_NST) & 1);
+          mbar_wait(v_full + pst, ((it + j - 1) / WS_NST) & 1);
+          wgmma_fence();
+          issue_s(Qs, st);
+          issue_pv(pst);
+          wgmma_wait<1>();  // S of tile j
+          fence_regs(s);
+          release(k_empty + st);
+          softmax(j, qpos0, corr);
+          wgmma_wait<0>();  // P V of tile j - 1
+          fence_regs(acc);
+#pragma unroll
+          for (int kk = 0; kk < NS / 2; ++kk) fence_regs(pf[kk]);
+          release(v_empty + pst);
+#pragma unroll
+          for (int n = 0; n < NO; ++n) {
+            acc[4 * n] *= corr[0];
+            acc[4 * n + 1] *= corr[0];
+            acc[4 * n + 2] *= corr[1];
+            acc[4 * n + 3] *= corr[1];
+          }
+          pack_p();
+        }
+        release(q_empty + qb);  // every Q K^T of this item is done
+        const int pst = (it + n_kv - 1) % WS_NST;
+        mbar_wait(v_full + pst, ((it + n_kv - 1) / WS_NST) & 1);
+        wgmma_fence();
+        issue_pv(pst);
+        wgmma_wait<0>();
+        fence_regs(acc);
+        release(v_empty + pst);
+      } else {
+        release(q_empty + qb);
+      }
+      // tiles only the other warpgroup needs
+      for (int j = n_kv; j < w.n_kv_max; ++j) {
+        const int st = (it + j) % WS_NST;
+        mbar_wait(k_full + st, ((it + j) / WS_NST) & 1);
+        mbar_wait(v_full + st, ((it + j) / WS_NST) & 1);
+        release(k_empty + st);
+        release(v_empty + st);
+      }
+      it += w.n_kv_max;
+
+      if (n_kv > 0) {
+#pragma unroll
+        for (int i = 0; i < 2; ++i) {
+          const int qi = row0 + warp * 16 + g + i * 8;
+          if (qi >= Sq) continue;
+          const float ls = fmaxf(l[i], 1e-30f), inv = 1.f / ls;
+          bf16* orow = o + w.b * o_sb + qi * o_ss + h * o_sh;
+#pragma unroll
+          for (int n = 0; n < NO; ++n)
+            *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+                __floats2bfloat162_rn(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+          if (t == 0) lse[((int64_t)w.b * H + h) * Sq + qi] = m[i] * LN2 + logf(ls);
+        }
+      }
+    }
   }
 }
 
@@ -389,30 +558,82 @@ struct Args {
   float scale;
 };
 
-template <typename T, typename Kernel>
-cudaError_t launch(Kernel kernel, const Args& a, int B, int bm, int threads, size_t smem,
-                   cudaStream_t stream) {
-  cudaError_t err =
-      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int D>
+cudaError_t launch_f32(const Args& a, int B, cudaStream_t stream) {
+  const int smem = sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
+  static int cap[64];
+  cudaError_t err = hopper::smem_cap((const void*)flash_fwd_f32_kernel<D>, smem, cap);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + bm - 1) / bm, a.H, B);
-  kernel<<<grid, threads, smem, stream>>>(
-      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, (float*)a.lse,
+  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
+  flash_fwd_f32_kernel<D><<<grid, NT, smem, stream>>>(
+      (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o, (float*)a.lse,
       a.H, a.KV, a.Sq, a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh,
       a.v_sb, a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.causal, a.q_offset, a.scale);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(bf16) * (MMA_BM + 4 * MMA_BN) * (D + 8);
-  return launch<bf16>(flash_fwd_mma_kernel<D>, a, B, MMA_BM, MMA_NT, smem, stream);
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) ==
+            cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-D bf16 map over [B, S, heads, D] (strides in elements, the last dim
+// contiguous) whose box is 64 dims x 1 head x `rows` rows x 1 batch row,
+// with TMA's 128-byte swizzle; rows past S read as zeros
+bool encode_map(CUtensorMap* map, const void* base, int B, int S, int heads, int D,
+                int64_t sb, int64_t ss, int64_t sh, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
 }
 
 template <int D>
-cudaError_t launch_f32(const Args& a, int B, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
-  return launch<float>(flash_fwd_f32_kernel<D>, a, B, BQ, NT, smem, stream);
+cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
+  CUtensorMap qmap, kmap, vmap;
+  if (!encode_map(&qmap, a.q, B, a.Sq, a.H, D, a.q_sb, a.q_ss, a.q_sh, WS_BM) ||
+      !encode_map(&kmap, a.k, B, a.Sk, a.KV, D, a.k_sb, a.k_ss, a.k_sh, WS_BN) ||
+      !encode_map(&vmap, a.v, B, a.Sk, a.KV, D, a.v_sb, a.v_ss, a.v_sh, WS_BN))
+    return cudaErrorInvalidValue;
+  constexpr int smem = WsLayout<D>::BYTES;
+  static int cap[64];
+  cudaError_t err = hopper::smem_cap((const void*)flash_fwd_ws_kernel<D>, smem, cap);
+  if (err != cudaSuccess) return err;
+  const int G = a.H / a.KV;
+  const int units = B * a.KV * (G >= 2 ? (G + 1) / 2 : 1);
+  const int bm = G >= 2 ? WS_BM : 2 * WS_BM;
+  const int n_items = ((a.Sq + bm - 1) / bm) * units;
+  static int n_sm[64];
+  int dev = 0;
+  err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (n_sm[dev] == 0) {
+    err = cudaDeviceGetAttribute(&n_sm[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  flash_fwd_ws_kernel<D><<<min(n_items, n_sm[dev]), WS_NT, smem, stream>>>(
+      qmap, kmap, vmap, (bf16*)a.o, (float*)a.lse, a.H, a.KV, a.Sq, a.Sk,
+      a.o_sb, a.o_ss, a.o_sh, a.causal, a.q_offset, a.scale, units);
+  return cudaGetLastError();
 }
 
 }  // namespace

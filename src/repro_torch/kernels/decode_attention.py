@@ -1,11 +1,20 @@
 """decode_attention — the CUDA flash-decode (``csrc/decode_attention.cu``),
 counterpart of ``repro.kernels.decode_attention``.
 
-``decode_attention_fwd`` launches the kernel pair (split pass and merge
-pass) on CUDA tensors in the model layouts and counts its launches in
-``decode_attention_fwd.launches``.  The plain version is
-``ref.decode_attention_ref``; ``ops.decode_attention`` chooses between the
-two by the tensors' device.
+``decode_attention_fwd`` launches one of two variants on CUDA tensors in the
+model layouts, chosen by ``variant`` from the dtypes and the head dim alone:
+
+* ``"mma"``: a bf16 query over a bf16 or fp8 e4m3 cache with head_dim 64 or
+  128 (the serving path): tensor cores over the packed query heads of each
+  KV head, one launch (the last block of each tile to finish merges the
+  splits);
+* ``"simt"``: everything else (an f32 query or cache, other head dims): the
+  CUDA-core split pass and its merge pass.
+
+Launches are counted in ``decode_attention_fwd.launches`` (both) and in
+``launches_mma`` and ``launches_simt``.  The plain version is
+``ref.decode_attention_ref``; ``ops.decode_attention`` chooses between it and
+the kernels by the tensors' device.
 """
 
 from __future__ import annotations
@@ -20,17 +29,30 @@ from . import _build
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
-TILE = 32  # cache rows per tile in the kernel (TK)
+TILE = 32  # cache rows per tile of the CUDA-core kernel (TK)
+STEP = 16  # keys per warp step of the tensor-core kernel: splits are whole steps
+_MMA_KV = (torch.bfloat16, torch.float8_e4m3fn)
+_MMA_HEAD_DIMS = (64, 128)
 
 
-def _lib():
-    lib = _build.load("decode_attention")
-    fn = lib.decode_attention_fwd
+def variant(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int) -> str:
+    """The kernel a CUDA call runs, from the dtypes and the head dim alone:
+    "mma" (tensor cores) for a bf16 query over a bf16 or fp8 e4m3 cache at
+    head_dim 64 or 128, "simt" (CUDA cores) otherwise."""
+    if q_dtype == torch.bfloat16 and kv_dtype in _MMA_KV and head_dim in _MMA_HEAD_DIMS:
+        return "mma"
+    return "simt"
+
+
+def _lib(name: str):
+    fn = getattr(_build.load("decode_attention"), name)
     if fn.argtypes is None:
-        fn.argtypes = (
-            [ctypes.c_int, ctypes.c_int] + [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7
-            + [ctypes.c_int64] * 8 + [ctypes.c_float, ctypes.c_void_p]
-        )
+        # q and cache dtypes (the mma variant's q is bf16), then q, k, v, o
+        # and the split merge's scratch: (acc, m l) or (partials, tickets)
+        head = [ctypes.c_int] * (2 if name == "decode_attention_fwd" else 1)
+        head += [ctypes.c_void_p] * 6
+        fn.argtypes = (head + [ctypes.c_int] * 7 + [ctypes.c_int64] * 8
+                       + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
 
@@ -41,12 +63,42 @@ def _sm_count(device_index: int) -> int:
 
 
 def split_plan(B: int, KV: int, kv_len: int, n_sm: int) -> tuple[int, int]:
-    """(split_len, n_split): cut the first ``kv_len`` cache rows into whole
-    tiles per block so that B * KV * n_split blocks fill the card about
-    twice over."""
+    """The CUDA-core kernel's (split_len, n_split): cut the first ``kv_len``
+    cache rows into whole tiles per block so that B * KV * n_split blocks
+    fill the card about twice over."""
     want = max(1, -(-2 * n_sm // (B * KV)))
     split_len = TILE * max(1, -(-kv_len // (TILE * want)))
     return split_len, -(-kv_len // split_len)
+
+
+def n_head_tiles(H: int, KV: int) -> int:
+    """16-head tiles per KV head of the tensor-core kernel (ceil(G / 16))."""
+    return -(-(H // KV) // 16)
+
+
+def mma_split_plan(B: int, KV: int, n_mt: int, kv_len: int, n_sm: int) -> tuple[int, int]:
+    """The tensor-core kernel's (split_len, n_split): cut the first
+    ``kv_len`` cache rows into splits of whole STEP-key steps so that the
+    B * KV * n_mt * n_split blocks are one wave on ``n_sm`` SMs, at least
+    half of it where there are steps enough (never more splits than
+    steps)."""
+    steps = -(-kv_len // STEP)
+    want = max(1, n_sm // (B * KV * n_mt))
+    per = -(-steps // want)
+    return STEP * per, -(-steps // per)
+
+
+# per device: the int32 tickets of the tensor-core kernel's split merge, zero
+# between launches (the last block of each tile resets its own)
+_COUNTERS: dict[int, torch.Tensor] = {}
+
+
+def _counters(device: torch.device, n: int) -> torch.Tensor:
+    buf = _COUNTERS.get(device.index)
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 256), dtype=torch.int32, device=device)
+        _COUNTERS[device.index] = buf
+    return buf
 
 
 def _check(q, k, v, kv_len):
@@ -69,46 +121,69 @@ def _check(q, k, v, kv_len):
         raise ValueError(f"head_dim {D} > 1024")
     if q.stride(2) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
+    if variant(q.dtype, k.dtype, D) == "mma":
+        per16 = 16 // k.element_size()  # elements per 16 bytes
+        for t in (k, v):
+            if t.data_ptr() % 16 or any(st % per16 for st in t.stride()[:3]):
+                raise ValueError("the tensor-core decode copies cache rows 16 bytes at a "
+                                 "time: k and v rows must start on 16-byte boundaries")
 
 
 def decode_attention_fwd(q, k, v, kv_len: int):
     """q [B, H, D]; k, v [B, S, KV, D] (CUDA; q f32 or bf16, the cache f32,
-    bf16 or fp8 e4m3; any strides with a contiguous last dim); attends to
-    the first ``kv_len`` cache rows -> [B, H, D] in q's dtype."""
+    bf16 or fp8 e4m3; any strides with a contiguous last dim, the tensor-core
+    variant's cache rows 16-byte aligned); attends to the first ``kv_len``
+    cache rows -> [B, H, D] in q's dtype."""
     kv_len = int(kv_len)
     _check(q, k, v, kv_len)
     B, H, D = q.shape
     KV = k.shape[2]
-    G = H // KV
     dev = q.device.index
-    split_len, n_split = split_plan(B, KV, kv_len, _sm_count(dev))
+    kind = variant(q.dtype, k.dtype, D)
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
-    # the split pass's scratch, in one allocation: acc [B, KV, n_split, G, D]
-    # then (m, l) [B, KV, n_split, G, 2], all f32
-    rows = B * KV * n_split * G
-    part = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
-    part_acc = part.data_ptr()
-    part_ml = part_acc + 4 * rows * D
-    fn = _lib()
     # the launch needs the tensors' device current; entering a device
     # context costs host time on every decode call, so only when it is not
     on_dev = contextlib.nullcontext() if dev == torch.cuda.current_device() else \
         torch.cuda.device(dev)
+    strides = (q.stride(0), q.stride(1), k.stride(0), k.stride(1), k.stride(2),
+               v.stride(0), v.stride(1), v.stride(2))
     with on_dev:
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = fn(
-            _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], q.data_ptr(), k.data_ptr(),
-            v.data_ptr(), o.data_ptr(), part_acc, part_ml,
-            B, H, KV, D, kv_len, split_len, n_split,
-            q.stride(0), q.stride(1),
-            k.stride(0), k.stride(1), k.stride(2),
-            v.stride(0), v.stride(1), v.stride(2),
-            1.0 / (D**0.5), stream,
-        )
+        if kind == "mma":
+            n_mt = n_head_tiles(H, KV)
+            split_len, n_split = mma_split_plan(B, KV, n_mt, kv_len, _sm_count(dev))
+            # f32 partials: acc [B, KV, n_mt, n_split, 16, D], then (M, L)
+            # [B, KV, n_mt, n_split, 16, 2]; none with one split
+            part = (torch.empty(B * KV * n_mt * n_split * 16 * (D + 2), dtype=torch.float32,
+                                device=q.device) if n_split > 1 else None)
+            err = _lib("decode_attention_mma_fwd")(
+                _KV_DTYPES[k.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                0 if part is None else part.data_ptr(),
+                _counters(q.device, B * KV * n_mt).data_ptr(),
+                B, H, KV, D, kv_len, split_len, n_split, *strides, 1.0 / (D**0.5), stream,
+            )
+        else:
+            split_len, n_split = split_plan(B, KV, kv_len, _sm_count(dev))
+            # the split pass's scratch, in one allocation: acc [B, KV, n_split,
+            # G, D] then (m, l) [B, KV, n_split, G, 2], all f32
+            rows = B * H * n_split
+            part = torch.empty(rows * (D + 2), dtype=torch.float32, device=q.device)
+            part_acc = part.data_ptr()
+            err = _lib("decode_attention_fwd")(
+                _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], q.data_ptr(), k.data_ptr(),
+                v.data_ptr(), o.data_ptr(), part_acc, part_acc + 4 * rows * D,
+                B, H, KV, D, kv_len, split_len, n_split, *strides, 1.0 / (D**0.5), stream,
+            )
     if err != 0:
-        raise RuntimeError(f"decode_attention_fwd launch failed: cudaError_t {err}")
+        raise RuntimeError(f"decode_attention_fwd ({kind}) launch failed: cudaError_t {err}")
     decode_attention_fwd.launches += 1
+    if kind == "mma":
+        decode_attention_fwd.launches_mma += 1
+    else:
+        decode_attention_fwd.launches_simt += 1
     return o
 
 
 decode_attention_fwd.launches = 0
+decode_attention_fwd.launches_mma = 0
+decode_attention_fwd.launches_simt = 0

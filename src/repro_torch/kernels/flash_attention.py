@@ -31,10 +31,11 @@ def _lib():
     return fn
 
 
-def _rows_aligned(t) -> bool:
-    """bf16 rows start on 16-byte boundaries (the tensor-core kernels load
-    them 16 bytes at a time)."""
-    return t.data_ptr() % 16 == 0 and all(s % 8 == 0 for s in t.stride()[:3])
+def tma_aligned(t) -> bool:
+    """Whether the bf16 kernel's tensor maps can describe ``t`` [B, S,
+    heads, D]: TMA takes a base address and strides (batch, row, head) in
+    multiples of 16 bytes."""
+    return t.data_ptr() % 16 == 0 and all(s * t.element_size() % 16 == 0 for s in t.stride()[:3])
 
 
 def _check(q, k, v):
@@ -56,16 +57,16 @@ def _check(q, k, v):
         raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
-    if q.dtype == torch.bfloat16 and not all(_rows_aligned(t) for t in (q, k, v)):
-        raise ValueError("bf16 q, k and v rows must start on 16-byte boundaries "
-                         "(the tensor-core kernel loads them 16 bytes at a time)")
+    if q.dtype == torch.bfloat16 and not all(tma_aligned(t) for t in (q, k, v)):
+        raise ValueError("bf16 q, k and v need 16-byte aligned bases and strides "
+                         "(the tensor-core kernel loads them through TMA tensor maps)")
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """q [B, Sq, H, D]; k, v [B, Sk, KV, D] (CUDA, f32 or bf16, any strides
-    with a contiguous last dim; bf16 rows 16-byte aligned) -> (o [B, Sq, H,
-    D] in q's dtype, lse [B*H, Sq] f32).  bf16 runs on the tensor cores,
-    f32 on the CUDA cores."""
+    with a contiguous last dim; bf16 bases and strides 16-byte aligned) ->
+    (o [B, Sq, H, D] in q's dtype, lse [B*H, Sq] f32).  bf16 runs on the
+    tensor cores (wgmma, TMA, warp specialisation), f32 on the CUDA cores."""
     _check(q, k, v)
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")

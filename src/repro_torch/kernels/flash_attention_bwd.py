@@ -19,7 +19,7 @@ import ctypes
 import torch
 
 from . import _build
-from .flash_attention import _DTYPES, _check, _rows_aligned
+from .flash_attention import _DTYPES, _check, tma_aligned
 
 _INT64_STRIDES = 18  # batch, seq, head strides of the six (dkdv) tensors
 
@@ -39,7 +39,7 @@ def _fn(name: str, n_tensors: int, n_strides: int):
 
 def _aligned(t) -> bool:
     """A contiguous last dim and, in bf16, 16-byte aligned rows."""
-    return t.stride(3) == 1 and (t.dtype != torch.bfloat16 or _rows_aligned(t))
+    return t.stride(3) == 1 and (t.dtype != torch.bfloat16 or tma_aligned(t))
 
 
 def _check_bwd(q, k, v, do, lse, delta, q_offset):

@@ -7,8 +7,9 @@ Tolerances: f32 1e-5 (rtol and atol; the kernels sum in another order than
 the plain version; the scans: the mamba scan's N-term sum of y in another
 order), bf16 2e-2 (the plain version rounds the normalised P to
 bf16 and its PV product to bf16, the kernels round the unnormalised P and
-keep f32 sums), the f32 log-sum-exp 1e-4 absolute (sums of up to 1024
-exponentials in another order).  The backward kernels: f32 1e-4 and bf16
+keep f32 sums; the tensor-core flash-decode keeps P in f32 as a bf16 pair),
+the f32 log-sum-exp 1e-4 absolute (sums of up to 2048 exponentials in
+another order).  The backward kernels: f32 1e-4 and bf16
 2e-2 of each gradient's largest magnitude (sums over up to 16 query heads
 and 1024 rows in another order; bf16 rounds P and dS before products, as
 the plain version does, but the GQA group sum stays in f32).
@@ -105,6 +106,89 @@ def test_decode_attention_kernel_other_shapes(cuda, B, S, H, KV, D, kv_len):
            **TOL[torch.float32])
 
 
+DECODE_LENS = (1, 15, 16, 17, 63, 64, 65, 528, 1024)
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+@pytest.mark.parametrize("D", [64, 128])
+@pytest.mark.parametrize("G", [1, 4, 7, 16, 32])
+def test_decode_tensor_core_variant_matches_ref(cuda, G, D, kv_dtype):
+    """The tensor-core flash-decode (a bf16 query over a bf16 or fp8 cache)
+    for query groups that leave rows of its 16-head tile empty (G = 1, 4,
+    7), fill it (16) or take two tiles (32), at lengths around its 16-key
+    steps and splits."""
+    from repro_torch.kernels import decode_attention as dec
+
+    B, KV, S = 2, 2, 1024
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = _randn(gen, (B, KV * G, D), torch.bfloat16, cuda)
+    k = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    v = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    n0 = decode_attention_fwd.launches_mma
+    for kv_len in DECODE_LENS:
+        got = decode_attention_fwd(q, k, v, kv_len)
+        want = ref.decode_attention_ref(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all(), kv_len
+        _close(got, want, **TOL[torch.bfloat16])
+    assert decode_attention_fwd.launches_mma == n0 + len(DECODE_LENS)
+    assert int(dec._COUNTERS[cuda.index or 0].abs().sum()) == 0  # tickets reset
+
+
+@pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
+def test_decode_tensor_core_variant_long_cache(cuda, kv_dtype):
+    """A 32768-slot cache read to its end and to one slot short of it."""
+    B, S, H, KV, D = 1, 32768, 32, 2, 128
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q = _randn(gen, (B, H, D), torch.bfloat16, cuda)
+    k = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    v = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    for kv_len in (S, S - 1):
+        _close(decode_attention_fwd(q, k, v, kv_len), ref.decode_attention_ref(q, k, v, kv_len),
+               **TOL[torch.bfloat16])
+
+
+def test_decode_launch_counts_per_variant(cuda):
+    """bf16 over a bf16 cache runs the tensor cores; an f32 query, or an f32
+    cache, the CUDA cores; the total counts both."""
+    gen = torch.Generator(device=cuda).manual_seed(9)
+    k16 = _randn(gen, (2, 64, 2, 128), torch.bfloat16, cuda)
+    q16 = _randn(gen, (2, 8, 128), torch.bfloat16, cuda)
+    f = decode_attention_fwd
+    n, n_mma, n_simt = f.launches, f.launches_mma, f.launches_simt
+    f(q16, k16, k16, 40)
+    assert (f.launches, f.launches_mma, f.launches_simt) == (n + 1, n_mma + 1, n_simt)
+    f(q16.float(), k16.float(), k16.float(), 40)
+    f(q16, k16.float(), k16.float(), 40)
+    assert (f.launches, f.launches_mma, f.launches_simt) == (n + 3, n_mma + 1, n_simt + 2)
+
+
+def test_decode_tickets_survive_cuda_graph_replay(cuda):
+    """The split merge's per-tile tickets are reset by the kernel itself, so
+    a captured decode gives the same result on every replay."""
+    from repro_torch.kernels import decode_attention as dec
+
+    gen = torch.Generator(device=cuda).manual_seed(10)
+    q = _randn(gen, (4, 32, 128), torch.bfloat16, cuda)
+    k = _randn(gen, (4, 1024, 2, 128), torch.bfloat16, cuda)
+    v = _randn(gen, (4, 1024, 2, 128), torch.bfloat16, cuda)
+    want = decode_attention_fwd(q, k, v, 528)
+    assert dec.mma_split_plan(4, 2, 1, 528, dec._sm_count(cuda.index or 0))[1] > 1
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_fwd(q, k, v, 528)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_fwd(q, k, v, 528)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, want)
+    assert int(dec._COUNTERS[cuda.index or 0].abs().sum()) == 0
+
+
 def test_decode_reads_the_cache_in_place(cuda):
     """The per-layer slice of a stacked cache goes in as a strided view;
     rows past kv_len are never read (NaN there changes nothing)."""
@@ -156,6 +240,44 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
     k16 = torch.zeros((1, 128, 2, 64), dtype=torch.float16, device=cuda)
     with pytest.raises(TypeError):
         decode_attention_fwd(q16, k16, k16, 10)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,q_offset", [
+    (2, 200, 200, 2, 2, 128, True, 0),      # G = 1 (128 rows a block), Sq % 128 != 0
+    (2, 200, 200, 2, 2, 64, False, 0),
+    (1, 77, 269, 14, 2, 128, True, 192),    # G = 7 (one head of a pair idle), q_offset
+    (1, 130, 130, 7, 1, 64, False, 0),
+    (2, 300, 300, 32, 2, 64, True, 0),      # G = 16, D = 64
+    (1, 100, 356, 32, 2, 128, True, 256),
+    (2, 2048, 2048, 32, 2, 128, True, 0),   # chatglm3-6b training shape
+])
+def test_flash_attention_wgmma_kernel_matches_ref(cuda, B, Sq, Sk, H, KV, D, causal, q_offset):
+    """The bf16 forward (TMA, wgmma, warp-specialised, persistent) for each
+    way it packs query heads and rows into its warpgroups."""
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = _randn(gen, (B, Sq, H, D), torch.bfloat16, cuda)
+    k = _randn(gen, (B, Sk, KV, D), torch.bfloat16, cuda)
+    v = _randn(gen, (B, Sk, KV, D), torch.bfloat16, cuda)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
+                                             return_lse=True)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.bfloat16 and o.shape == q.shape
+    _close(o, o_ref, **TOL[torch.bfloat16])
+    _close(lse, lse_ref, rtol=0, atol=1e-4)
+
+
+def test_flash_attention_takes_strided_views(cuda):
+    """q, k, v as slices of one fused projection output [B, S, H + 2 KV, D]
+    and o written in the model layout: the tensor maps carry the strides."""
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    qkv = _randn(gen, (2, 192, 36, 128), torch.bfloat16, cuda)
+    q, k, v = qkv[:, :, :32], qkv[:, :, 32:34], qkv[:, :, 34:]
+    o, lse = flash_attention_fwd(q, k, v, causal=True)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    _close(o, o_ref, **TOL[torch.bfloat16])
+    _close(lse, lse_ref, rtol=0, atol=1e-4)
 
 
 GRAD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
