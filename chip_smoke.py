@@ -57,10 +57,20 @@ Phases, each printing its lines; any failure exits non-zero:
      gather once;
   5. flash backward: the dK/dV and dQ kernels against their plain version at
      the training shape (B=2, S=2048, 32 query heads over 2 KV heads,
-     D=128, causal) in bf16 and f32 and at edge cases (non-causal; ragged S
-     with q_offset > 0), then timed beside the plain version, their bound
-     and the backward of PyTorch's scaled_dot_product_attention (a
+     D=128, causal) in bf16 and f32, at edge cases (non-causal; ragged S
+     with q_offset > 0; G = 1, 7, 16) and at every head dim class the flash
+     kernels take (D 8, 16, 64, 96, 128, bf16 and f32); dq, dk and dv equal
+     bit for bit across two replays of a CUDA graph; the dK/dV launch's
+     blocks per cluster and its per-SM (head, q tile) steps under a model
+     of the block scheduler; then both timed beside the plain version, their
+     bound and the backward of PyTorch's scaled_dot_product_attention (a
      yardstick);
+  smoke: the chatglm3 and yi smoke configs (head_dim 16 and 8), unmodified,
+     with ``attn_impl="pallas"``: served (B=2, prompt 128, 8 tokens) through
+     the flash forward and flash-decode, logits against the plain path in
+     bf16 (naive) and f32 (chunked), and one training step's gradients
+     through both backward kernels against the plain chunked path, in bf16
+     and f32;
   6. train: chatglm3-6b at full width.  (a) At depth 2, one step's gradient
      of every parameter on the kernel path against the plain chunked path,
      in bf16 and in f32.  (b) At depth 16 (the depth whose f32 parameters,
@@ -597,11 +607,12 @@ def check_head(torch, model, params, B: int) -> None:
     check(rel <= HEAD_REL_TOL, "the head's bf16 GEMM disagrees with the widened f32 product")
 
 
-def profile_run(torch, label: str, fn) -> None:
+def profile_run(torch, label: str, fn, watch: tuple = ()) -> None:
     """Device busy share over one ``fn()``: the CUDA kernel times
     torch.profiler records against the host clock (the profiler's own
-    overhead lengthens the wall time), and the ten kernels with the most
-    device time."""
+    overhead lengthens the wall time), the ten kernels with the most
+    device time, and any other kernel whose name contains one of
+    ``watch``."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -625,8 +636,9 @@ def profile_run(torch, label: str, fn) -> None:
         return
     print(f"[profile] {label} under torch.profiler: wall {wall_us / 1e3:.3f} ms, "
           f"CUDA kernels {busy_us / 1e3:.3f} ms, busy share {busy_us / wall_us:.4f}")
-    for dev_us, count, key in sorted(rows, reverse=True)[:10]:
-        print(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} x  {key[:100]}")
+    for i, (dev_us, count, key) in enumerate(sorted(rows, reverse=True)):
+        if i < 10 or any(w in key for w in watch):
+            print(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} x  {key[:100]}")
 
 
 # a wrapper's launch count, and flash-decode's per variant (tensor cores, CUDA cores)
@@ -935,9 +947,67 @@ def _bwd_cost(B, Sq, Sk, H, KV, D, causal, products: int, out_q: bool) -> tuple[
     return nbytes, products * 2 * D * pairs * B * H
 
 
+def sm_balance(steps: list, split: int, n_sm: int) -> int:
+    """The largest per-SM count of the dK/dV launch's (head, q tile) steps
+    under a model of the block scheduler: clusters of ``split`` blocks
+    start in launch order, each on the group of ``split`` SMs that frees
+    first (``n_sm // split`` groups), and a cluster lasts as long as its
+    heaviest block."""
+    import heapq
+
+    groups = [(0, i) for i in range(n_sm // split)]
+    per_sm = [0] * n_sm
+    for c in range(0, len(steps), split):
+        t, i = heapq.heappop(groups)
+        cluster = steps[c:c + split]
+        for r, n in enumerate(cluster):
+            per_sm[i * split + r] += n
+        heapq.heappush(groups, (t + max(cluster), i))
+    return max(per_sm)
+
+
+def check_bwd_replays(torch, flash_fwd, dkdv, dq) -> None:
+    """dq, dk, dv of one backward captured in a CUDA graph, replayed twice:
+    equal bit for bit (no atomics; the dK/dV clusters sum in rank order)."""
+    from repro_torch.kernels.flash_attention_bwd import attention_delta
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    B, S, H, KV, D = 2, 2048, 32, 2, 128
+    q, do = (torch.randn((B, S, H, D), generator=gen, device="cuda").to(torch.bfloat16)
+             for _ in range(2))
+    k, v = (torch.randn((B, S, KV, D), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(2))
+    o, lse = flash_fwd(q, k, v, causal=True)
+    delta = attention_delta(o, do)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        dkdv(q, k, v, do, lse, delta)
+        dq(q, k, v, do, lse, delta)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        gk, gv = dkdv(q, k, v, do, lse, delta)
+        gq = dq(q, k, v, do, lse, delta)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = [t.clone() for t in (gq, gk, gv)]
+    for t in (gq, gk, gv):
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    same = [torch.equal(a, b) for a, b in zip(first, (gq, gk, gv))]
+    print(f"[flash_bwd] two replays of one captured backward at the training shape: dq, dk, dv "
+          f"bitwise equal {same}")
+    check(all(same), "the backward kernels are not bitwise repeatable")
+
+
 def phase_flash_bwd(torch, ref, flash_fwd, dkdv, dq):
-    """Check the backward kernels at the training shape and at edge cases;
-    time them at the training shape.  Returns their two JSON records."""
+    """Check the backward kernels at the training shape, at edge cases and
+    at every head dim class; check they repeat bit for bit; print the dK/dV
+    launch's balance over the SMs; time them at the training shape.
+    Returns their two JSON records."""
+    from repro_torch.kernels import flash_attention_bwd as bwd
     from repro_torch.kernels.flash_attention_bwd import attention_delta
 
     dev = torch.device("cuda")
@@ -948,6 +1018,11 @@ def phase_flash_bwd(torch, ref, flash_fwd, dkdv, dq):
         (1, 512, 512, 32, 2, 128, torch.bfloat16, False, 0),
         (1, 333, 1000, 32, 2, 128, torch.bfloat16, True, 667),  # ragged, q_offset
         (1, 333, 1000, 8, 2, 64, torch.float32, True, 667),
+        (2, 256, 256, 2, 2, 128, torch.bfloat16, True, 0),      # G = 1
+        (1, 300, 300, 16, 1, 64, torch.bfloat16, False, 0),     # G = 16, ragged
+    ] + [  # every head dim class, G = 7 over clusters of 4, ragged, q_offset
+        (1, 77, 200, 14, 2, D, dt, True, 123)
+        for D in (8, 16, 64, 96, 128) for dt in (torch.bfloat16, torch.float32)
     ]
     errs = {}
     for B, Sq, Sk, H, KV, D, dt, causal, q_off in cases:
@@ -974,8 +1049,18 @@ def phase_flash_bwd(torch, ref, flash_fwd, dkdv, dq):
         print(f"[flash_bwd] B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} {dt} causal={causal} "
               f"q_offset={q_off}: max |err| / max |plain|: {', '.join(line)} (tol {tol})")
         del q, k, v, do, o, lse, delta, got_dk, got_dv, got_dq, want
+    check_bwd_replays(torch, flash_fwd, dkdv, dq)
 
     B, S, H, KV, D = 2, 2048, 32, 2, 128
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    split = bwd.dkdv_split(B, KV, H // KV, S, n_sm)
+    steps = bwd.dkdv_steps(B, KV, H // KV, S, S, True, 0, split)
+    top, mean = sm_balance(steps, split, n_sm), sum(steps) / n_sm
+    print(f"[flash_bwd] dK/dV at the training shape: {len(steps)} blocks of {bwd.KV_TILE} keys "
+          f"in clusters of {split} (each block every {split}th query head), (head, 64-row q "
+          f"tile) steps per block {max(steps)} .. {min(steps)}, {sum(steps)} in all; per SM "
+          f"under greedy cluster dispatch (a model of the block scheduler, {n_sm} SMs): "
+          f"largest {top}, mean {mean:.1f}, largest / mean {top / mean:.3f}")
     q = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -1011,8 +1096,8 @@ def phase_flash_bwd(torch, ref, flash_fwd, dkdv, dq):
         }
         recs.append(rec)
         print(f"[flash_bwd] training shape B={B} S={S} H={H} KV={KV} D={D} bf16 causal: {name} "
-              f"{ms:.4f} ms (device time, CUDA graph); bound {rec['bound_ms'] * 1e3:.2f} us by "
-              f"{rec['bound_by']} ({nbytes} B, {flops} FLOP)")
+              f"{ms:.4f} ms (device time, CUDA graph), {flops / ms / 1e9:.1f} TFLOP/s; bound "
+              f"{rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']} ({nbytes} B, {flops} FLOP)")
     nbytes, flops = _bwd_cost(B, S, S, H, KV, D, True, 5, True)
     nbytes += 2 * 2 * B * S * KV * D
     print(f"[flash_bwd] both kernels {ms_kv + ms_q:.4f} ms; plain version (dq, dk, dv) "
@@ -1059,15 +1144,16 @@ def _device_batch(torch, cfg, B: int, S: int, step: int = 0) -> dict:
     return {k: torch.from_numpy(v).to("cuda", torch.int64) for k, v in batch.items()}
 
 
-def check_grads_depth2(torch, counters: dict, B: int, S: int) -> None:
-    """Full width, 2 layers: every gradient leaf of one step on the kernel
-    path against the plain chunked path, in bf16 and in f32."""
-    from repro_torch.configs import get_config
+def check_grads(torch, counters: dict, cfg, B: int, S: int, tag: str = "train") -> None:
+    """Every gradient leaf of one step on the kernel path against the plain
+    chunked path, in bf16 and in f32; the kernel path must launch the
+    forward twice per layer (the forward and its recomputation) and each
+    backward kernel once."""
     from repro_torch.launch.steps import loss_and_grads
     from repro_torch.models.common import tree_items
     from repro_torch.models.model import Model
 
-    cfg = get_config("chatglm3_6b").replace(n_layers=2)
+    L = cfg.n_layers
     params = Model(cfg, "cuda").init_params(seed=0)
     batch = _device_batch(torch, cfg, B, S)
     for dtype in ("bfloat16", "float32"):
@@ -1086,19 +1172,20 @@ def check_grads_depth2(torch, counters: dict, B: int, S: int) -> None:
         worst, worst_path = 0.0, ""
         for path, want in pg.items():
             got = kg[path]
-            check(bool(torch.isfinite(got).all()), f"depth 2 {dtype}: non-finite grad {path}")
+            check(bool(torch.isfinite(got).all()), f"{cfg.name} {dtype}: non-finite grad {path}")
             scale = tree_max if path in ZERO_GRAD_LEAVES else float(want.abs().max())
             rel = float((got - want).abs().max()) / max(scale, 1e-30)
             if rel > worst:
                 worst, worst_path = rel, path
         tol = GRAD_REL_TOL[dtype]
-        print(f"[train] depth 2 {dtype}, B={B} S={S}: loss kernel {kloss:.6f}, plain {ploss:.6f}; "
-              f"worst gradient leaf {worst_path} at {worst:.3e} of its largest magnitude "
-              f"(tol {tol}; {len(pg)} leaves); step {ks:.3f} s kernel path, {ps:.3f} s plain; "
-              f"launches {kcount}")
-        check(kcount == {"flash_attention_fwd": 4, "flash_attention_bwd_dkdv": 2,
-                         "flash_attention_bwd_dq": 2}, f"depth 2 launches {kcount}")
-        check(worst <= tol, f"depth 2 {dtype}: kernel-path gradients disagree with the plain path")
+        print(f"[{tag}] {cfg.name} depth {L} head_dim {cfg.head_dim} {dtype}, B={B} S={S}: loss "
+              f"kernel {kloss:.6f}, plain {ploss:.6f}; worst gradient leaf {worst_path} at "
+              f"{worst:.3e} of its largest magnitude (tol {tol}; {len(pg)} leaves); step "
+              f"{ks:.3f} s kernel path, {ps:.3f} s plain; launches {kcount}")
+        check(kcount == {"flash_attention_fwd": 2 * L, "flash_attention_bwd_dkdv": L,
+                         "flash_attention_bwd_dq": L}, f"{cfg.name} launches {kcount}")
+        check(worst <= tol, f"{cfg.name} {dtype}: kernel-path gradients disagree with the plain "
+                            "path")
         del kg, pg, out
         gc.collect()
 
@@ -1112,7 +1199,7 @@ def phase_train(torch, counters: dict) -> dict:
 
     B, S, L = 2, 2048, TRAIN_DEPTH
     check_train_head(torch)
-    check_grads_depth2(torch, counters, B, S)
+    check_grads(torch, counters, get_config("chatglm3_6b").replace(n_layers=2), B, S)
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1146,7 +1233,8 @@ def phase_train(torch, counters: dict) -> dict:
     launches = {n: c.launches for n, c in counters.items()}
     peak = torch.cuda.max_memory_allocated()
     batch = _device_batch(torch, cfg, B, S, step=3)
-    profile_run(torch, f"one train step at depth {L}", lambda: inner(params, opt_state, batch))
+    profile_run(torch, f"one train step at depth {L}", lambda: inner(params, opt_state, batch),
+                watch=("flash_fwd", "dkdv_", "dq_"))
     del params, batch
     n_params = cfg.param_count()
     for i, (dt, loss, count) in enumerate(steps):
@@ -1166,6 +1254,52 @@ def phase_train(torch, counters: dict) -> dict:
           f"(relative {loss_rel:.3e}, tol {LOSS_REL_TOL}); launches in the run {launches}")
     check(loss_rel <= LOSS_REL_TOL, "the first step's loss disagrees with the plain path")
     return launches
+
+
+SMOKE_ARCHS = ("chatglm3_6b", "yi_34b")
+
+
+def phase_smoke_configs(torch, counters: dict) -> None:
+    """The chatglm3 and yi smoke configs, unmodified (head_dim 16 and 8,
+    which the flash kernels run on their D = 64 build), with
+    ``attn_impl="pallas"``: served through the flash forward and
+    flash-decode, logits against the plain path, then one training step's
+    gradients through both backward kernels against the plain path."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+
+    B, prompt, gen_tokens, max_len = 2, 128, 8, 256
+    for arch in SMOKE_ARCHS:
+        cfg = get_smoke_config(arch).replace(attn_impl="pallas")
+        server = Server(cfg, device="cuda", max_len=max_len)
+        params = server.model.compute_params(server.model.init_params(seed=0))
+        batch = concrete_batch(cfg, B, prompt, device="cuda")
+        batch.pop("targets")
+        for c in counters.values():
+            c.launches = 0
+        tokens = server.generate(params, batch, gen_tokens)
+        torch.cuda.synchronize()
+        n = {name: c.launches for name, c in counters.items()}
+        print(f"[smoke] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+              f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}: served B={B} prompt "
+              f"{prompt} {gen_tokens} tokens, launches {n}")
+        check(n["flash_attention_fwd"] == cfg.n_layers
+              and n["decode_attention_fwd"] == cfg.n_layers * (gen_tokens - 1),
+              f"{cfg.name}: the serve did not run the flash kernels")
+        kern, plain = teacher_forced(torch, cfg, params, batch, tokens, max_len, plain="naive")
+        check(torch.equal(kern.argmax(-1), tokens), "replayed kernel path disagrees with generate")
+        check_paths(torch, f"{cfg.name} bf16 compute", cfg, kern, plain,
+                    LOGITS_REL_TOL_BF16_DEPTH2, plain_impl="naive", tag="smoke")
+        cfg32 = cfg.replace(compute_dtype="float32")
+        kern32, plain32 = teacher_forced(torch, cfg32, server.model.init_params(seed=0), batch,
+                                         tokens, max_len)
+        check_paths(torch, f"{cfg.name} f32 compute", cfg32, kern32, plain32, LOGITS_REL_TOL_F32,
+                    tag="smoke")
+        check_grads(torch, {k: counters[k] for k in ("flash_attention_fwd",
+                                                     "flash_attention_bwd_dkdv",
+                                                     "flash_attention_bwd_dq")},
+                    cfg, B, prompt, tag="smoke")
 
 
 def _check_scan(torch, label: str, got, want, tol: float) -> float:
@@ -1396,6 +1530,10 @@ def main() -> int:
     launches.update({k: v for k, v in train.items() if k != "flash_attention_fwd"})
     gc.collect()
     torch.cuda.empty_cache()
+    phase_smoke_configs(torch, {"flash_attention_fwd": flash_attention_fwd,
+                                "decode_attention_fwd": decode_attention_fwd,
+                                "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv,
+                                "flash_attention_bwd_dq": flash_attention_bwd_dq})
     # the recurrent families' serving paths; the scans' counts come from
     # these runs
     serve_counters = {"flash_attention_fwd": flash_attention_fwd,

@@ -47,6 +47,14 @@
 // 32-row K/V tiles; the tensor cores' f32 input (TF32) would round the
 // operands.
 //
+// Head dims: both kernels are built for a padded head dim DP of 64 or 128
+// and take any D <= DP (bf16: D % 8 == 0, so that TMA's 16-byte strides
+// hold).  bf16 reads q, k, v through tensor maps whose first dim is the true
+// D, so TMA fills the columns past D with zeros: Q K^T is unchanged and the
+// extra columns of P V are zero; the epilogue stores D columns.  f32 masks
+// its loads and stores.  The scale is 1/sqrt(D) of the true D (the
+// caller's).
+//
 // The launcher has a plain C interface (loaded with ctypes) and returns
 // the cudaError_t of the launch.
 
@@ -136,13 +144,13 @@ __global__ void __launch_bounds__(WS_NT, 1) flash_fwd_ws_kernel(
     const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
     const __grid_constant__ CUtensorMap vmap,
     bf16* __restrict__ o, float* __restrict__ lse,
-    int H, int KV, int Sq, int Sk,
+    int H, int KV, int Sq, int Sk, int Dt,
     int64_t o_sb, int64_t o_ss, int64_t o_sh,
     int causal, int q_offset, float scale, int units) {
   using L = WsLayout<D>;
   constexpr int NSLAB = D / 64;
   constexpr int NS = WS_BN / 8;  // n-tiles of S (8 keys each)
-  constexpr int NO = D / 8;      // n-tiles of O (8 dims each)
+  constexpr int NO = D / 8;      // n-tiles of O (8 dims each); those at or past Dt are zero
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = reinterpret_cast<unsigned char*>(
       (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
@@ -387,8 +395,9 @@ __global__ void __launch_bounds__(WS_NT, 1) flash_fwd_ws_kernel(
           bf16* orow = o + w.b * o_sb + qi * o_ss + h * o_sh;
 #pragma unroll
           for (int n = 0; n < NO; ++n)
-            *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
-                __floats2bfloat162_rn(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
+            if (n * 8 < Dt)
+              *reinterpret_cast<__nv_bfloat162*>(orow + n * 8 + 2 * t) =
+                  __floats2bfloat162_rn(acc[4 * n + 2 * i] * inv, acc[4 * n + 2 * i + 1] * inv);
           if (t == 0) lse[((int64_t)w.b * H + h) * Sq + qi] = m[i] * LN2 + logf(ls);
         }
       }
@@ -410,7 +419,7 @@ template <int D>
 __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
     const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
     float* __restrict__ o, float* __restrict__ lse,
-    int H, int KV, int Sq, int Sk,
+    int H, int KV, int Sq, int Sk, int Dt,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -439,7 +448,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
   for (int idx = tid; idx < BQ * D; idx += NT) {
     const int r = idx / D, d = idx % D;
     const int qi = q0 + r;
-    Qs[r * DP + d] = qi < Sq ? qb[qi * q_ss + d] : 0.f;
+    Qs[r * DP + d] = qi < Sq && d < Dt ? qb[qi * q_ss + d] : 0.f;
   }
 
   float m[TR], l[TR], acc[TR][DC];
@@ -464,7 +473,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
     for (int idx = tid; idx < BK * D; idx += NT) {
       const int r = idx / D, d = idx % D;
       const int ki = k0 + r;
-      const bool ok = ki < Sk;
+      const bool ok = ki < Sk && d < Dt;
       Ks[r * DP + d] = ok ? kb[ki * k_ss + d] : 0.f;
       Vs[r * D + d] = ok ? vb[ki * v_ss + d] : 0.f;
     }
@@ -544,7 +553,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
     const float ls = fmaxf(l[i], 1e-30f);
     float* orow = o + b * o_sb + qi * o_ss + h * o_sh;
 #pragma unroll
-    for (int c = 0; c < DC; ++c) orow[tx + 16 * c] = acc[i][c] / ls;
+    for (int c = 0; c < DC; ++c)
+      if (tx + 16 * c < Dt) orow[tx + 16 * c] = acc[i][c] / ls;
     if (tx == 0) lse[((int64_t)b * H + h) * Sq + qi] = m[i] + logf(ls);
   }
 }
@@ -552,7 +562,7 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
 struct Args {
   const void *q, *k, *v;
   void *o, *lse;
-  int H, KV, Sq, Sk;
+  int H, KV, Sq, Sk, D;  // D: the true head dim (the kernels' is padded)
   int64_t q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, o_sb, o_ss, o_sh;
   int causal, q_offset;
   float scale;
@@ -567,52 +577,17 @@ cudaError_t launch_f32(const Args& a, int B, cudaStream_t stream) {
   dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
   flash_fwd_f32_kernel<D><<<grid, NT, smem, stream>>>(
       (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o, (float*)a.lse,
-      a.H, a.KV, a.Sq, a.Sk, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh,
+      a.H, a.KV, a.Sq, a.Sk, a.D, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh,
       a.v_sb, a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.causal, a.q_offset, a.scale);
   return cudaGetLastError();
-}
-
-// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult res;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) ==
-            cudaSuccess && res == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a 4-D bf16 map over [B, S, heads, D] (strides in elements, the last dim
-// contiguous) whose box is 64 dims x 1 head x `rows` rows x 1 batch row,
-// with TMA's 128-byte swizzle; rows past S read as zeros
-bool encode_map(CUtensorMap* map, const void* base, int B, int S, int heads, int D,
-                int64_t sb, int64_t ss, int64_t sh, int rows) {
-  EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t estr[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
-            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
-         CUDA_SUCCESS;
 }
 
 template <int D>
 cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
   CUtensorMap qmap, kmap, vmap;
-  if (!encode_map(&qmap, a.q, B, a.Sq, a.H, D, a.q_sb, a.q_ss, a.q_sh, WS_BM) ||
-      !encode_map(&kmap, a.k, B, a.Sk, a.KV, D, a.k_sb, a.k_ss, a.k_sh, WS_BN) ||
-      !encode_map(&vmap, a.v, B, a.Sk, a.KV, D, a.v_sb, a.v_ss, a.v_sh, WS_BN))
+  if (!encode_map(&qmap, a.q, B, a.Sq, a.H, a.D, a.q_sb, a.q_ss, a.q_sh, WS_BM) ||
+      !encode_map(&kmap, a.k, B, a.Sk, a.KV, a.D, a.k_sb, a.k_ss, a.k_sh, WS_BN) ||
+      !encode_map(&vmap, a.v, B, a.Sk, a.KV, a.D, a.v_sb, a.v_ss, a.v_sh, WS_BN))
     return cudaErrorInvalidValue;
   constexpr int smem = WsLayout<D>::BYTES;
   static int cap[64];
@@ -622,25 +597,22 @@ cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
   const int units = B * a.KV * (G >= 2 ? (G + 1) / 2 : 1);
   const int bm = G >= 2 ? WS_BM : 2 * WS_BM;
   const int n_items = ((a.Sq + bm - 1) / bm) * units;
-  static int n_sm[64];
-  int dev = 0;
-  err = cudaGetDevice(&dev);
+  int n_sm = 0;
+  err = sm_count(n_sm);
   if (err != cudaSuccess) return err;
-  if (n_sm[dev] == 0) {
-    err = cudaDeviceGetAttribute(&n_sm[dev], cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return err;
-  }
-  flash_fwd_ws_kernel<D><<<min(n_items, n_sm[dev]), WS_NT, smem, stream>>>(
-      qmap, kmap, vmap, (bf16*)a.o, (float*)a.lse, a.H, a.KV, a.Sq, a.Sk,
+  flash_fwd_ws_kernel<D><<<min(n_items, n_sm), WS_NT, smem, stream>>>(
+      qmap, kmap, vmap, (bf16*)a.o, (float*)a.lse, a.H, a.KV, a.Sq, a.Sk, a.D,
       a.o_sb, a.o_ss, a.o_sh, a.causal, a.q_offset, a.scale, units);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); D in {64, 128}.
-// Strides are in elements; the last dim of every operand is contiguous.
-// bf16 rows must start on 16-byte boundaries (checked by the caller).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 1 <= D <= 128
+// (bf16: D % 8 == 0), run on the D = 64 build up to 64 and on the D = 128
+// build above.  Strides are in elements; the last dim of every operand is
+// contiguous.  bf16 rows must start on 16-byte boundaries (checked by the
+// caller).
 extern "C" int flash_attention_fwd(
     int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int H, int KV, int Sq, int Sk, int D,
@@ -649,12 +621,12 @@ extern "C" int flash_attention_fwd(
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     int64_t o_sb, int64_t o_ss, int64_t o_sh,
     int causal, int q_offset, float scale, void* stream) {
-  const Args a{q, k, v, o, lse, H, KV, Sq, Sk, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
+  const Args a{q, k, v, o, lse, H, KV, Sq, Sk, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (dtype == 0 && D == 64) return (int)launch_f32<64>(a, B, st);
-  if (dtype == 0 && D == 128) return (int)launch_f32<128>(a, B, st);
-  if (dtype == 1 && D == 64) return (int)launch_bf16<64>(a, B, st);
-  if (dtype == 1 && D == 128) return (int)launch_bf16<128>(a, B, st);
+  if (D < 1 || D > 128 || (dtype == 1 && D % 8)) return (int)cudaErrorInvalidValue;
+  const bool wide = D > 64;
+  if (dtype == 0) return (int)(wide ? launch_f32<128>(a, B, st) : launch_f32<64>(a, B, st));
+  if (dtype == 1) return (int)(wide ? launch_bf16<128>(a, B, st) : launch_bf16<64>(a, B, st));
   return (int)cudaErrorInvalidValue;
 }

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) helpers of the attention kernels: mbarriers, TMA tile
 // loads through tensor maps and bulk copies, wgmma with shared-memory descriptors (128-byte
 // swizzle) and register A fragments, register reallocation between
-// warpgroups, the special-function unit's 2^x, and a launcher helper that
-// raises a kernel's dynamic shared-memory cap once per device instead of
-// on every launch.
+// warpgroups, thread-block cluster barriers and distributed shared memory,
+// the special-function unit's 2^x, and two launcher helpers: one raises a
+// kernel's dynamic shared-memory cap once per device instead of on every
+// launch, the other encodes the tensor maps of [B, S, heads, D] operands.
 //
 // wgmma layouts (PTX ISA, "Asynchronous Warpgroup Level Matrix Multiply"):
 // warp w of a warpgroup owns accumulator rows 16 w .. 16 w + 15, and within
@@ -49,6 +50,58 @@ inline cudaError_t smem_cap(const void* kernel, int bytes, int (&cap)[64]) {
   err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err == cudaSuccess) cap[dev] = bytes;
   return err;
+}
+
+// cuTensorMapEncodeTiled, reached through the runtime (no link to libcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult res;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &res) ==
+            cudaSuccess && res == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a 4-D bf16 map over [B, S, heads, D] (strides in elements, the last dim
+// contiguous) whose box is 64 dims x 1 head x `rows` rows x 1 batch row,
+// with TMA's 128-byte swizzle; rows past S and dims past D read as zeros,
+// so a head dim below 64 or between 64 and 128 fills a 64- or 128-wide
+// tile whose extra columns are zero
+inline bool encode_map(CUtensorMap* map, const void* base, int B, int S, int heads, int D,
+                       int64_t sb, int64_t ss, int64_t sh, int rows) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)heads, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {(cuuint64_t)sh * 2, (cuuint64_t)ss * 2, (cuuint64_t)sb * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t estr[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
+            box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) ==
+         CUDA_SUCCESS;
+}
+
+// the number of SMs of the current device, queried once per device
+inline cudaError_t sm_count(int& n) {
+  static int n_sm[64];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (n_sm[dev] == 0) {
+    err = cudaDeviceGetAttribute(&n_sm[dev], cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  }
+  n = n_sm[dev];
+  return cudaSuccess;
 }
 
 // ---------------------------------------------------------------------------
@@ -118,6 +171,37 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 
 __device__ __forceinline__ void tma_prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" :: "l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// barriers among some warps, and across a thread-block cluster
+// ---------------------------------------------------------------------------
+
+// named barrier `id` (1..15; 0 is __syncthreads) over `count` threads
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// arrive on named barrier `id` (over `count` threads) without waiting
+__device__ __forceinline__ void named_arrive(int id, int count) {
+  asm volatile("bar.arrive %0, %1;\n" :: "r"(id), "r"(count) : "memory");
+}
+
+// every thread of every block of the cluster arrives, then waits; the
+// shared-memory writes before the arrive are visible after the wait
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
+// the address of `p` (in this block's shared memory) in the shared memory
+// of the cluster's block `rank`, for ordinary loads
+template <typename T>
+__device__ __forceinline__ const T* cluster_map(const T* p, uint32_t rank) {
+  uint64_t out;
+  asm volatile("mapa.u64 %0, %1, %2;\n"
+               : "=l"(out) : "l"(reinterpret_cast<uint64_t>(p)), "r"(rank));
+  return reinterpret_cast<const T*>(out);
 }
 
 // ---------------------------------------------------------------------------
@@ -210,6 +294,24 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t da,
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d[32] (+)= A (64 x 16, shared, K-major) * B (16 x 64, shared, K-major)
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t da, uint64_t db,
+                                                   int accumulate) {
+  asm volatile(
+      "{\n .reg .pred p;\n setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31])
       : "l"(da), "l"(db), "r"(accumulate));
 }
 

@@ -1,8 +1,6 @@
-// Tensor-core and async-copy helpers shared by the bf16 attention kernels
-// (flash_attention.cu, flash_attention_bwd.cu): ldmatrix, mma.sync
-// m16n8k16 with bf16 operands and f32 accumulators, and cp.async tile loads
-// into shared memory with padded rows (row stride D + 8 elements, so that
-// ldmatrix is free of bank conflicts).
+// Tensor-core helpers of flash-decode's tensor-core variant
+// (decode_attention.cu) and the bf16 packing the attention kernels share:
+// ldmatrix, mma.sync m16n8k16 with bf16 operands and f32 accumulators.
 //
 // Fragment layouts (PTX ISA, mma.m16n8k16): lane = 4 g + t; an accumulator
 // c[4] holds (row g, cols 2t, 2t+1) in c[0..1] and (row g+8, same cols) in
@@ -46,45 +44,6 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// 16 bytes global -> shared without passing through registers; with
-// `valid` false no byte is read and the 16 bytes are zero-filled
-__device__ __forceinline__ void cp_async_16(bf16* dst, const bf16* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 16 : 0));
-}
-
-// one f32 global -> shared; zero-filled when `valid` is false
-__device__ __forceinline__ void cp_async_4(float* dst, const float* src, bool valid) {
-  const uint32_t d = static_cast<uint32_t>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n"
-               :: "r"(d), "l"(src), "r"(valid ? 4 : 0));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// start copying rows [row0, row0 + ROWS) of a [rows, D] operand (row stride
-// in elements, 16-byte aligned rows) into shared memory with row stride
-// D + 8, using the block's NT threads; rows at or past `nrows` (>= 1)
-// become zero
-template <int D, int ROWS, int NT>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src, int64_t stride,
-                                          int row0, int nrows) {
-  constexpr int CPR = D / 8;  // 16-byte chunks per row
-  for (int c = threadIdx.x; c < ROWS * CPR; c += NT) {
-    const int r = c / CPR, col = (c % CPR) * 8;
-    const int gr = row0 + r;
-    const bool ok = gr < nrows;
-    cp_async_16(dst + r * (D + 8) + col, src + (ok ? gr : 0) * stride + col, ok);
-  }
 }
 
 }  // namespace mma

@@ -5,6 +5,10 @@ flash_attention.cu``), counterpart of ``repro.kernels.flash_attention``.
 layouts and counts its launches in ``flash_attention_fwd.launches``.  The
 plain version is ``ref.flash_attention_ref``; ``ops.flash_attention``
 chooses between the two by the tensors' device.
+
+The kernels (forward and backward) are built for a head dim of 64 or 128
+and take every D up to it: ``padded_head_dim`` says which build runs, and
+refuses D > 128 and, in bf16, a D that is not a multiple of 8.
 """
 
 from __future__ import annotations
@@ -16,7 +20,20 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-_HEAD_DIMS = (64, 128)
+MAX_HEAD_DIM = 128
+
+
+def padded_head_dim(D: int, dtype: torch.dtype) -> int:
+    """The head dim of the kernel build that runs ``D``: 64 for D <= 64, 128
+    up to 128; the columns past D are zeros in the kernels' tiles.  Raises
+    ``ValueError`` for D > 128 and, in bf16, for D % 8 != 0 (the tensor
+    maps need 16-byte strides)."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D}: the flash kernels take 1 <= D <= {MAX_HEAD_DIM}")
+    if dtype == torch.bfloat16 and D % 8:
+        raise ValueError(f"head_dim {D}: the bf16 flash kernels take D % 8 == 0 (TMA reads "
+                         "rows with 16-byte strides)")
+    return 64 if D <= 64 else MAX_HEAD_DIM
 
 
 def _lib():
@@ -53,8 +70,7 @@ def _check(q, k, v):
         raise ValueError(f"shapes q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
     if Sq == 0 or k.shape[1] == 0:
         raise ValueError("empty query or key sequence")
-    if D not in _HEAD_DIMS:
-        raise ValueError(f"head_dim {D} not in {_HEAD_DIMS}")
+    padded_head_dim(D, q.dtype)
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
     if q.dtype == torch.bfloat16 and not all(tma_aligned(t) for t in (q, k, v)):

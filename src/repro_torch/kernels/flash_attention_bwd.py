@@ -10,6 +10,11 @@ Two kernels, each with its wrapper and launch counter:
 ``flash_attention_bwd`` computes ``delta = rowsum(do * o)`` and runs both.
 The plain version is ``ref.flash_attention_bwd_ref``; ``ops.
 flash_attention_trainable`` chooses between the two by the tensors' device.
+
+The bf16 dK/dV kernel gives each block 128 keys of one KV head and splits
+the KV head's query heads over the ``dkdv_split`` blocks of a thread-block
+cluster, which sum their partial dK and dV in a fixed order;
+``dkdv_steps`` lists each block's (query head, 64-row q tile) steps.
 """
 
 from __future__ import annotations
@@ -19,22 +24,54 @@ import ctypes
 import torch
 
 from . import _build
+from .decode_attention import _sm_count
 from .flash_attention import _DTYPES, _check, tma_aligned
 
 _INT64_STRIDES = 18  # batch, seq, head strides of the six (dkdv) tensors
+KV_TILE = 128  # keys per dK/dV block (64 per consumer warpgroup)
+Q_TILE = 64    # query rows per streamed dK/dV step
+MAX_SPLIT = 8  # blocks per cluster (the portable cluster size)
 
 
-def _fn(name: str, n_tensors: int, n_strides: int):
+def _fn(name: str, n_tensors: int, n_strides: int, n_tail: int):
     lib = _build.load("flash_attention_bwd")
     fn = getattr(lib, name)
     if fn.argtypes is None:
         fn.argtypes = (
             [ctypes.c_int] + [ctypes.c_void_p] * n_tensors + [ctypes.c_int] * 6
             + [ctypes.c_int64] * n_strides
-            + [ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p]
+            + [ctypes.c_int, ctypes.c_int, ctypes.c_float] + [ctypes.c_int] * n_tail
+            + [ctypes.c_void_p]
         )
         fn.restype = ctypes.c_int
     return fn
+
+
+def dkdv_split(B: int, KV: int, G: int, Sk: int, n_sm: int) -> int:
+    """Blocks per dK/dV work item (one thread-block cluster), each taking
+    every split-th of the G query heads: the smallest power of two, up to
+    min(G, 8), with which the B * KV * ceil(Sk / 128) items give every SM a
+    block."""
+    items = B * KV * -(-Sk // KV_TILE)
+    split = 1
+    while 2 * split <= min(G, MAX_SPLIT) and items * split < n_sm:
+        split *= 2
+    return split
+
+
+def dkdv_steps(B: int, KV: int, G: int, Sq: int, Sk: int, causal: bool, q_offset: int,
+               split: int) -> list[int]:
+    """The (query head, 64-row q tile) steps of each dK/dV block, in launch
+    order: key tiles from the first (causal: the heaviest), then batch row
+    and KV head, then the block's rank in its cluster."""
+    n_q = -(-Sq // Q_TILE)
+    steps = []
+    for kt in range(-(-Sk // KV_TILE)):
+        i0 = max(0, (kt * KV_TILE - q_offset) // Q_TILE) if causal else 0
+        per_head = max(0, n_q - i0)
+        for _ in range(B * KV):
+            steps += [len(range(r, G, split)) * per_head for r in range(split)]
+    return steps
 
 
 def _aligned(t) -> bool:
@@ -81,10 +118,13 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
     Sk, KV = k.shape[1], k.shape[2]
     dk = torch.empty((B, Sk, KV, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, Sk, KV, D), dtype=v.dtype, device=v.device)
-    fn = _fn("flash_attention_bwd_dkdv", 8, _INT64_STRIDES)
+    split = 1
+    if q.dtype == torch.bfloat16:
+        split = dkdv_split(B, KV, H // KV, Sk, _sm_count(q.device.index))
+    fn = _fn("flash_attention_bwd_dkdv", 8, _INT64_STRIDES, 1)
     _launch(fn, [_DTYPES[q.dtype], q, k, v, do, lse, delta, dk, dv, B, H, KV, Sq, Sk, D,
-                 *_strides(q, k, v, do, dk, dv), int(causal), int(q_offset), 1.0 / (D**0.5)],
-            "flash_attention_bwd_dkdv")
+                 *_strides(q, k, v, do, dk, dv), int(causal), int(q_offset), 1.0 / (D**0.5),
+                 split], "flash_attention_bwd_dkdv")
     flash_attention_bwd_dkdv.launches += 1
     return dk, dv
 
@@ -96,7 +136,7 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True, q_of
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dq = torch.empty((B, Sq, H, D), dtype=q.dtype, device=q.device)
-    fn = _fn("flash_attention_bwd_dq", 7, _INT64_STRIDES - 3)
+    fn = _fn("flash_attention_bwd_dq", 7, _INT64_STRIDES - 3, 0)
     _launch(fn, [_DTYPES[q.dtype], q, k, v, do, lse, delta, dq, B, H, KV, Sq, Sk, D,
                  *_strides(q, k, v, do, dq), int(causal), int(q_offset), 1.0 / (D**0.5)],
             "flash_attention_bwd_dq")

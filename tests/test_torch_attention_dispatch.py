@@ -1,8 +1,11 @@
 """What the attention kernels' wrappers decide on the host, held on the CPU:
-flash-decode's split plan and its choice of variant, and the flash forward's
-tensor-map stride check.  None of these functions touches CUDA (the tests
-make every CUDA query raise while they run); the kernels themselves are held
-against their plain versions on the card, in ``tests/test_torch_gpu.py``.
+flash-decode's split plan and its choice of variant, the flash forward's
+tensor-map stride check, the head dim of the flash kernels' build for each
+D and the head dims they refuse, and how the dK/dV kernel splits a KV
+head's query group over the blocks of a cluster.  None of these functions
+touches CUDA (the tests make every CUDA query raise while they run); the
+kernels themselves are held against their plain versions on the card, in
+``tests/test_torch_gpu.py``.
 """
 
 import pytest
@@ -11,7 +14,8 @@ import torch
 torch.set_num_threads(2)  # beside the other test workers on the CPU
 
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
-from repro_torch.kernels.flash_attention import tma_aligned  # noqa: E402
+from repro_torch.kernels import flash_attention_bwd as bwd  # noqa: E402
+from repro_torch.kernels.flash_attention import padded_head_dim, tma_aligned  # noqa: E402
 
 H100_SMS = 132
 
@@ -107,3 +111,80 @@ def test_forward_tensor_map_stride_check_counts_bytes():
     t = torch.zeros((1, 8, 2, 4), dtype=torch.float32)
     assert tma_aligned(t)
     assert not tma_aligned(torch.zeros((1, 8, 2, 6), dtype=torch.float32)[..., :4])
+
+
+@pytest.mark.parametrize("D,dtypes,want", [
+    *[(D, (torch.float32, torch.bfloat16), want)
+      for D, want in [(8, 64), (16, 64), (56, 64), (64, 64), (72, 128), (96, 128), (120, 128),
+                      (128, 128)]],
+    *[(D, (torch.float32,), 64 if D <= 64 else 128) for D in (1, 4, 20, 33, 100, 127)],
+])
+def test_flash_head_dim_runs_on_the_padded_build(D, dtypes, want):
+    """A head dim up to 64 runs on the D = 64 build, one up to 128 on the D =
+    128 build (the smoke configs' 8 and 16, the full configs' 64 and 128);
+    f32 takes any D, bf16 a multiple of 8."""
+    for dtype in dtypes:
+        assert padded_head_dim(D, dtype) == want
+
+
+@pytest.mark.parametrize("D,dtype", [(0, torch.float32), (129, torch.float32),
+                                     (136, torch.bfloat16), (256, torch.bfloat16),
+                                     (20, torch.bfloat16), (4, torch.bfloat16),
+                                     (100, torch.bfloat16)])
+def test_flash_head_dims_refused(D, dtype):
+    """D > 128 and, in bf16, D % 8 != 0 (TMA's 16-byte strides) raise."""
+    with pytest.raises(ValueError, match=f"head_dim {D}"):
+        padded_head_dim(D, dtype)
+
+
+def test_dkdv_split_at_the_training_shape():
+    # chatglm3-6b training: B=2, KV=2, G=16, Sk=2048: 64 key tiles of 128,
+    # split over clusters of 4 blocks, 256 blocks for 132 SMs
+    assert bwd.dkdv_split(2, 2, 16, 2048, H100_SMS) == 4
+    assert bwd.dkdv_split(1, 2, 2, 128, H100_SMS) == 2    # capped by G
+    assert bwd.dkdv_split(1, 1, 1, 128, H100_SMS) == 1    # one query head
+    assert bwd.dkdv_split(8, 8, 16, 4096, H100_SMS) == 1  # items enough
+
+
+@pytest.mark.parametrize("B,KV,G,Sk", [(2, 2, 16, 2048), (1, 2, 7, 200), (1, 8, 32, 256),
+                                       (4, 1, 3, 1000), (1, 1, 1, 100)])
+def test_dkdv_split_is_the_smallest_that_fills_the_card(B, KV, G, Sk):
+    split = bwd.dkdv_split(B, KV, G, Sk, H100_SMS)
+    items = B * KV * -(-Sk // bwd.KV_TILE)
+    assert split & (split - 1) == 0 and split <= min(G, bwd.MAX_SPLIT)
+    assert items * split >= H100_SMS or 2 * split > min(G, bwd.MAX_SPLIT)
+    assert split == 1 or items * split // 2 < H100_SMS
+
+
+@pytest.mark.parametrize("causal,q_offset", [(True, 0), (True, 77), (False, 0)])
+@pytest.mark.parametrize("B,KV,G,Sq,Sk,split", [(2, 2, 16, 2048, 2048, 4),
+                                                (1, 2, 7, 77, 200, 4), (1, 1, 3, 130, 130, 2)])
+def test_dkdv_steps_cover_every_head_and_tile_once(B, KV, G, Sq, Sk, split, causal, q_offset):
+    """The blocks' (query head, q tile) steps add up to every pair of a query
+    head and a 64-row q tile that meets the block's keys, the ranks of a
+    cluster differ by at most one head, and causal key tiles come heaviest
+    first."""
+    steps = bwd.dkdv_steps(B, KV, G, Sq, Sk, causal, q_offset, split)
+    n_kt, n_q = -(-Sk // bwd.KV_TILE), -(-Sq // bwd.Q_TILE)
+    assert len(steps) == n_kt * B * KV * split
+    want = 0
+    for kt in range(n_kt):
+        # q tiles holding a query position at or past the tile's first key
+        tiles = [i for i in range(n_q)
+                 if not causal or q_offset + min((i + 1) * bwd.Q_TILE, Sq) - 1 >= kt * bwd.KV_TILE]
+        want += B * KV * G * len(tiles)
+    assert sum(steps) == want
+    for c in range(0, len(steps), split):
+        cluster = steps[c:c + split]
+        per_head = max(cluster) // -(-G // split) if max(cluster) else 0
+        assert max(cluster) - min(cluster) <= per_head
+    per_item = [sum(steps[c:c + split]) for c in range(0, len(steps), split)]
+    assert per_item == sorted(per_item, reverse=True)
+
+
+def test_dkdv_steps_at_the_training_shape():
+    """Key tile j of 128 keys meets 32 - 2 j q tiles of each head; with 4
+    heads a block, the heaviest block walks 128 steps and the lightest 8,
+    against 17,408 in all (131.9 per SM of an H100)."""
+    steps = bwd.dkdv_steps(2, 2, 16, 2048, 2048, True, 0, 4)
+    assert (max(steps), min(steps), sum(steps), len(steps)) == (128, 8, 17408, 256)

@@ -230,9 +230,13 @@ def test_logits_bf16_gemm_matches_widened_product(cuda):
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda):
-    q = torch.zeros((1, 128, 4, 96), dtype=torch.bfloat16, device=cuda)
-    with pytest.raises(ValueError):
-        flash_attention_fwd(q, q[:, :, :2], q[:, :, :2])
+    for D in (136, 20):  # past the D = 128 build; a bf16 row not a multiple of 16 bytes
+        q = torch.zeros((1, 128, 4, D), dtype=torch.bfloat16, device=cuda)
+        with pytest.raises(ValueError, match=f"head_dim {D}"):
+            flash_attention_fwd(q, q[:, :, :2], q[:, :, :2])
+        lse = torch.zeros((4, 128), dtype=torch.float32, device=cuda)
+        with pytest.raises(ValueError, match=f"head_dim {D}"):
+            flash_attention_bwd_dkdv(q, q[:, :, :2], q[:, :, :2], q, lse, lse)
     odd = torch.zeros((1, 128, 4, 68), dtype=torch.bfloat16, device=cuda)[..., :64]
     with pytest.raises(ValueError):  # rows not 16-byte aligned
         flash_attention_fwd(odd, odd[:, :, :2], odd[:, :, :2])
@@ -264,6 +268,23 @@ def test_flash_attention_wgmma_kernel_matches_ref(cuda, B, Sq, Sk, H, KV, D, cau
     torch.cuda.synchronize()
     assert o.dtype == torch.bfloat16 and o.shape == q.shape
     _close(o, o_ref, **TOL[torch.bfloat16])
+    _close(lse, lse_ref, rtol=0, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [8, 16, 96])
+def test_flash_attention_takes_every_head_dim(cuda, D, dtype):
+    """Head dims below 64 run on the D = 64 build and those between 64 and
+    128 on the D = 128 build, whose extra columns are zero."""
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    q = _randn(gen, (2, 200, 8, D), dtype, cuda)
+    k = _randn(gen, (2, 200, 2, D), dtype, cuda)
+    v = _randn(gen, (2, 200, 2, D), dtype, cuda)
+    o, lse = flash_attention_fwd(q, k, v, causal=True, q_offset=0)
+    o_ref, lse_ref = ref.flash_attention_ref(q, k, v, causal=True, return_lse=True)
+    torch.cuda.synchronize()
+    assert o.dtype == dtype and o.shape == q.shape
+    _close(o, o_ref, **TOL[dtype])
     _close(lse, lse_ref, rtol=0, atol=1e-4)
 
 
@@ -324,6 +345,73 @@ def test_flash_attention_bwd_kernels_match_ref(cuda, B, Sq, Sk, H, KV, D, dtype,
         _close_rel(got, w, GRAD_TOL[dtype])
 
 
+def _bwd_inputs(gen, B, Sq, Sk, H, KV, D, dtype, causal, q_offset, device):
+    q = _randn(gen, (B, Sq, H, D), dtype, device)
+    k = _randn(gen, (B, Sk, KV, D), dtype, device)
+    v = _randn(gen, (B, Sk, KV, D), dtype, device)
+    do = _randn(gen, (B, Sq, H, D), dtype, device)
+    o, lse = flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
+    return q, k, v, do, lse, attention_delta(o, do)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("D", [8, 16, 64, 96, 128])
+@pytest.mark.parametrize("B,Sq,Sk,G,KV,causal,q_offset", [
+    (2, 256, 256, 1, 2, True, 0),       # G = 1: one head a cluster
+    (1, 77, 200, 7, 2, True, 123),      # G = 7 over clusters of 4, ragged, q_offset
+    (1, 130, 300, 16, 1, False, 0),     # G = 16, not causal, ragged
+    (2, 192, 192, 16, 2, True, 0),      # chatglm3-6b's group, causal
+])
+def test_flash_attention_bwd_kernels_every_head_dim(cuda, B, Sq, Sk, G, KV, causal, q_offset, D,
+                                                    dtype):
+    """Both backward kernels at every head dim the flash kernels take, for
+    each way dK/dV splits a query group over a cluster."""
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q, k, v, do, lse, delta = _bwd_inputs(gen, B, Sq, Sk, G * KV, KV, D, dtype, causal,
+                                          q_offset, cuda)
+    kw = dict(causal=causal, q_offset=q_offset)
+    dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, **kw)
+    dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, **kw)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    for got, w, like in zip((dq, dk, dv), want, (q, k, v)):
+        assert got.dtype == like.dtype and got.shape == like.shape
+        assert torch.isfinite(got).all()
+        assert float(w.float().abs().max()) > 0
+        _close_rel(got, w, GRAD_TOL[dtype])
+
+
+def test_flash_attention_bwd_kernels_repeat_bitwise_in_cuda_graphs(cuda):
+    """dq, dk and dv from two replays of one captured backward are equal bit
+    for bit: no atomics, every sum in a fixed order (the dK/dV clusters sum
+    their partials in rank order)."""
+    gen = torch.Generator(device=cuda).manual_seed(15)
+    q, k, v, do, lse, delta = _bwd_inputs(gen, 2, 1024, 1024, 32, 2, 128, torch.bfloat16,
+                                          True, 0, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up off the capturing stream
+        flash_attention_bwd_dkdv(q, k, v, do, lse, delta)
+        flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta)
+    graph.replay()
+    torch.cuda.synchronize()
+    first = [t.clone() for t in (dq, dk, dv)]
+    for t in (dq, dk, dv):
+        t.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    for a, b in zip(first, (dq, dk, dv)):
+        assert torch.equal(a, b)
+    want = ref.flash_attention_bwd_ref(q, k, v, do, lse, delta)
+    for got, w in zip(first, want):
+        _close_rel(got, w, GRAD_TOL[torch.bfloat16])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_flash_attention_trainable_grads_on_cuda(cuda, dtype):
     """Gradients of the kernel path against autograd through the plain
@@ -352,6 +440,32 @@ def test_bwd_kernels_refuse_what_they_cannot_take(cuda):
         flash_attention_bwd_dq(q, q[:, :, :2], q[:, :, :2], q, lse[:2], lse)
     with pytest.raises(ValueError):  # do in another dtype
         flash_attention_bwd_dkdv(q, q[:, :, :2], q[:, :, :2], q.float(), lse, lse)
+
+
+@pytest.mark.parametrize("arch", ["chatglm3_6b", "yi_34b"])
+def test_smoke_configs_train_through_the_flash_kernels(cuda, arch):
+    """The smoke configs, unmodified (head_dim 16 and 8), train through both
+    backward kernels: one step's gradients in f32 against the plain chunked
+    path, each leaf within 1e-4 of its largest magnitude (the key bias,
+    whose gradient is zero in exact arithmetic, of the whole tree's)."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import concrete_batch, loss_and_grads
+    from repro_torch.models.common import tree_items
+    from repro_torch.models.model import Model
+
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32")
+    params = Model(cfg, "cuda").init_params(seed=0)
+    batch = concrete_batch(cfg, 2, 128, device="cuda")
+    n_kv, n_q = flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches
+    _, got = loss_and_grads(Model(cfg.replace(attn_impl="pallas"), "cuda"), params, batch)
+    assert flash_attention_bwd_dkdv.launches == n_kv + cfg.n_layers
+    assert flash_attention_bwd_dq.launches == n_q + cfg.n_layers
+    _, want = loss_and_grads(Model(cfg.replace(attn_impl="chunked"), "cuda"), params, batch)
+    got, want = dict(tree_items(got)), dict(tree_items(want))
+    tree_max = max(float(w.abs().max()) for w in want.values())
+    for path, w in want.items():
+        scale = tree_max if path == "layers.attn.bk" else float(w.abs().max())
+        assert float((got[path] - w).abs().max()) <= GRAD_TOL[torch.float32] * scale, path
 
 
 # ---------------------------------------------------------------------------
@@ -425,8 +539,7 @@ def test_streamed_decode_equals_resident_decode(cuda):
     from repro_torch.launch.steps import concrete_batch
     from repro_torch.runtime.prefetch import HostParamStore, WeightStreamer
 
-    # head_dim 64: the flash kernel of the prefill takes 64 and 128
-    cfg = get_smoke_config("chatglm3_6b").replace(head_dim=64, attn_impl="pallas")
+    cfg = get_smoke_config("chatglm3_6b").replace(attn_impl="pallas")  # head_dim 16
     server = Server(cfg, device="cuda", max_len=256)
     params = server.model.compute_params(server.model.init_params(seed=0))
     batch = concrete_batch(cfg, 2, 128, device="cuda")

@@ -36,6 +36,9 @@ CASES = [  # B, Sq, Sk, H, KV, D, causal, q_offset
     (1, 256, 256, 8, 2, 128, True, 0),     # H/KV = 4, D 128
     (1, 128, 256, 4, 1, 64, True, 128),    # q_offset
     (1, 128, 256, 4, 2, 128, False, 0),    # Sq != Sk
+    (1, 128, 128, 4, 2, 8, True, 0),       # D 8 (the yi smoke config's head dim)
+    (2, 128, 128, 4, 2, 16, False, 0),     # D 16 (the chatglm3 smoke config's)
+    (1, 128, 256, 4, 1, 96, True, 128),    # D 96, between the kernels' 64 and 128
 ]
 
 
