@@ -66,7 +66,9 @@ Phases, each printing its lines; any failure exits non-zero:
      bound and the backward of PyTorch's scaled_dot_product_attention (a
      yardstick);
   smoke: the chatglm3 and yi smoke configs (head_dim 16 and 8), unmodified,
-     with ``attn_impl="pallas"``: served (B=2, prompt 128, 8 tokens) through
+     and chatglm3's with head_dim 256 and 20 (which the flash kernels run on
+     the CUDA cores), all at depth 2 and unwindowed, with
+     ``attn_impl="pallas"``: served (B=2, prompt 128, 8 tokens) through
      the flash forward and flash-decode, logits against the plain path in
      bf16 (naive) and f32 (chunked), and one training step's gradients
      through both backward kernels against the plain chunked path, in bf16
@@ -83,21 +85,24 @@ Phases, each printing its lines; any failure exits non-zero:
      and a fourth step under torch.profiler gives the device's busy share
      and the kernels with the most device time.
 
-  scans: the mamba and RG-LRU scan kernels against their plain versions
-     (outputs and the mamba scan's last state) at S in {1, 7, 128, 512}
-     with and without an initial state, in f32 and bf16, at the serving
-     widths and at channel counts that are not a multiple of a block; then
-     timed (CUDA graphs) at the serving shapes, prefill and decode, beside
-     their plain versions and their byte bounds (no PyTorch call computes
-     either scan);
+  scans: the materialised mamba and RG-LRU scan kernels (the TPU kernels'
+     contracts) and the fused selective scan and gated RG-LRU kernels (the
+     models' path) against their plain versions (outputs and last states)
+     at S in {1, 7, 128, 512} with and without an initial state, in f32 and
+     bf16, at the serving widths and at channel counts that are not a
+     multiple of a block (the selective scan also with N < 16 and its state
+     updated in place; the RG-LRU kernels' f32 outputs bitwise); then timed
+     (CUDA graphs) at the serving shapes, prefill and decode, beside their
+     plain versions and their bounds (no PyTorch call computes any scan);
   7. falcon-mamba-7b and 8. recurrentgemma-2b at full width and depth (64
      and 26 layers; random weights from seed 0), each served by
      ``Server.generate`` with ``attn_impl="pallas"``, B=4, prompt 512, 32
      generated tokens, bf16 weights: prefill ms, decode ms per step,
-     tokens/s, peak memory, and the launch counts of that run (the mamba
-     scan once per layer per prefill and per decode step, 2,048 in all; the
-     RG-LRU scan once per recurrent layer, 576; the gather 32; no attention
-     kernel).  Then the kernel path against the plain loop over time
+     tokens/s, peak memory, the busy share of ``generate(8)``, and the
+     launch counts of that run (the fused selective scan once per layer per
+     prefill and per decode step, 2,048 in all; the gated RG-LRU scan once
+     per recurrent layer, 576; the gather 32; no attention kernel and
+     neither materialised scan).  Then the kernel path against the plain loop over time
      (``"chunked"``), teacher-forced on the generated tokens (prefill and 8
      steps), in bf16 (at full depth, and at depth 3 with a tighter limit)
      and, with the same weights drawn again in f32, in f32.
@@ -179,6 +184,15 @@ TRAIN_DEPTH = 16
 RECURRENT_REL_TOL_BF16 = LOGITS_REL_TOL_BF16
 RECURRENT_REL_TOL_BF16_DEPTH3 = 2e-2
 RECURRENT = ("falcon_mamba_7b", "recurrentgemma_2b")
+# the fused RG-LRU kernel's f32 outputs against its plain version, relative
+# to the largest: both round every product and sum alike, so they are
+# expected bitwise equal (printed); this limit allows only for the card's
+# expf and torch's exp differing in the last place
+RGLRU_FUSED_REL_TOL = 1e-6
+# kernels kept for the TPU kernels' contracts (materialised dA, dBu; a, g),
+# checked and timed in the scans phase; the serving path runs the fused
+# kernels instead, so these must show no launch there
+OFF_PATH = ("mamba_scan_fwd", "rglru_scan_fwd")
 # streamed decode logits against the resident decode's, relative to the
 # largest logit: the same kernels on the same bits, so expected equal
 STREAM_REL_TOL = 1e-5
@@ -288,6 +302,8 @@ def phase_build() -> None:
 def phase_flash(torch, ref, flash_fwd):
     """Check the flash kernel at the prefill shape and edge cases; time the
     prefill shape.  Returns its JSON record (launches filled in later)."""
+    from repro_torch.kernels.flash_attention import route
+
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [  # B, S, H, KV, D, dtype, causal, q_offset, Sq
@@ -303,6 +319,12 @@ def phase_flash(torch, ref, flash_fwd):
         (1, 130, 7, 1, 64, torch.bfloat16, False, 0, 130),
         (2, 300, 32, 2, 64, torch.bfloat16, True, 0, 300),
         (2, 2048, 32, 2, 128, torch.bfloat16, True, 0, 2048),  # training shape
+        # the CUDA-core kernel's head dims: a bf16 row not a multiple of 16
+        # bytes, past the tensor-core builds, and its D = 256 build
+        (1, 200, 8, 2, 20, torch.bfloat16, True, 0, 200),
+        (1, 269, 14, 2, 136, torch.bfloat16, True, 192, 77),
+        (2, 256, 8, 2, 256, torch.bfloat16, True, 0, 256),
+        (1, 130, 4, 2, 256, torch.float32, False, 0, 130),
     ]
     main_err = None
     for B, S, H, KV, D, dt, causal, q_off, Sq in cases:
@@ -317,7 +339,7 @@ def phase_flash(torch, ref, flash_fwd):
         ok_o, err_o = allclose(torch, o, o_ref, tol)
         err_l = float((lse - lse_ref).abs().max())
         print(f"[flash] B={B} Sq={Sq} Sk={S} H={H} KV={KV} D={D} {dt} causal={causal} "
-              f"q_offset={q_off}: o max_abs_err {err_o:.3e} (tol {tol}), "
+              f"q_offset={q_off} ({route(D, dt)}): o max_abs_err {err_o:.3e} (tol {tol}), "
               f"lse max_abs_err {err_l:.3e} (tol {LSE_ATOL})")
         check(ok_o, "flash-attention output disagrees with its plain version")
         check(err_l <= LSE_ATOL, "flash-attention lse disagrees with its plain version")
@@ -607,12 +629,12 @@ def check_head(torch, model, params, B: int) -> None:
     check(rel <= HEAD_REL_TOL, "the head's bf16 GEMM disagrees with the widened f32 product")
 
 
-def profile_run(torch, label: str, fn, watch: tuple = ()) -> None:
+def profile_run(torch, label: str, fn, watch: tuple = ()):
     """Device busy share over one ``fn()``: the CUDA kernel times
     torch.profiler records against the host clock (the profiler's own
     overhead lengthens the wall time), the ten kernels with the most
     device time, and any other kernel whose name contains one of
-    ``watch``."""
+    ``watch``.  Returns the busy share (None if not measured)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -633,12 +655,13 @@ def profile_run(torch, label: str, fn, watch: tuple = ()) -> None:
     busy_us = sum(r[0] for r in rows)
     if busy_us == 0:
         print("[profile] device time: not measured (the profiler recorded no CUDA kernel)")
-        return
+        return None
     print(f"[profile] {label} under torch.profiler: wall {wall_us / 1e3:.3f} ms, "
           f"CUDA kernels {busy_us / 1e3:.3f} ms, busy share {busy_us / wall_us:.4f}")
     for i, (dev_us, count, key) in enumerate(sorted(rows, reverse=True)):
         if i < 10 or any(w in key for w in watch):
             print(f"[profile]   {dev_us / 1e3:9.3f} ms  {count:6d} x  {key[:100]}")
+    return busy_us / wall_us
 
 
 # a wrapper's launch count, and flash-decode's per variant (tensor cores, CUDA cores)
@@ -1008,6 +1031,7 @@ def phase_flash_bwd(torch, ref, flash_fwd, dkdv, dq):
     launch's balance over the SMs; time them at the training shape.
     Returns their two JSON records."""
     from repro_torch.kernels import flash_attention_bwd as bwd
+    from repro_torch.kernels.flash_attention import route
     from repro_torch.kernels.flash_attention_bwd import attention_delta
 
     dev = torch.device("cuda")
@@ -1022,7 +1046,7 @@ def phase_flash_bwd(torch, ref, flash_fwd, dkdv, dq):
         (1, 300, 300, 16, 1, 64, torch.bfloat16, False, 0),     # G = 16, ragged
     ] + [  # every head dim class, G = 7 over clusters of 4, ragged, q_offset
         (1, 77, 200, 14, 2, D, dt, True, 123)
-        for D in (8, 16, 64, 96, 128) for dt in (torch.bfloat16, torch.float32)
+        for D in (8, 16, 20, 64, 96, 128, 136, 256) for dt in (torch.bfloat16, torch.float32)
     ]
     errs = {}
     for B, Sq, Sk, H, KV, D, dt, causal, q_off in cases:
@@ -1047,7 +1071,7 @@ def phase_flash_bwd(torch, ref, flash_fwd, dkdv, dq):
             check(rel <= tol, f"flash backward {name} disagrees with its plain version")
             errs.setdefault(name, float((got.float() - w.float()).abs().max()))
         print(f"[flash_bwd] B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} {dt} causal={causal} "
-              f"q_offset={q_off}: max |err| / max |plain|: {', '.join(line)} (tol {tol})")
+              f"q_offset={q_off} ({route(D, dt)}): max |err| / max |plain|: {', '.join(line)} (tol {tol})")
         del q, k, v, do, o, lse, delta, got_dk, got_dv, got_dq, want
     check_bwd_replays(torch, flash_fwd, dkdv, dq)
 
@@ -1256,22 +1280,28 @@ def phase_train(torch, counters: dict) -> dict:
     return launches
 
 
-SMOKE_ARCHS = ("chatglm3_6b", "yi_34b")
+# (arch, head_dim override or 0): the chatglm3 and yi smoke configs as they
+# are (head_dim 16 and 8), and chatglm3's with head_dim 256 (the largest of
+# any config, recurrentgemma-2b's) and 20 (a bf16 row that is not a multiple
+# of 16 bytes), which the flash kernels run on the CUDA cores
+SMOKE_CONFIGS = (("chatglm3_6b", 0), ("yi_34b", 0), ("chatglm3_6b", 256), ("chatglm3_6b", 20))
 
 
 def phase_smoke_configs(torch, counters: dict) -> None:
-    """The chatglm3 and yi smoke configs, unmodified (head_dim 16 and 8,
-    which the flash kernels run on their D = 64 build), with
+    """The smoke configs of ``SMOKE_CONFIGS`` (depth 2, unwindowed) with
     ``attn_impl="pallas"``: served through the flash forward and
     flash-decode, logits against the plain path, then one training step's
     gradients through both backward kernels against the plain path."""
     from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels.flash_attention import padded_head_dim, route
     from repro_torch.launch.serve import Server
     from repro_torch.launch.steps import concrete_batch
 
     B, prompt, gen_tokens, max_len = 2, 128, 8, 256
-    for arch in SMOKE_ARCHS:
+    for arch, head_dim in SMOKE_CONFIGS:
         cfg = get_smoke_config(arch).replace(attn_impl="pallas")
+        if head_dim:
+            cfg = cfg.replace(head_dim=head_dim, name=f"{cfg.name}-hd{head_dim}")
         server = Server(cfg, device="cuda", max_len=max_len)
         params = server.model.compute_params(server.model.init_params(seed=0))
         batch = concrete_batch(cfg, B, prompt, device="cuda")
@@ -1281,9 +1311,12 @@ def phase_smoke_configs(torch, counters: dict) -> None:
         tokens = server.generate(params, batch, gen_tokens)
         torch.cuda.synchronize()
         n = {name: c.launches for name, c in counters.items()}
+        D = cfg.head_dim
         print(f"[smoke] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
-              f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}: served B={B} prompt "
-              f"{prompt} {gen_tokens} tokens, launches {n}")
+              f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {D}: served B={B} prompt "
+              f"{prompt} {gen_tokens} tokens, launches {n}; flash kernels: bf16 on "
+              f"{route(D, torch.bfloat16)} (build D = {padded_head_dim(D, torch.bfloat16)}), "
+              f"f32 on {route(D, torch.float32)}")
         check(n["flash_attention_fwd"] == cfg.n_layers
               and n["decode_attention_fwd"] == cfg.n_layers * (gen_tokens - 1),
               f"{cfg.name}: the serve did not run the flash kernels")
@@ -1311,9 +1344,10 @@ def _check_scan(torch, label: str, got, want, tol: float) -> float:
 
 
 def phase_scans(torch, ref, mamba_fwd, rglru_fwd) -> list:
-    """Check both scan kernels against their plain versions; time them at
-    the serving shapes.  Returns their two JSON records (the prefill
-    shape's numbers; launches filled in later)."""
+    """Check both materialised scan kernels (the TPU kernels' contracts)
+    against their plain versions; time them at the serving shapes.  Returns
+    their two JSON records (the prefill shape's numbers; launches filled in
+    later)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(12)
     errs = {"mamba_scan_fwd": 0.0, "rglru_scan_fwd": 0.0}
@@ -1347,9 +1381,9 @@ def phase_scans(torch, ref, mamba_fwd, rglru_fwd) -> list:
             check(torch.equal(y, y_ref), f"{label}: f32 output not bitwise its plain version")
             errs["rglru_scan_fwd"] = max(errs["rglru_scan_fwd"], err)
 
-    # the serving shapes, in the model's calls: prefill from zeros and
-    # decode (S = 1) from a state, f32 inputs, the mamba scan's last state
-    # written out
+    # the serving shapes, in the calls the TPU kernels' contracts make:
+    # prefill from zeros and decode (S = 1) from a state, f32 inputs, the
+    # mamba scan's last state written out
     recs, f32 = [], 4  # bytes per f32 element
     B, Ch, N = 4, 8192, 16
     times = {}
@@ -1402,6 +1436,171 @@ def phase_scans(torch, ref, mamba_fwd, rglru_fwd) -> list:
     return recs
 
 
+def _bound(nbytes: int, flops: int) -> tuple[float, str, str]:
+    """(bound ms, "bytes" or "operations", a description of both): bytes at
+    the HBM rate against f32 operations at the CUDA cores' rate, whichever
+    takes longer."""
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / F32_FLOPS * 1e3
+    by = "bytes" if t_bytes >= t_ops else "operations"
+    return max(t_bytes, t_ops), by, (f"{nbytes} B: {t_bytes * 1e3:.3f} us; {flops} f32 "
+                                     f"operations: {t_ops * 1e3:.3f} us")
+
+
+def _mamba_inputs(torch, gen, B: int, S: int, Ch: int, N: int, dt, with_h0: bool,
+                  R: int = 8) -> dict:
+    """The fused mamba scan's inputs as the model makes them: dt =
+    softplus(...), A = -exp(A_log) f32, B and C slices of one projection
+    [B, S, R + 2N] (strided), D f32, h0 f32."""
+    from repro_torch.kernels.ref import softplus
+
+    dev = torch.device("cuda")
+    proj = torch.randn((B, S, R + 2 * N), generator=gen, device=dev).to(dt)
+    return {
+        "u": torch.randn((B, S, Ch), generator=gen, device=dev).to(dt),
+        "dt": softplus(torch.randn((B, S, Ch), generator=gen, device=dev) - 1.0).to(dt),
+        "A": -torch.exp(0.5 * torch.randn((Ch, N), generator=gen, device=dev)),
+        "B_ssm": proj[..., R:R + N], "C_ssm": proj[..., R + N:],
+        "D": torch.randn((Ch,), generator=gen, device=dev),
+        "h0": torch.randn((B, Ch, N), generator=gen, device=dev) if with_h0 else None,
+    }
+
+
+def _rel_check(torch, label: str, got, want, tol: float) -> float:
+    """max |got - want| / max |want| within ``tol``, finite, same dtype and
+    shape; returns max |got - want|."""
+    check(got.dtype == want.dtype and got.shape == want.shape, f"{label}: dtype or shape")
+    check(bool(torch.isfinite(got).all()), f"{label}: non-finite values")
+    rel, _ = rel_err(torch, got, want)
+    err = float((got.float() - want.float()).abs().max())
+    print(f"[scans] {label}: max |err| / max |plain| {rel:.3e} (tol {tol}), max_abs_err "
+          f"{err:.3e}")
+    check(rel <= tol, f"{label}: the kernel disagrees with its plain version")
+    return err
+
+
+def phase_fused_scans(torch, ref, scan_fwd, gated_fwd) -> list:
+    """The two fused scan kernels the recurrent models run: the selective
+    scan (mamba's discretisation inside the kernel) and the gated RG-LRU,
+    against their plain versions at S in {1, 7, 128, 512} at the serving
+    widths and at odd widths and state sizes, with and without an initial
+    state, in f32 and bf16 (the selective scan also updating its state in
+    place, as the decode does); then timed at the serving shapes beside
+    their plain versions and their bounds.  Returns their two JSON records
+    (the prefill shape's numbers; launches filled in later)."""
+    from repro_torch.kernels.selective_scan import scan_lanes
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    errs = {"selective_scan_fwd": 0.0, "rglru_gated_fwd": 0.0}
+    cases = ([(4, S, 8192, 16) for S in (1, 7, 128, 512)]
+             + [(2, 7, 8200, 16), (3, 33, 300, 5), (1, 128, 97, 4), (2, 1, 301, 13)])
+    for (B, S, Ch, N), dt, with_h0 in itertools.product(
+            cases, (torch.float32, torch.bfloat16), (False, True)):
+        x = _mamba_inputs(torch, gen, B, S, Ch, N, dt, with_h0)
+        y, h = scan_fwd(**x)
+        y_ref, h_ref = ref.selective_scan_ref(**x)
+        torch.cuda.synchronize()
+        label = f"selective_scan B={B} S={S} Ch={Ch} N={N} {dt} h0={with_h0}"
+        err = _rel_check(torch, label + " y", y, y_ref, TOL[str(dt).split(".")[-1]])
+        _rel_check(torch, label + " h_S", h, h_ref, TOL["float32"])
+        if dt == torch.float32:
+            errs["selective_scan_fwd"] = max(errs["selective_scan_fwd"], err)
+        if with_h0:  # the decode's form: the state updated in place
+            state = x["h0"].clone()
+            y2, h2 = scan_fwd(**dict(x, h0=state), h_out=state)
+            torch.cuda.synchronize()
+            check(h2.data_ptr() == state.data_ptr() and torch.equal(h2, h)
+                  and torch.equal(y2, y), f"{label}: the in-place update differs")
+        del x, y, h, y_ref, h_ref
+    cases = [(4, S, 2560) for S in (1, 7, 128, 512)] + [(2, 7, 2500), (3, 33, 300)]
+    bitwise = True
+    for (B, S, W), dt, with_h0 in itertools.product(
+            cases, (torch.float32, torch.bfloat16), (False, True)):
+        x = torch.randn((B, S, W), generator=gen, device=dev).to(dt)
+        r = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=dev)).to(dt)
+        i = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=dev)).to(dt)
+        lam = torch.randn((W,), generator=gen, device=dev)
+        h0 = torch.randn((B, W), generator=gen, device=dev) if with_h0 else None
+        y, h = gated_fwd(x, r, i, ref.rglru_decay(lam), h0)
+        y_ref, h_ref = ref.rglru_gated_scan_ref(x, r, i, lam, h0)
+        torch.cuda.synchronize()
+        label = f"rglru_gated B={B} S={S} W={W} {dt} h0={with_h0}"
+        same = torch.equal(y, y_ref) and torch.equal(h, h_ref)
+        err = _rel_check(torch, label + f" y (bitwise: {same})", y, y_ref,
+                         RGLRU_FUSED_REL_TOL if dt == torch.float32 else TOL["bfloat16"])
+        _rel_check(torch, label + " h_S", h, h_ref, RGLRU_FUSED_REL_TOL)
+        if dt == torch.float32:
+            bitwise = bitwise and same
+            errs["rglru_gated_fwd"] = max(errs["rglru_gated_fwd"], err)
+    print(f"[scans] rglru_gated f32 outputs bitwise their plain version's in every case: "
+          f"{bitwise}")
+
+    # the serving shapes, as the models call the kernels in bf16: prefill from
+    # zeros, decode (S = 1) from a state (mamba: updated in place)
+    recs, bf = [], 2  # bytes per bf16 element
+    B, Ch, N, R = 4, 8192, 16, 256  # falcon-mamba-7b: d_inner 8192, N 16, dt_rank 256
+    times = {}
+    for label, S in (("prefill", 512), ("decode", 1)):
+        x = _mamba_inputs(torch, gen, B, S, Ch, N, torch.bfloat16, S == 1, R=R)
+        state = x["h0"]
+        ms = graph_ms(torch, lambda: scan_fwd(**x, h_out=state), iters=20)
+        plain_ms = graph_ms(torch, lambda: ref.selective_scan_ref(**x), iters=2, reps=3)
+        nbytes = (bf * (3 * B * S * Ch + 2 * B * S * N) + 4 * (Ch * N + Ch + B * Ch * N)
+                  + (4 * B * Ch * N if S == 1 else 0))
+        # per state element and step: dt * A, exp, dA * h, dtu * B, + , h * C, + ;
+        # per channel and step: dt * u, D * u, +
+        flops = 7 * B * S * Ch * N + 3 * B * S * Ch
+        bound, by, both = _bound(nbytes, flops)
+        times[label] = (ms, plain_ms, bound, by)
+        print(f"[scans] selective_scan {label} shape B={B} S={S} Ch={Ch} N={N} bf16 "
+              f"(B, C strided slices of the projection){' h updated in place' if S == 1 else ''}"
+              f": kernel {ms:.5f} ms (lanes {scan_lanes(B, Ch)}), plain {plain_ms:.5f} ms "
+              f"(device times, CUDA graph); bound {bound * 1e3:.3f} us by {by} ({both}); no "
+              f"library call computes the scan")
+        if S > 1:
+            lanes_ms = {n: graph_ms(torch, lambda: scan_fwd(**x, _lanes=n), iters=20)
+                        for n in (1, 2, 4)}
+            print(f"[scans] selective_scan prefill by threads per channel: "
+                  + ", ".join(f"{n}: {t:.5f} ms" for n, t in lanes_ms.items()))
+        del x, state
+    ms, plain_ms, bound, by = times["prefill"]
+    recs.append({
+        "name": "selective_scan_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/selective_scan.cu",
+        "replaces": "src/repro/kernels/mamba_scan.py:46",
+        "launches": None, "max_abs_err": errs["selective_scan_fwd"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+    })
+    B, W = 4, 2560
+    for label, S in (("prefill", 512), ("decode", 1)):
+        x = torch.randn((B, S, W), generator=gen, device=dev).to(torch.bfloat16)
+        r = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=dev)).to(torch.bfloat16)
+        i = torch.sigmoid(torch.randn((B, S, W), generator=gen, device=dev)).to(torch.bfloat16)
+        lam = torch.randn((W,), generator=gen, device=dev)
+        c = ref.rglru_decay(lam)
+        h0 = torch.randn((B, W), generator=gen, device=dev) if S == 1 else None
+        ms = graph_ms(torch, lambda: gated_fwd(x, r, i, c, h0), iters=20)
+        plain_ms = graph_ms(torch, lambda: ref.rglru_gated_scan_ref(x, r, i, lam, h0), iters=2,
+                            reps=3)
+        nbytes = bf * 4 * B * S * W + 4 * (W + B * W + (B * W if h0 is not None else 0))
+        # per element: c * r, exp, i * x, a * a, 1 -, max, sqrt, g, a * h, +
+        flops = 10 * B * S * W
+        bound, by, both = _bound(nbytes, flops)
+        times[label] = (ms, plain_ms, bound, by)
+        print(f"[scans] rglru_gated {label} shape B={B} S={S} W={W} bf16: kernel {ms:.5f} ms, "
+              f"plain {plain_ms:.5f} ms (device times, CUDA graph); bound {bound * 1e3:.3f} us "
+              f"by {by} ({both}); no library call computes the scan")
+    ms, plain_ms, bound, by = times["prefill"]
+    recs.append({
+        "name": "rglru_gated_fwd", "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/rglru_scan.cu",
+        "replaces": "src/repro/kernels/rglru_scan.py:42",
+        "launches": None, "max_abs_err": errs["rglru_gated_fwd"], "ms": ms,
+        "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by, "library_ms": None,
+    })
+    return recs
+
+
 def phase_recurrent(torch, arch: str, counters: dict, B: int, prompt: int,
                     gen_tokens: int) -> dict:
     """One recurrent model (ssm or hybrid) at full width and depth, served
@@ -1430,7 +1629,7 @@ def phase_recurrent(torch, arch: str, counters: dict, B: int, prompt: int,
           f"{cfg.compute_dtype} cast in {time.perf_counter() - t0:.3f} s")
     batch = concrete_batch(cfg, B, prompt, device="cuda")
     batch.pop("targets")
-    scan = "mamba_scan_fwd" if cfg.family == "ssm" else "rglru_scan_fwd"
+    scan = "selective_scan_fwd" if cfg.family == "ssm" else "rglru_gated_fwd"
     per_call = cfg.n_layers if cfg.family == "ssm" else kinds.count("rec")
     decode_steps = gen_tokens - 1
     want = {n: 0 for n in counters}
@@ -1444,8 +1643,10 @@ def phase_recurrent(torch, arch: str, counters: dict, B: int, prompt: int,
     check(tuple(tokens.shape) == (B, gen_tokens), f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token out of range")
     check(launched == want, f"{cfg.name}: the serve's launch counts are not the path's")
-    profile_run(torch, f"{cfg.name} generate(8 tokens)",
-                lambda: server.generate(params, batch, 8))
+    busy = profile_run(torch, f"{cfg.name} generate(8 tokens)",
+                       lambda: server.generate(params, batch, 8))
+    print(f"[{tag}] busy share of generate(8): "
+          f"{'not measured' if busy is None else f'{busy:.4f}'}")
 
     # the plain path, teacher-forced on the first 9 generated tokens, in
     # bf16, in bf16 at depth 3, and (the same weights, not cast) in f32
@@ -1503,7 +1704,8 @@ def main() -> int:
     )
     from repro_torch.kernels.mamba_scan import mamba_scan_fwd
     from repro_torch.kernels.prefetch_gather import prefetch_gather_fwd
-    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+    from repro_torch.kernels.rglru_scan import rglru_gated_fwd, rglru_scan_fwd
+    from repro_torch.kernels.selective_scan import selective_scan_fwd
 
     B, prompt, gen_tokens, max_len = 4, 512, 32, 1024
     recs = [
@@ -1513,6 +1715,7 @@ def main() -> int:
         *phase_flash_bwd(torch, ref, flash_attention_fwd, flash_attention_bwd_dkdv,
                          flash_attention_bwd_dq),
         *phase_scans(torch, ref, mamba_scan_fwd, rglru_scan_fwd),
+        *phase_fused_scans(torch, ref, selective_scan_fwd, rglru_gated_fwd),
     ]
     # each path's counts: serving for the forward, flash-decode and the
     # gather, the Trainer run for the backward kernels
@@ -1539,13 +1742,20 @@ def main() -> int:
     serve_counters = {"flash_attention_fwd": flash_attention_fwd,
                       "decode_attention_fwd": decode_attention_fwd,
                       "prefetch_gather_fwd": prefetch_gather_fwd,
-                      "mamba_scan_fwd": mamba_scan_fwd, "rglru_scan_fwd": rglru_scan_fwd}
+                      "mamba_scan_fwd": mamba_scan_fwd, "rglru_scan_fwd": rglru_scan_fwd,
+                      "selective_scan_fwd": selective_scan_fwd,
+                      "rglru_gated_fwd": rglru_gated_fwd}
+    scans = (*OFF_PATH, "selective_scan_fwd", "rglru_gated_fwd")
+    launches.update({k: 0 for k in scans})
     for arch in RECURRENT:
         run = phase_recurrent(torch, arch, serve_counters, B, prompt, gen_tokens)
-        launches.update({k: v for k, v in run.items() if k.endswith("scan_fwd") and v})
+        launches.update({k: v for k, v in run.items() if k in scans and v})
     for r in recs:
         r["launches"] = launches[r["name"]]
-        check(r["launches"] > 0, f"{r['name']} was not launched on its path")
+        if r["name"] in OFF_PATH:
+            check(r["launches"] == 0, f"{r['name']} ran on the serving path")
+        else:
+            check(r["launches"] > 0, f"{r['name']} was not launched on its path")
     print(f"[done] {time.perf_counter() - t_start:.1f} s")
     print(smi)
     print(json.dumps({"kernels": recs}))

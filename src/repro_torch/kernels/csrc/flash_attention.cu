@@ -42,18 +42,25 @@
 // with P as register A fragments and V read MN-major from shared memory;
 // tile j's softmax runs while tile j - 1's P V is on the tensor cores.
 //
-// f32: products on the CUDA cores (SIMT) in f32, one block per (64-row q
-// tile, head, batch row), a 16 x 16 thread grid over 64 query rows and
-// 32-row K/V tiles; the tensor cores' f32 input (TF32) would round the
-// operands.
+// CUDA cores (`flash_fwd_simt_kernel`): f32, and the bf16 head dims the
+// tensor-core kernel cannot take.  Products on the CUDA cores (SIMT) in
+// f32, one block per (64-row q tile, head, batch row), a 16 x 16 thread grid
+// over 64 query rows and 32-row K/V tiles, tiles held in shared memory as
+// f32 (the tensor cores' f32 input, TF32, would round the operands).  bf16
+// is widened on load, P rounded to bf16 before P V (l sums it unrounded, as
+// the tensor-core kernel does) and o rounded on store.
 //
-// Head dims: both kernels are built for a padded head dim DP of 64 or 128
-// and take any D <= DP (bf16: D % 8 == 0, so that TMA's 16-byte strides
-// hold).  bf16 reads q, k, v through tensor maps whose first dim is the true
-// D, so TMA fills the columns past D with zeros: Q K^T is unchanged and the
-// extra columns of P V are zero; the epilogue stores D columns.  f32 masks
-// its loads and stores.  The scale is 1/sqrt(D) of the true D (the
-// caller's).
+// Head dims: the tensor-core kernel is built for a padded head dim DP of 64
+// or 128 and takes any bf16 D <= DP with D % 8 == 0, so that TMA's 16-byte
+// strides hold.  It reads q, k, v through tensor maps whose first dim is
+// the true D, so TMA fills the columns past D with zeros: Q K^T is
+// unchanged and the extra columns of P V are zero; the epilogue stores D
+// columns.  The CUDA-core kernel is built for DP = 64, 128 and 256 (the
+// largest head dim of any config, recurrentgemma-2b's; its tiles take
+// ~140 KB of shared memory there) and masks its loads and stores; the
+// launcher sends it f32, and bf16 with D % 8 != 0 or 128 < D <= 256: a
+// dispatch by shape between two kernels, not a fallback.  The scale is
+// 1/sqrt(D) of the true D (the caller's).
 //
 // The launcher has a plain C interface (loaded with ctypes) and returns
 // the cudaError_t of the launch.
@@ -64,6 +71,7 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "convert.cuh"
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
 
@@ -72,6 +80,9 @@ namespace {
 using namespace hopper;
 using mma::bf16;
 using mma::pack_bf16;
+using cvt::from_f32;
+using cvt::round_to;
+using cvt::to_f32;
 
 constexpr float NEG_INF = -1e30f;
 
@@ -415,10 +426,10 @@ constexpr int NT = 256;       // threads per block: a 16 x 16 grid
 constexpr int TR = BQ / 16;   // score rows per thread
 constexpr int TC = BK / 16;   // score columns per thread
 
-template <int D>
-__global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
-    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
-    float* __restrict__ o, float* __restrict__ lse,
+template <typename T, int D>
+__global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    T* __restrict__ o, float* __restrict__ lse,
     int H, int KV, int Sq, int Sk, int Dt,
     int64_t q_sb, int64_t q_ss, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -441,14 +452,14 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
   const int tx = tid % 16;      // column group; the 16 lanes of a half warp
   const int ty = tid / 16;      // row group
 
-  const float* qb = q + b * q_sb + h * q_sh;
-  const float* kb = k + b * k_sb + kvh * k_sh;
-  const float* vb = v + b * v_sb + kvh * v_sh;
+  const T* qb = q + b * q_sb + h * q_sh;
+  const T* kb = k + b * k_sb + kvh * k_sh;
+  const T* vb = v + b * v_sb + kvh * v_sh;
 
   for (int idx = tid; idx < BQ * D; idx += NT) {
     const int r = idx / D, d = idx % D;
     const int qi = q0 + r;
-    Qs[r * DP + d] = qi < Sq && d < Dt ? qb[qi * q_ss + d] : 0.f;
+    Qs[r * DP + d] = qi < Sq && d < Dt ? to_f32(qb[qi * q_ss + d]) : 0.f;
   }
 
   float m[TR], l[TR], acc[TR][DC];
@@ -474,8 +485,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
       const int r = idx / D, d = idx % D;
       const int ki = k0 + r;
       const bool ok = ki < Sk && d < Dt;
-      Ks[r * DP + d] = ok ? kb[ki * k_ss + d] : 0.f;
-      Vs[r * D + d] = ok ? vb[ki * v_ss + d] : 0.f;
+      Ks[r * DP + d] = ok ? to_f32(kb[ki * k_ss + d]) : 0.f;
+      Vs[r * D + d] = ok ? to_f32(vb[ki * v_ss + d]) : 0.f;
     }
     __syncthreads();
 
@@ -519,8 +530,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
 #pragma unroll
       for (int c = 0; c < TC; ++c) {
         const float p = expf(s[i][c] - m_new);
-        ps += p;
-        Ps[(ty * TR + i) * (BK + 1) + tx + 16 * c] = p;
+        ps += p;  // l sums the unrounded p; P V takes p rounded to V's dtype
+        Ps[(ty * TR + i) * (BK + 1) + tx + 16 * c] = round_to<T>(p);
       }
 #pragma unroll
       for (int off = 8; off > 0; off >>= 1)
@@ -551,10 +562,10 @@ __global__ void __launch_bounds__(NT) flash_fwd_f32_kernel(
     const int qi = q0 + ty * TR + i;
     if (qi >= Sq) continue;
     const float ls = fmaxf(l[i], 1e-30f);
-    float* orow = o + b * o_sb + qi * o_ss + h * o_sh;
+    T* orow = o + b * o_sb + qi * o_ss + h * o_sh;
 #pragma unroll
     for (int c = 0; c < DC; ++c)
-      if (tx + 16 * c < Dt) orow[tx + 16 * c] = acc[i][c] / ls;
+      if (tx + 16 * c < Dt) orow[tx + 16 * c] = from_f32<T>(acc[i][c] / ls);
     if (tx == 0) lse[((int64_t)b * H + h) * Sq + qi] = m[i] + logf(ls);
   }
 }
@@ -568,15 +579,15 @@ struct Args {
   float scale;
 };
 
-template <int D>
-cudaError_t launch_f32(const Args& a, int B, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t launch_simt(const Args& a, int B, cudaStream_t stream) {
   const int smem = sizeof(float) * (BQ * (D + 1) + BK * (D + 1) + BK * D + BQ * (BK + 1));
   static int cap[64];
-  cudaError_t err = hopper::smem_cap((const void*)flash_fwd_f32_kernel<D>, smem, cap);
+  cudaError_t err = hopper::smem_cap((const void*)flash_fwd_simt_kernel<T, D>, smem, cap);
   if (err != cudaSuccess) return err;
   dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
-  flash_fwd_f32_kernel<D><<<grid, NT, smem, stream>>>(
-      (const float*)a.q, (const float*)a.k, (const float*)a.v, (float*)a.o, (float*)a.lse,
+  flash_fwd_simt_kernel<T, D><<<grid, NT, smem, stream>>>(
+      (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, (float*)a.lse,
       a.H, a.KV, a.Sq, a.Sk, a.D, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh,
       a.v_sb, a.v_ss, a.v_sh, a.o_sb, a.o_ss, a.o_sh, a.causal, a.q_offset, a.scale);
   return cudaGetLastError();
@@ -606,13 +617,22 @@ cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// the CUDA-core kernel's build for head dim D: 64, 128 or 256
+template <typename T>
+cudaError_t simt_by_dim(const Args& a, int B, cudaStream_t st) {
+  if (a.D <= 64) return launch_simt<T, 64>(a, B, st);
+  if (a.D <= 128) return launch_simt<T, 128>(a, B, st);
+  return launch_simt<T, 256>(a, B, st);
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 1 <= D <= 128
-// (bf16: D % 8 == 0), run on the D = 64 build up to 64 and on the D = 128
-// build above.  Strides are in elements; the last dim of every operand is
-// contiguous.  bf16 rows must start on 16-byte boundaries (checked by the
-// caller).
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 1 <= D <= 256.
+// bf16 with D % 8 == 0 and D <= 128 runs on the tensor cores (the D = 64
+// build up to 64, the D = 128 build above), and its rows must start on
+// 16-byte boundaries (checked by the caller); every other case on the CUDA
+// cores (builds D = 64, 128, 256).  Strides are in elements; the last dim
+// of every operand is contiguous.
 extern "C" int flash_attention_fwd(
     int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
     int B, int H, int KV, int Sq, int Sk, int D,
@@ -624,9 +644,9 @@ extern "C" int flash_attention_fwd(
   const Args a{q, k, v, o, lse, H, KV, Sq, Sk, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (D < 1 || D > 128 || (dtype == 1 && D % 8)) return (int)cudaErrorInvalidValue;
-  const bool wide = D > 64;
-  if (dtype == 0) return (int)(wide ? launch_f32<128>(a, B, st) : launch_f32<64>(a, B, st));
-  if (dtype == 1) return (int)(wide ? launch_bf16<128>(a, B, st) : launch_bf16<64>(a, B, st));
-  return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return (int)simt_by_dim<float>(a, B, st);
+  if (dtype != 1) return (int)cudaErrorInvalidValue;
+  if (D % 8 || D > 128) return (int)simt_by_dim<bf16>(a, B, st);
+  return (int)(D > 64 ? launch_bf16<128>(a, B, st) : launch_bf16<64>(a, B, st));
 }

@@ -80,15 +80,21 @@
 //     masked p = 0, P rounded to do's dtype for dV, dS rounded to q's dtype
 //     for dK and to k's dtype for dQ, f32 sums; p = 2^(s scale log2 e - lse
 //     log2 e) on the special-function unit;
-//   * head dims: built for a padded D of 64 or 128, taking any D up to it
-//     (bf16: D % 8 == 0).  The tensor maps' first dim is the true D, so TMA
-//     fills the columns past it with zeros and the stores write D columns;
-//     the f32 kernels mask their loads and stores;
+//   * head dims: the tensor-core pair is built for a padded D of 64 or 128,
+//     taking any bf16 D up to it with D % 8 == 0.  The tensor maps' first
+//     dim is the true D, so TMA fills the columns past it with zeros and
+//     the stores write D columns; the CUDA-core pair (below) masks its
+//     loads and stores;
 //   * bitwise repeatable: no atomics; every sum runs in a fixed order.
 //
-// f32: the same passes on the CUDA cores (SIMT), since TF32 would round the
-// operands: one block per (32-key tile, KV head, batch row) walking its
-// group's query heads, and one per (32-row q tile, head, batch row).
+// CUDA cores (`dkdv_simt_kernel`, `dq_simt_kernel`): f32, since TF32 would
+// round the operands, and the bf16 head dims the tensor-core pair cannot
+// take (D % 8 != 0, or 128 < D <= 256).  The same passes in f32 SIMT: one
+// block per (32-key tile, KV head, batch row) walking its group's query
+// heads, and one per (32-row q tile, head, batch row); built for D = 64,
+// 128 and 256 (~140 KB of shared memory at 256).  bf16 is widened on load,
+// P and dS rounded to bf16 where the TPU kernels round them, and the
+// gradients rounded on store; the GQA group sum of dK and dV stays in f32.
 //
 // The launchers have a plain C interface (loaded with ctypes) and return
 // the cudaError_t of the launch.
@@ -98,6 +104,7 @@
 #include <cuda_bf16.h>
 #include <stdint.h>
 
+#include "convert.cuh"
 #include "hopper.cuh"
 #include "mma_bf16.cuh"
 
@@ -106,6 +113,9 @@ namespace {
 using namespace hopper;
 using mma::bf16;
 using mma::pack_bf16;
+using cvt::from_f32;
+using cvt::round_to;
+using cvt::to_f32;
 
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
@@ -684,21 +694,21 @@ constexpr int FB = 32;    // rows of every tile (keys or queries)
 constexpr int FT = 256;   // threads per block: a 16 x 16 grid; thread (ty, tx)
                           // owns rows 2 ty, 2 ty + 1 and columns tx + 16 c
 
-// load rows [row0, row0 + FB) of a [rows, Dt] f32 operand into shared
-// memory with row stride D + 1 (D >= Dt, the build's head dim); rows at or
+// load rows [row0, row0 + FB) of a [rows, Dt] operand into shared memory
+// as f32 with row stride D + 1 (D >= Dt, the build's head dim); rows at or
 // past `nrows` and columns at or past Dt become zero
-template <int D>
-__device__ __forceinline__ void load_f32(float* dst, const float* src, int64_t stride,
-                                         int row0, int nrows, int Dt) {
+template <typename T, int D>
+__device__ __forceinline__ void load_f32(float* dst, const T* src, int64_t stride, int row0,
+                                         int nrows, int Dt) {
   for (int idx = threadIdx.x; idx < FB * D; idx += FT) {
     const int r = idx / D, d = idx % D;
     const int gr = row0 + r;
-    dst[r * (D + 1) + d] = gr < nrows && d < Dt ? src[gr * stride + d] : 0.f;
+    dst[r * (D + 1) + d] = gr < nrows && d < Dt ? to_f32(src[gr * stride + d]) : 0.f;
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(FT) dkdv_f32_kernel(const Args a) {
+template <typename T, int D>
+__global__ void __launch_bounds__(FT) dkdv_simt_kernel(const Args a) {
   constexpr int DP = D + 1;     // padded row: conflict-free column reads
   constexpr int DC = D / 16;    // output columns per thread
   constexpr int PP = FB + 1;
@@ -717,13 +727,13 @@ __global__ void __launch_bounds__(FT) dkdv_f32_kernel(const Args a) {
   const int b = blockIdx.z;
   const int G = a.H / a.KV;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* q = static_cast<const float*>(a.q);
-  const float* dout = static_cast<const float*>(a.dout);
+  const T* q = static_cast<const T*>(a.q);
+  const T* dout = static_cast<const T*>(a.dout);
 
-  load_f32<D>(Ks, static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh, a.k_ss, k0, a.Sk,
-              a.D);
-  load_f32<D>(Vs, static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.v_ss, k0, a.Sk,
-              a.D);
+  load_f32<T, D>(Ks, static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh, a.k_ss, k0, a.Sk,
+                 a.D);
+  load_f32<T, D>(Vs, static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.v_ss, k0, a.Sk,
+                 a.D);
   float dka[2][DC], dva[2][DC];
 #pragma unroll
   for (int r = 0; r < 2; ++r)
@@ -737,8 +747,8 @@ __global__ void __launch_bounds__(FT) dkdv_f32_kernel(const Args a) {
     for (int i = first_q_tile(a.causal, a.q_offset, k0, FB); i < n_q; ++i) {
       const int q0 = i * FB;
       __syncthreads();  // the previous step's tiles are consumed
-      load_f32<D>(Qs, q + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.Sq, a.D);
-      load_f32<D>(Ds, dout + b * a.do_sb + h * a.do_sh, a.do_ss, q0, a.Sq, a.D);
+      load_f32<T, D>(Qs, q + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.Sq, a.D);
+      load_f32<T, D>(Ds, dout + b * a.do_sb + h * a.do_sh, a.do_ss, q0, a.Sq, a.D);
       if (threadIdx.x < FB) {
         const int qi = q0 + threadIdx.x;
         Ls[threadIdx.x] = qi < a.Sq ? a.lse[row + qi] : 0.f;
@@ -771,8 +781,9 @@ __global__ void __launch_bounds__(FT) dkdv_f32_kernel(const Args a) {
           if (a.causal && kpos > a.q_offset + qi) x = NEG_INF;
           float p = expf(x - Ls[col]);
           if (qi >= a.Sq || kpos >= a.Sk) p = 0.f;
-          Pt[(2 * ty + r) * PP + col] = p;
-          St[(2 * ty + r) * PP + col] = p * (dp[r][c] - Es[col]) * a.scale;
+          // P in do's dtype for dV, dS in q's dtype for dK
+          Pt[(2 * ty + r) * PP + col] = round_to<T>(p);
+          St[(2 * ty + r) * PP + col] = round_to<T>(p * (dp[r][c] - Es[col]) * a.scale);
         }
       }
       __syncthreads();
@@ -792,8 +803,8 @@ __global__ void __launch_bounds__(FT) dkdv_f32_kernel(const Args a) {
     }
   }
 
-  float* dk = static_cast<float*>(a.dk);
-  float* dv = static_cast<float*>(a.dv);
+  T* dk = static_cast<T*>(a.dk);
+  T* dv = static_cast<T*>(a.dv);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int kr = k0 + 2 * ty + r;
@@ -801,14 +812,14 @@ __global__ void __launch_bounds__(FT) dkdv_f32_kernel(const Args a) {
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
       if (tx + 16 * c >= a.D) continue;
-      dk[b * a.dk_sb + kr * a.dk_ss + kvh * a.dk_sh + tx + 16 * c] = dka[r][c];
-      dv[b * a.dv_sb + kr * a.dv_ss + kvh * a.dv_sh + tx + 16 * c] = dva[r][c];
+      dk[b * a.dk_sb + kr * a.dk_ss + kvh * a.dk_sh + tx + 16 * c] = from_f32<T>(dka[r][c]);
+      dv[b * a.dv_sb + kr * a.dv_ss + kvh * a.dv_sh + tx + 16 * c] = from_f32<T>(dva[r][c]);
     }
   }
 }
 
-template <int D>
-__global__ void __launch_bounds__(FT) dq_f32_kernel(const Args a) {
+template <typename T, int D>
+__global__ void __launch_bounds__(FT) dq_simt_kernel(const Args a) {
   constexpr int DP = D + 1;
   constexpr int DC = D / 16;
   constexpr int PP = FB + 1;
@@ -826,13 +837,13 @@ __global__ void __launch_bounds__(FT) dq_f32_kernel(const Args a) {
   const int b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-  const float* kb = static_cast<const float*>(a.k) + b * a.k_sb + kvh * a.k_sh;
-  const float* vb = static_cast<const float*>(a.v) + b * a.v_sb + kvh * a.v_sh;
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
-  load_f32<D>(Qs, static_cast<const float*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.Sq,
-              a.D);
-  load_f32<D>(Ds, static_cast<const float*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss, q0,
-              a.Sq, a.D);
+  load_f32<T, D>(Qs, static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.Sq,
+                 a.D);
+  load_f32<T, D>(Ds, static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss, q0,
+                 a.Sq, a.D);
   if (threadIdx.x < FB) {
     const int qi = q0 + threadIdx.x;
     const int64_t row = ((int64_t)b * a.H + h) * a.Sq;
@@ -849,8 +860,8 @@ __global__ void __launch_bounds__(FT) dq_f32_kernel(const Args a) {
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * FB;
     __syncthreads();  // the previous tile's Ks, Vs and Sm are consumed
-    load_f32<D>(Ks, kb, a.k_ss, k0, a.Sk, a.D);
-    load_f32<D>(Vs, vb, a.v_ss, k0, a.Sk, a.D);
+    load_f32<T, D>(Ks, kb, a.k_ss, k0, a.Sk, a.D);
+    load_f32<T, D>(Vs, vb, a.v_ss, k0, a.Sk, a.D);
     __syncthreads();
 
     float s[2][2] = {}, dp[2][2] = {};
@@ -878,7 +889,7 @@ __global__ void __launch_bounds__(FT) dq_f32_kernel(const Args a) {
         if (a.causal && kpos > a.q_offset + qi) x = NEG_INF;
         float p = expf(x - Ls[qr]);
         if (qi >= a.Sq || kpos >= a.Sk) p = 0.f;
-        Sm[qr * PP + tx + 16 * c] = p * (dp[r][c] - Es[qr]) * a.scale;
+        Sm[qr * PP + tx + 16 * c] = round_to<T>(p * (dp[r][c] - Es[qr]) * a.scale);  // k's dtype
       }
     }
     __syncthreads();
@@ -894,7 +905,7 @@ __global__ void __launch_bounds__(FT) dq_f32_kernel(const Args a) {
     }
   }
 
-  float* dq = static_cast<float*>(a.dq);
+  T* dq = static_cast<T*>(a.dq);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int qi = q0 + 2 * ty + r;
@@ -902,7 +913,7 @@ __global__ void __launch_bounds__(FT) dq_f32_kernel(const Args a) {
 #pragma unroll
     for (int c = 0; c < DC; ++c)
       if (tx + 16 * c < a.D)
-        dq[b * a.dq_sb + qi * a.dq_ss + h * a.dq_sh + tx + 16 * c] = dqa[r][c];
+        dq[b * a.dq_sb + qi * a.dq_ss + h * a.dq_sh + tx + 16 * c] = from_f32<T>(dqa[r][c]);
   }
 }
 
@@ -964,42 +975,59 @@ cudaError_t dq_bf16(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dkdv_f32(const Args& a, int B, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t dkdv_simt(const Args& a, int B, cudaStream_t stream) {
   const int smem = sizeof(float) * (4 * FB * (D + 1) + 2 * FB * (FB + 1) + 2 * FB);
   static int cap[64];
-  cudaError_t err = smem_cap((const void*)dkdv_f32_kernel<D>, smem, cap);
+  cudaError_t err = smem_cap((const void*)dkdv_simt_kernel<T, D>, smem, cap);
   if (err != cudaSuccess) return err;
-  dkdv_f32_kernel<D><<<dim3((a.Sk + FB - 1) / FB, a.KV, B), FT, smem, stream>>>(a);
+  dkdv_simt_kernel<T, D><<<dim3((a.Sk + FB - 1) / FB, a.KV, B), FT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-template <int D>
-cudaError_t dq_f32(const Args& a, int B, cudaStream_t stream) {
+template <typename T, int D>
+cudaError_t dq_simt(const Args& a, int B, cudaStream_t stream) {
   const int smem = sizeof(float) * (4 * FB * (D + 1) + FB * (FB + 1) + 2 * FB);
   static int cap[64];
-  cudaError_t err = smem_cap((const void*)dq_f32_kernel<D>, smem, cap);
+  cudaError_t err = smem_cap((const void*)dq_simt_kernel<T, D>, smem, cap);
   if (err != cudaSuccess) return err;
-  dq_f32_kernel<D><<<dim3((a.Sq + FB - 1) / FB, a.H, B), FT, smem, stream>>>(a);
+  dq_simt_kernel<T, D><<<dim3((a.Sq + FB - 1) / FB, a.H, B), FT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// the head dims a build takes: D <= 64 on the D = 64 build, up to 128 on
-// the D = 128 one; bf16 rows need D % 8 == 0 (TMA's 16-byte strides)
-bool takes(int dtype, int D, int H, int KV) {
-  return (dtype == 0 || dtype == 1) && D >= 1 && D <= 128 && (dtype == 0 || D % 8 == 0) &&
-         KV > 0 && H % KV == 0;
+// the CUDA-core pair's build for head dim D (64, 128 or 256)
+template <typename T>
+cudaError_t dkdv_simt_by_dim(const Args& a, int B, cudaStream_t st) {
+  if (a.D <= 64) return dkdv_simt<T, 64>(a, B, st);
+  if (a.D <= 128) return dkdv_simt<T, 128>(a, B, st);
+  return dkdv_simt<T, 256>(a, B, st);
 }
+
+template <typename T>
+cudaError_t dq_simt_by_dim(const Args& a, int B, cudaStream_t st) {
+  if (a.D <= 64) return dq_simt<T, 64>(a, B, st);
+  if (a.D <= 128) return dq_simt<T, 128>(a, B, st);
+  return dq_simt<T, 256>(a, B, st);
+}
+
+bool takes(int dtype, int D, int H, int KV) {
+  return (dtype == 0 || dtype == 1) && D >= 1 && D <= 256 && KV > 0 && H % KV == 0;
+}
+
+// the tensor-core pair takes bf16 with D % 8 == 0 (TMA's 16-byte strides)
+// up to its D = 128 build; the CUDA-core pair takes everything else
+bool on_tensor_cores(int dtype, int D) { return dtype == 1 && D % 8 == 0 && D <= 128; }
 
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the gradients share
-// it); 1 <= D <= 128 (bf16: D % 8 == 0).  Strides are in elements, in the
-// order batch, seq, head; the last dim of every operand is contiguous, and
-// bf16 bases and strides are 16-byte aligned (checked by the caller).  lse
-// and delta are f32 [B*H, Sq], contiguous.  `split` (bf16 only; 1, 2, 4 or
-// 8): the blocks of a thread-block cluster that share one 128-key tile,
-// each taking every split-th query head of the group.
+// it); 1 <= D <= 256.  bf16 with D % 8 == 0 and D <= 128 runs on the tensor
+// cores, with bases and strides 16-byte aligned (checked by the caller);
+// every other case on the CUDA cores.  Strides are in elements, in the
+// order batch, seq, head; the last dim of every operand is contiguous.  lse
+// and delta are f32 [B*H, Sq], contiguous.  `split` (1, 2, 4 or 8; used on
+// the tensor cores only): the blocks of a thread-block cluster that share
+// one 128-key tile, each taking every split-th query head of the group.
 extern "C" int flash_attention_bwd_dkdv(
     int dtype, const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dk, void* dv,
@@ -1017,9 +1045,9 @@ extern "C" int flash_attention_bwd_dkdv(
   cudaStream_t st = (cudaStream_t)stream;
   if (!takes(dtype, D, H, KV) || (split != 1 && split != 2 && split != 4 && split != 8))
     return (int)cudaErrorInvalidValue;
-  const bool wide = D > 64;
-  if (dtype == 0) return (int)(wide ? dkdv_f32<128>(a, B, st) : dkdv_f32<64>(a, B, st));
-  return (int)(wide ? dkdv_bf16<128>(a, B, split, st) : dkdv_bf16<64>(a, B, split, st));
+  if (dtype == 0) return (int)dkdv_simt_by_dim<float>(a, B, st);
+  if (!on_tensor_cores(dtype, D)) return (int)dkdv_simt_by_dim<bf16>(a, B, st);
+  return (int)(D > 64 ? dkdv_bf16<128>(a, B, split, st) : dkdv_bf16<64>(a, B, split, st));
 }
 
 extern "C" int flash_attention_bwd_dq(
@@ -1037,7 +1065,7 @@ extern "C" int flash_attention_bwd_dq(
                dq_sb, dq_ss, dq_sh, 0, 0, 0, 0, 0, 0, causal, q_offset, scale};
   cudaStream_t st = (cudaStream_t)stream;
   if (!takes(dtype, D, H, KV)) return (int)cudaErrorInvalidValue;
-  const bool wide = D > 64;
-  if (dtype == 0) return (int)(wide ? dq_f32<128>(a, B, st) : dq_f32<64>(a, B, st));
-  return (int)(wide ? dq_bf16<128>(a, B, st) : dq_bf16<64>(a, B, st));
+  if (dtype == 0) return (int)dq_simt_by_dim<float>(a, B, st);
+  if (!on_tensor_cores(dtype, D)) return (int)dq_simt_by_dim<bf16>(a, B, st);
+  return (int)(D > 64 ? dq_bf16<128>(a, B, st) : dq_bf16<64>(a, B, st));
 }

@@ -6,9 +6,11 @@ layouts and counts its launches in ``flash_attention_fwd.launches``.  The
 plain version is ``ref.flash_attention_ref``; ``ops.flash_attention``
 chooses between the two by the tensors' device.
 
-The kernels (forward and backward) are built for a head dim of 64 or 128
-and take every D up to it: ``padded_head_dim`` says which build runs, and
-refuses D > 128 and, in bf16, a D that is not a multiple of 8.
+The kernels (forward and backward) take every head dim up to 256.  Two
+kernels serve each pass, chosen by shape (``route``): the tensor-core one
+(TMA, wgmma) for bf16 with D % 8 == 0 up to 128, the CUDA-core one for f32
+and for every other bf16 D; ``padded_head_dim`` says which build of it runs
+and refuses D > 256.
 """
 
 from __future__ import annotations
@@ -20,20 +22,28 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 128
+MAX_HEAD_DIM = 256
+MAX_TENSOR_CORE_HEAD_DIM = 128
+
+
+def route(D: int, dtype: torch.dtype) -> str:
+    """Which kernel of a flash pass runs head dim ``D``: ``"wgmma"`` (the
+    tensor cores, through TMA tensor maps) for bf16 with D % 8 == 0 (16-byte
+    row strides) and D <= 128, else ``"simt"`` (the CUDA cores), f32
+    included.  A dispatch by shape between two kernels, not a fallback."""
+    if dtype == torch.bfloat16 and D % 8 == 0 and D <= MAX_TENSOR_CORE_HEAD_DIM:
+        return "wgmma"
+    return "simt"
 
 
 def padded_head_dim(D: int, dtype: torch.dtype) -> int:
     """The head dim of the kernel build that runs ``D``: 64 for D <= 64, 128
-    up to 128; the columns past D are zeros in the kernels' tiles.  Raises
-    ``ValueError`` for D > 128 and, in bf16, for D % 8 != 0 (the tensor
-    maps need 16-byte strides)."""
+    up to 128 and (on the CUDA cores) 256 up to 256; the columns past D are
+    zeros in the kernels' tiles.  Raises ``ValueError`` for D outside
+    1..256."""
     if not 1 <= D <= MAX_HEAD_DIM:
         raise ValueError(f"head_dim {D}: the flash kernels take 1 <= D <= {MAX_HEAD_DIM}")
-    if dtype == torch.bfloat16 and D % 8:
-        raise ValueError(f"head_dim {D}: the bf16 flash kernels take D % 8 == 0 (TMA reads "
-                         "rows with 16-byte strides)")
-    return 64 if D <= 64 else MAX_HEAD_DIM
+    return 64 if D <= 64 else 128 if D <= 128 else 256
 
 
 def _lib():
@@ -73,16 +83,18 @@ def _check(q, k, v):
     padded_head_dim(D, q.dtype)
     if q.stride(3) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
-    if q.dtype == torch.bfloat16 and not all(tma_aligned(t) for t in (q, k, v)):
+    if route(D, q.dtype) == "wgmma" and not all(tma_aligned(t) for t in (q, k, v)):
         raise ValueError("bf16 q, k and v need 16-byte aligned bases and strides "
                          "(the tensor-core kernel loads them through TMA tensor maps)")
 
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
-    """q [B, Sq, H, D]; k, v [B, Sk, KV, D] (CUDA, f32 or bf16, any strides
-    with a contiguous last dim; bf16 bases and strides 16-byte aligned) ->
-    (o [B, Sq, H, D] in q's dtype, lse [B*H, Sq] f32).  bf16 runs on the
-    tensor cores (wgmma, TMA, warp specialisation), f32 on the CUDA cores."""
+    """q [B, Sq, H, D]; k, v [B, Sk, KV, D] (CUDA, f32 or bf16, 1 <= D <=
+    256, any strides with a contiguous last dim; on the tensor-core route,
+    bases and strides 16-byte aligned) -> (o [B, Sq, H, D] in q's dtype,
+    lse [B*H, Sq] f32).  ``route`` says which kernel runs: bf16 on the
+    tensor cores (wgmma, TMA, warp specialisation) where D allows, the rest
+    on the CUDA cores."""
     _check(q, k, v)
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")

@@ -11,10 +11,11 @@ Two kernels, each with its wrapper and launch counter:
 The plain version is ``ref.flash_attention_bwd_ref``; ``ops.
 flash_attention_trainable`` chooses between the two by the tensors' device.
 
-The bf16 dK/dV kernel gives each block 128 keys of one KV head and splits
-the KV head's query heads over the ``dkdv_split`` blocks of a thread-block
-cluster, which sum their partial dK and dV in a fixed order;
-``dkdv_steps`` lists each block's (query head, 64-row q tile) steps.
+The tensor-core dK/dV kernel (``flash_attention.route``) gives each block
+128 keys of one KV head and splits the KV head's query heads over the
+``dkdv_split`` blocks of a thread-block cluster, which sum their partial dK
+and dV in a fixed order; ``dkdv_steps`` lists each block's (query head,
+64-row q tile) steps.
 """
 
 from __future__ import annotations
@@ -25,7 +26,7 @@ import torch
 
 from . import _build
 from .decode_attention import _sm_count
-from .flash_attention import _DTYPES, _check, tma_aligned
+from .flash_attention import _DTYPES, _check, route, tma_aligned
 
 _INT64_STRIDES = 18  # batch, seq, head strides of the six (dkdv) tensors
 KV_TILE = 128  # keys per dK/dV block (64 per consumer warpgroup)
@@ -75,8 +76,9 @@ def dkdv_steps(B: int, KV: int, G: int, Sq: int, Sk: int, causal: bool, q_offset
 
 
 def _aligned(t) -> bool:
-    """A contiguous last dim and, in bf16, 16-byte aligned rows."""
-    return t.stride(3) == 1 and (t.dtype != torch.bfloat16 or tma_aligned(t))
+    """A contiguous last dim and, on the tensor-core route, 16-byte aligned
+    rows."""
+    return t.stride(3) == 1 and (route(t.shape[3], t.dtype) != "wgmma" or tma_aligned(t))
 
 
 def _check_bwd(q, k, v, do, lse, delta, q_offset):
@@ -87,7 +89,8 @@ def _check_bwd(q, k, v, do, lse, delta, q_offset):
         raise ValueError(f"do {tuple(do.shape)} {do.dtype} must match q {tuple(q.shape)} "
                          f"{q.dtype} on {q.device}")
     if not _aligned(do):
-        raise ValueError("do needs a contiguous head dim and, in bf16, 16-byte aligned rows")
+        raise ValueError("do needs a contiguous head dim and, on the tensor cores, 16-byte "
+                         "aligned rows")
     B, Sq, H, _ = q.shape
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.shape != (B * H, Sq) or t.dtype != torch.float32 or not t.is_contiguous()
@@ -111,15 +114,16 @@ def _launch(fn, args, what: str):
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
                              q_offset: int = 0):
     """q, do [B, Sq, H, D]; k, v [B, Sk, KV, D]; lse, delta [B*H, Sq] f32 (CUDA;
-    f32 or bf16, contiguous last dim, bf16 rows 16-byte aligned) -> (dk, dv)
-    [B, Sk, KV, D] in k's dtype, summed over each KV head's query group."""
+    f32 or bf16, 1 <= D <= 256, contiguous last dim, rows 16-byte aligned on
+    the tensor-core route) -> (dk, dv) [B, Sk, KV, D] in k's dtype, summed
+    over each KV head's query group."""
     _check_bwd(q, k, v, do, lse, delta, q_offset)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
     dk = torch.empty((B, Sk, KV, D), dtype=k.dtype, device=k.device)
     dv = torch.empty((B, Sk, KV, D), dtype=v.dtype, device=v.device)
     split = 1
-    if q.dtype == torch.bfloat16:
+    if route(D, q.dtype) == "wgmma":
         split = dkdv_split(B, KV, H // KV, Sk, _sm_count(q.device.index))
     fn = _fn("flash_attention_bwd_dkdv", 8, _INT64_STRIDES, 1)
     _launch(fn, [_DTYPES[q.dtype], q, k, v, do, lse, delta, dk, dv, B, H, KV, Sq, Sk, D,

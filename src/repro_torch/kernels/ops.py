@@ -1,6 +1,9 @@
 """Public kernel ops in the model layouts, counterpart of
 ``repro.kernels.ops`` (``flash_attention``, ``flash_attention_trainable``,
-``decode_attention``, ``prefetch_gather``, ``rglru_scan``, ``mamba_scan``).
+``decode_attention``, ``prefetch_gather``, ``rglru_scan``, ``mamba_scan``),
+and the two fused scans the recurrent models run: ``selective_scan`` (the
+JAX model's ``repro.models.ssm.selective_scan``) and ``rglru_gated_scan``
+(``repro.models.rglru.rglru_scan``).
 
 Each op chooses by the device of the tensors it is given: a CPU tensor
 takes the plain PyTorch version (``ref``), a CUDA tensor the hand-written
@@ -18,7 +21,8 @@ from .flash_attention import flash_attention_fwd
 from .flash_attention_bwd import attention_delta, flash_attention_bwd
 from .mamba_scan import mamba_scan_fwd
 from .prefetch_gather import prefetch_gather_fwd
-from .rglru_scan import rglru_scan_fwd
+from .rglru_scan import rglru_gated_fwd, rglru_scan_fwd
+from .selective_scan import selective_scan_fwd
 
 
 def flash_attention(q, k, v, *, causal=True, q_offset=0, with_lse=False):
@@ -110,3 +114,30 @@ def mamba_scan(dA, dBu, C, h0=None, with_state=False):
     if dA.is_cuda:
         return mamba_scan_fwd(dA, dBu, C, h0, with_state)
     return ref.mamba_scan_ref(dA, dBu, C, h0, with_state)
+
+
+def selective_scan(u, dt, A, B_ssm, C_ssm, D, h0=None, *, h_out=None):
+    """The mamba-1 selective scan with its discretisation: u, dt [B, S, Ch];
+    A [Ch, N] f32; B_ssm, C_ssm [B, S, N]; D [Ch] f32; h0 [B, Ch, N] f32 or
+    None (zeros) -> (y [B, S, Ch] in u's dtype, h_S [B, Ch, N] f32).  With
+    ``h_out`` the last state is written there (it may be ``h0``: updated in
+    place, as the model's decode does with its cache).
+
+    On the card dA = exp(dt A) and dBu = (dt u) B are formed inside the
+    kernel, per step, as the JAX model forms them inside its ``lax.scan``;
+    ``mamba_scan`` is the TPU kernel's contract, with both materialised."""
+    if u.is_cuda:
+        return selective_scan_fwd(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h_out)
+    return ref.selective_scan_ref(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h_out)
+
+
+def rglru_gated_scan(x, r, i, lam, h0=None):
+    """The RG-LRU with its gates: x, r, i [B, S, W]; lam [W]; h0 [B, W] f32 or
+    None (zeros) -> (y [B, S, W] in x's dtype, h_S [B, W] f32), with a_t =
+    exp(-8 softplus(lam) r_t) and h_t = a_t h_{t-1} + sqrt(1 - a_t^2)
+    (i_t x_t).  On the card the gates are formed inside the kernel; the
+    decay coefficient -8 softplus(lam) is formed here with the plain
+    version's ops, so both round it alike."""
+    if x.is_cuda:
+        return rglru_gated_fwd(x, r, i, ref.rglru_decay(lam), h0)
+    return ref.rglru_gated_scan_ref(x, r, i, lam, h0)

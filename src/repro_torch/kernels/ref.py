@@ -2,7 +2,10 @@
 is held against on the card, and what the kernel wrappers run for tensors
 on the CPU.  Counterpart of ``repro.kernels.ref`` (the two attention
 oracles, the flash-attention backward, the row gather and the two scans),
-with the same layouts and the same rounding points."""
+with the same layouts and the same rounding points; and the plain versions
+of the two fused scan kernels, which compute the JAX models' own
+``selective_scan`` (``repro.models.ssm``) and ``rglru_scan``
+(``repro.models.rglru``)."""
 
 from __future__ import annotations
 
@@ -119,6 +122,66 @@ def rglru_scan_ref(a, g, h0=None):
     if not ys:
         return torch.empty_like(a)
     return torch.stack(ys, dim=-2).to(a.dtype)
+
+
+RGLRU_C = 8.0  # log a_t = -8 softplus(lam) r_t
+
+
+def softplus(x):
+    """``jax.nn.softplus``: log(1 + exp(x)) as ``logaddexp(x, 0)``, with no
+    linear cut-off (``F.softplus`` returns x above 20)."""
+    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def rglru_decay(lam):
+    """c = -8 softplus(lam) [W] f32, so that log a_t = c * r_t: the factor the
+    fused RG-LRU kernel takes, formed with the plain version's own ops."""
+    return -RGLRU_C * softplus(lam.float())
+
+
+def rglru_gated_scan_ref(x, r, i, lam, h0=None):
+    """The JAX model's ``rglru_scan``: x, r, i [B, S, W]; lam [W]; h0 [B, W]
+    f32 or None -> (y [B, S, W] in x's dtype, h_S [B, W] f32), with a =
+    exp(c r), g = f32(i x) sqrt(max(1 - a^2, 1e-12)) formed for the whole
+    call in f32, then ``rglru_scan_ref`` over them; the decay and the gated
+    input are f32, so the scan's f32 output at the last step is the final
+    state exactly."""
+    a = torch.exp(rglru_decay(lam) * r.float())
+    gated = (i * x).float() * torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
+    ys = rglru_scan_ref(a, gated, h0)
+    return ys.to(x.dtype), ys[:, -1]
+
+
+def selective_scan_ref(u, dt, A, B_ssm, C_ssm, D, h0=None, h_out=None):
+    """The JAX model's mamba-1 ``selective_scan``, one step at a time: u, dt
+    [B, S, Ch]; A [Ch, N]; B_ssm, C_ssm [B, S, N]; D [Ch]; h0 [B, Ch, N] f32
+    or None -> (y [B, S, Ch] in u's dtype, h_S [B, Ch, N] f32) with
+
+        h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) outer B_t
+        y_t = (h_t . C_t) + D * u_t
+
+    dA_t and dBu_t formed per step, never for the whole sequence; dt * u
+    rounded to the compute dtype first, as in JAX.  With ``h_out`` the last
+    state is also written there (it may be ``h0``: the model's decode
+    updates its cache in place) and returned."""
+    Bsz, S, Ch = u.shape
+    N = A.shape[1]
+    Af = A.float()
+    dtf = dt.float()
+    dtu = (dt * u).float()
+    Bf, Cf = B_ssm.float(), C_ssm.float()
+    h = torch.zeros((Bsz, Ch, N), dtype=torch.float32, device=u.device) if h0 is None else h0
+    steps = []
+    for t in range(S):
+        dA_t = torch.exp(dtf[:, t, :, None] * Af)  # [B, Ch, N]
+        h = dA_t * h + dtu[:, t, :, None] * Bf[:, t, None, :]
+        steps.append(torch.einsum("bcn,bn->bc", h, Cf[:, t]))
+    ys = (torch.stack(steps, dim=1) if steps
+          else torch.zeros((Bsz, 0, Ch), dtype=torch.float32, device=u.device))
+    y = ys + D.float() * u.float()
+    if h_out is not None:
+        h = h_out.copy_(h)
+    return y.to(u.dtype), h
 
 
 def mamba_scan_ref(dA, dBu, C, h0=None, with_state: bool = False):

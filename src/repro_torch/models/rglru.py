@@ -8,12 +8,12 @@ RG-LRU recurrence (Griffin / RecurrentGemma, arXiv:2402.19427):
   log a_t = -c * softplus(Lambda) * r_t        (c = 8)
   h_t = a_t * h_{t-1} + sqrt(1 - a_t^2) * (i_t * x_t)
 
-Dense [lru, lru] gate matrices, as in the JAX package.  The recurrence runs
-the CUDA ``rglru_scan`` kernel (``ops.rglru_scan``) where the config asks
-for the kernels (``attn_impl="pallas"``), the tensors lie on a CUDA device
-and autograd records nothing; otherwise its plain version
-(``ref.rglru_scan_ref``), the loop over time the JAX model runs.  Both
-compute the same function.
+Dense [lru, lru] gate matrices, as in the JAX package.  The recurrence and
+its gates run the fused CUDA RG-LRU kernel (``ops.rglru_gated_scan``) where
+the config asks for the kernels (``attn_impl="pallas"``), the tensors lie
+on a CUDA device and autograd records nothing; otherwise its plain version
+(``ref.rglru_gated_scan_ref``: the gates in eager f32 passes, then the loop
+over time the JAX model runs).  Both compute the same function.
 """
 
 from __future__ import annotations
@@ -24,24 +24,18 @@ import torch.nn.functional as F
 from repro_torch.kernels import ops, ref
 
 from .common import constrain
-from .ssm import depthwise_causal_conv, softplus, use_scan_kernel
-
-_C = 8.0
+from .ssm import depthwise_causal_conv, use_scan_kernel
 
 
 def rglru_scan(x, r, i, lam, h0=None, *, kernel: bool = False):
     """x, r, i: [B, S, W]; lam: [W]; h0 [B, W] f32 or None. Returns
     (y [B, S, W] in x's dtype, h_final [B, W] f32).
 
-    The decay ``a`` and the gated input are f32, so the scan's f32 output
-    at the last step is the final state exactly.  With ``kernel`` the scan
-    is ``ops.rglru_scan``, else its plain loop over time."""
-    log_a = -_C * softplus(lam.float()) * r.float()
-    a = torch.exp(log_a)
-    gated = (i * x).float() * torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12))
-    scan = ops.rglru_scan if kernel else ref.rglru_scan_ref
-    ys = scan(a, gated, h0)
-    return ys.to(x.dtype), ys[:, -1]
+    With ``kernel`` the gates and the scan are ``ops.rglru_gated_scan`` (on
+    the card: one kernel), else its plain version: the decay ``a`` and the
+    gated input in f32, then the loop over time."""
+    scan = ops.rglru_gated_scan if kernel else ref.rglru_gated_scan_ref
+    return scan(x, r, i, lam, h0)
 
 
 def recurrent_block(x, p, cfg, compute_dtype, conv_state=None, rec_state=None):

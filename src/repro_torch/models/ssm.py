@@ -1,12 +1,14 @@
 """Mamba-1 block (falcon-mamba-7b): depthwise causal conv and the selective
 scan.  Counterpart of ``repro.models.ssm``.
 
-The scan runs the CUDA ``mamba_scan`` kernel (``ops.mamba_scan``) where the
-config asks for the kernels (``attn_impl="pallas"``), the tensors lie on a
-CUDA device and autograd records nothing (the kernel has no backward);
-otherwise it runs the JAX model's recurrence, one step at a time.  Both
-compute the same function.  Decode is a single recurrence step carrying
-(conv_state, ssm_state).
+The scan runs the CUDA ``selective_scan`` kernel (``ops.selective_scan``,
+which forms the discretisation inside the kernel) where the config asks
+for the kernels (``attn_impl="pallas"``), the tensors lie on a CUDA device
+and autograd records nothing (the kernel has no backward); otherwise its
+plain version (``ref.selective_scan_ref``), the JAX model's recurrence one
+step at a time.  Both compute the same function.  Decode is a single
+recurrence step carrying (conv_state, ssm_state); the decode updates the
+cache's ssm state in place.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 from .common import constrain
 
@@ -25,12 +27,6 @@ def use_scan_kernel(cfg, *ts) -> bool:
     autograd records none of them."""
     return (cfg.attn_impl == "pallas" and ts[0].is_cuda
             and not (torch.is_grad_enabled() and any(t.requires_grad for t in ts)))
-
-
-def softplus(x):
-    """``jax.nn.softplus``: log(1 + exp(x)) as ``logaddexp(x, 0)``, with no
-    linear cut-off (``F.softplus`` returns x above 20)."""
-    return torch.logaddexp(x, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 def depthwise_causal_conv(x, w, b, state=None):
@@ -65,43 +61,26 @@ def selective_scan(u, dt, A, B_ssm, C_ssm, D, h0=None, *, kernel: bool = False):
     B_ssm  [B, S, N]
     C_ssm  [B, S, N]
     D      [C]
-    h0     [B, C, N] f32 initial state (decode) or None
+    h0     [B, C, N] f32 initial state (decode: the cache, updated in place) or None
 
     h_t = exp(dt_t * A) * h_{t-1} + (dt_t * u_t) outer B_t
     y_t = (h_t . C_t) + D * u_t
     returns (y [B, S, C] in u's dtype, h_final [B, C, N] f32).
 
-    With ``kernel`` the discretised dA = exp(dt * A) and dBu = (dt * u) * B
-    are formed in f32 for the whole call ([B, S, C, N] each: 1.07 GB apiece
-    at falcon-mamba-7b width, B=4, S=512) and ``ops.mamba_scan`` runs the
-    recurrence; without, dA_t and dBu_t are formed per step as in the JAX
-    model.  The values are the same."""
-    Bsz, S, C = u.shape
-    N = A.shape[1]
-    Af = A.float()
-    dtf = dt.float()
-    dtu = (dt * u).float()  # rounded to the compute dtype first, as in JAX
-    Bf, Cf = B_ssm.float(), C_ssm.float()
+    With ``kernel`` it runs ``ops.selective_scan`` (on the card: one kernel
+    that forms dA_t and dBu_t per step in registers), without it the plain
+    loop over time; both form dA_t and dBu_t per step, as the JAX model
+    does, and never the [B, S, C, N] tensors.  A given ``h0`` is the
+    decode's cache: the last state is written into it and returned."""
     if kernel:
-        dA = torch.exp(dtf[..., None] * Af)
-        dBu = dtu[..., None] * Bf[:, :, None, :]
-        ys, h = ops.mamba_scan(dA, dBu, Cf, h0=h0, with_state=True)
-        del dA, dBu
-    else:
-        h = torch.zeros((Bsz, C, N), dtype=torch.float32, device=u.device) if h0 is None else h0
-        steps = []
-        for t in range(S):
-            dA_t = torch.exp(dtf[:, t, :, None] * Af)  # [B, C, N]
-            h = dA_t * h + dtu[:, t, :, None] * Bf[:, t, None, :]
-            steps.append(torch.einsum("bcn,bn->bc", h, Cf[:, t]))
-        ys = torch.stack(steps, dim=1)
-    y = ys + D.float() * u.float()
-    return y.to(u.dtype), h
+        return ops.selective_scan(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h0)
+    return ref.selective_scan_ref(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h0)
 
 
 def mamba_block(x, p, cfg, compute_dtype, conv_state=None, ssm_state=None):
     """Full mamba-1 mixer. x [B, S, d] -> (y [B, S, d], new conv state
-    [B, K-1, d_inner], new ssm state [B, d_inner, N] f32)."""
+    [B, K-1, d_inner], new ssm state [B, d_inner, N] f32); a given
+    ``ssm_state`` (the decode's cache) is updated in place and returned."""
     cast = lambda w: w.to(compute_dtype)  # noqa: E731
     di = cfg.d_inner
     xz = x @ cast(p["in_proj"])  # [B, S, 2*di]
@@ -112,7 +91,7 @@ def mamba_block(x, p, cfg, compute_dtype, conv_state=None, ssm_state=None):
     proj = u @ cast(p["x_proj"])  # [B, S, R + 2N]
     R, N = cfg.dt_rank, cfg.ssm_state
     dt_raw, B_ssm, C_ssm = proj[..., :R], proj[..., R : R + N], proj[..., R + N :]
-    dt = softplus(dt_raw @ cast(p["dt_w"]) + cast(p["dt_b"]))  # [B, S, di]
+    dt = ref.softplus(dt_raw @ cast(p["dt_w"]) + cast(p["dt_b"]))  # [B, S, di]
     A = -torch.exp(p["A_log"].float())
     kernel = use_scan_kernel(cfg, u, dt, p["A_log"], p["D"])
     y, h = selective_scan(u, dt, A, B_ssm, C_ssm, p["D"], h0=ssm_state, kernel=kernel)

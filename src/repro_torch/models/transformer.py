@@ -277,17 +277,16 @@ def decode_stack(params, cfg, x, cache, pos: int):
 
 def decode_ssm(params, cfg, x, cache):
     """ssm decode over all layers: one recurrence step per layer from the
-    cache's (conv, ssm) states, which it overwrites in place; returns (x,
-    cache)."""
+    cache's (conv, ssm) states, which it overwrites in place (the scan
+    writes the ssm state straight into the cache); returns (x, cache)."""
     dt = cfg_dtype(cfg)
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
         hn = apply_norm(cfg.norm, x, lp["ln1"], lp.get("ln1_b"))
-        y, conv, ssm = mamba_block(hn, lp["mamba"], cfg, dt, conv_state=cache["conv"][l],
-                                   ssm_state=cache["ssm"][l])
+        y, conv, _ = mamba_block(hn, lp["mamba"], cfg, dt, conv_state=cache["conv"][l],
+                                 ssm_state=cache["ssm"][l])
         x = x + y
         cache["conv"][l] = conv
-        cache["ssm"][l] = ssm
     return x, cache
 
 

@@ -1,8 +1,8 @@
 """What the attention kernels' wrappers decide on the host, held on the CPU:
 flash-decode's split plan and its choice of variant, the flash forward's
-tensor-map stride check, the head dim of the flash kernels' build for each
-D and the head dims they refuse, and how the dK/dV kernel splits a KV
-head's query group over the blocks of a cluster.  None of these functions
+tensor-map stride check, the flash kernels' route (tensor or CUDA cores)
+and build for each D and the head dims they refuse, and how the dK/dV
+kernel splits a KV head's query group over the blocks of a cluster.  None of these functions
 touches CUDA (the tests make every CUDA query raise while they run); the
 kernels themselves are held against their plain versions on the card, in
 ``tests/test_torch_gpu.py``.
@@ -16,6 +16,7 @@ torch.set_num_threads(2)  # beside the other test workers on the CPU
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import padded_head_dim, tma_aligned  # noqa: E402
+from repro_torch.kernels.flash_attention import route as flash_route  # noqa: E402
 
 H100_SMS = 132
 
@@ -127,14 +128,43 @@ def test_flash_head_dim_runs_on_the_padded_build(D, dtypes, want):
         assert padded_head_dim(D, dtype) == want
 
 
-@pytest.mark.parametrize("D,dtype", [(0, torch.float32), (129, torch.float32),
-                                     (136, torch.bfloat16), (256, torch.bfloat16),
-                                     (20, torch.bfloat16), (4, torch.bfloat16),
-                                     (100, torch.bfloat16)])
+@pytest.mark.parametrize("D,dtype", [(0, torch.float32), (257, torch.float32),
+                                     (264, torch.bfloat16), (264, torch.float32),
+                                     (0, torch.bfloat16), (300, torch.bfloat16),
+                                     (512, torch.float32)])
 def test_flash_head_dims_refused(D, dtype):
-    """D > 128 and, in bf16, D % 8 != 0 (TMA's 16-byte strides) raise."""
+    """D outside 1..256 raises, in either dtype."""
     with pytest.raises(ValueError, match=f"head_dim {D}"):
         padded_head_dim(D, dtype)
+
+
+@pytest.mark.parametrize("D,dtype,build,route", [
+    (20, torch.bfloat16, 64, "simt"),     # a bf16 row of 40 bytes: no TMA
+    (4, torch.bfloat16, 64, "simt"),
+    (100, torch.bfloat16, 128, "simt"),
+    (136, torch.bfloat16, 256, "simt"),   # past the tensor-core builds
+    (136, torch.float32, 256, "simt"),
+    (256, torch.bfloat16, 256, "simt"),   # recurrentgemma-2b's head_dim
+    (256, torch.float32, 256, "simt"),
+    (129, torch.float32, 256, "simt"),
+    (8, torch.bfloat16, 64, "wgmma"),
+    (128, torch.bfloat16, 128, "wgmma"),
+    (64, torch.float32, 64, "simt"),
+])
+def test_flash_head_dims_route_by_shape(D, dtype, build, route):
+    """bf16 with D % 8 == 0 up to 128 runs on the tensor cores; every other
+    head dim up to 256, and f32, on the CUDA cores, whose builds are D = 64,
+    128 and 256."""
+    assert padded_head_dim(D, dtype) == build
+    assert flash_route(D, dtype) == route
+
+
+def test_backward_aligns_rows_only_on_the_tensor_core_route():
+    """The backward's row check asks for 16-byte rows only where TMA reads
+    them: a bf16 head dim of 20 (40-byte rows) passes on the CUDA cores."""
+    assert bwd._aligned(_bf16((1, 8, 2, 20)))
+    assert not bwd._aligned(_bf16((1, 8, 2, 68))[..., :64])
+    assert bwd._aligned(_bf16((1, 8, 2, 264))[..., :256])
 
 
 def test_dkdv_split_at_the_training_shape():

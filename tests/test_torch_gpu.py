@@ -230,12 +230,12 @@ def test_logits_bf16_gemm_matches_widened_product(cuda):
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda):
-    for D in (136, 20):  # past the D = 128 build; a bf16 row not a multiple of 16 bytes
-        q = torch.zeros((1, 128, 4, D), dtype=torch.bfloat16, device=cuda)
-        with pytest.raises(ValueError, match=f"head_dim {D}"):
+    for dtype in (torch.bfloat16, torch.float32):  # D = 264: past the D = 256 build
+        q = torch.zeros((1, 128, 4, 264), dtype=dtype, device=cuda)
+        with pytest.raises(ValueError, match="head_dim 264"):
             flash_attention_fwd(q, q[:, :, :2], q[:, :, :2])
         lse = torch.zeros((4, 128), dtype=torch.float32, device=cuda)
-        with pytest.raises(ValueError, match=f"head_dim {D}"):
+        with pytest.raises(ValueError, match="head_dim 264"):
             flash_attention_bwd_dkdv(q, q[:, :, :2], q[:, :, :2], q, lse, lse)
     odd = torch.zeros((1, 128, 4, 68), dtype=torch.bfloat16, device=cuda)[..., :64]
     with pytest.raises(ValueError):  # rows not 16-byte aligned
@@ -272,10 +272,12 @@ def test_flash_attention_wgmma_kernel_matches_ref(cuda, B, Sq, Sk, H, KV, D, cau
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [8, 16, 96])
+@pytest.mark.parametrize("D", [8, 16, 20, 96, 136, 256])
 def test_flash_attention_takes_every_head_dim(cuda, D, dtype):
-    """Head dims below 64 run on the D = 64 build and those between 64 and
-    128 on the D = 128 build, whose extra columns are zero."""
+    """Head dims below 64 run on the D = 64 build, those between 64 and 128
+    on the D = 128 build and those up to 256 on the CUDA cores' D = 256
+    build, whose extra columns are zero; a bf16 D of 20 (40-byte rows, no
+    TMA) runs on the CUDA cores."""
     gen = torch.Generator(device=cuda).manual_seed(13)
     q = _randn(gen, (2, 200, 8, D), dtype, cuda)
     k = _randn(gen, (2, 200, 2, D), dtype, cuda)
@@ -355,7 +357,7 @@ def _bwd_inputs(gen, B, Sq, Sk, H, KV, D, dtype, causal, q_offset, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [8, 16, 64, 96, 128])
+@pytest.mark.parametrize("D", [8, 16, 20, 64, 96, 128, 136, 256])
 @pytest.mark.parametrize("B,Sq,Sk,G,KV,causal,q_offset", [
     (2, 256, 256, 1, 2, True, 0),       # G = 1: one head a cluster
     (1, 77, 200, 7, 2, True, 123),      # G = 7 over clusters of 4, ragged, q_offset
@@ -364,8 +366,9 @@ def _bwd_inputs(gen, B, Sq, Sk, H, KV, D, dtype, causal, q_offset, device):
 ])
 def test_flash_attention_bwd_kernels_every_head_dim(cuda, B, Sq, Sk, G, KV, causal, q_offset, D,
                                                     dtype):
-    """Both backward kernels at every head dim the flash kernels take, for
-    each way dK/dV splits a query group over a cluster."""
+    """Both backward kernels at every head dim class the flash kernels take
+    (the tensor-core builds, and the CUDA cores' for bf16 D 20, 136 and
+    256), for each way dK/dV splits a query group over a cluster."""
     gen = torch.Generator(device=cuda).manual_seed(14)
     q, k, v, do, lse, delta = _bwd_inputs(gen, B, Sq, Sk, G * KV, KV, D, dtype, causal,
                                           q_offset, cuda)
@@ -569,7 +572,8 @@ def test_streamed_decode_equals_resident_decode(cuda):
 
 
 @pytest.mark.parametrize("B,S,Ch,N", [
-    (4, 512, 8192, 16),  # falcon-mamba-7b prefill
+    (4, 512, 8192, 16),  # falcon-mamba-7b prefill: two threads per channel
+    (16, 64, 8192, 16),  # one thread per channel
     (4, 1, 8192, 16),    # falcon-mamba-7b decode
     (2, 7, 300, 16),     # channels not a multiple of the block
     (1, 128, 97, 4),     # N below a warp's share
@@ -636,21 +640,131 @@ def test_scan_ops_launch_the_kernels_and_refuse_what_they_cannot_take(cuda):
         rglru_scan_fwd(x[..., 0], x[..., 0], torch.zeros((2, 16), device=cuda).bfloat16())
 
 
+def _mamba_inputs(gen, B, S, Ch, N, dtype, with_h0, device, R=5):
+    """The selective scan's inputs as the model makes them: B and C strided
+    slices of one projection, A and D in f32, dt softplus'd."""
+    proj = _randn(gen, (B, S, R + 2 * N), dtype, device)
+    return {
+        "u": _randn(gen, (B, S, Ch), dtype, device),
+        "dt": ref.softplus(_randn(gen, (B, S, Ch), torch.float32, device) - 1.0).to(dtype),
+        "A": -torch.exp(0.5 * _randn(gen, (Ch, N), torch.float32, device)),
+        "B_ssm": proj[..., R:R + N], "C_ssm": proj[..., R + N:],
+        "D": _randn(gen, (Ch,), torch.float32, device),
+        "h0": _randn(gen, (B, Ch, N), torch.float32, device) if with_h0 else None,
+    }
+
+
+@pytest.mark.parametrize("B,S,Ch,N", [
+    (4, 512, 8192, 16),  # falcon-mamba-7b prefill: two threads per channel
+    (16, 64, 8192, 16),  # one thread per channel
+    (4, 1, 8192, 16),    # falcon-mamba-7b decode
+    (2, 7, 301, 16),     # channels not a multiple of the block
+    (1, 128, 97, 4),     # N below 16
+    (3, 33, 64, 5),      # N not a power of two
+    (2, 1, 45, 13),      # decode with N not a multiple of 4
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_selective_scan_kernel_matches_ref(cuda, B, S, Ch, N, dtype, with_h0):
+    """The fused selective scan against its plain version: y within 1e-5
+    (f32) and 2e-2 (bf16) of the largest |y| (the N-term sum of y in
+    another order), the last state within 1e-5 of the largest |h|.  The
+    shapes take every split of a channel's states over threads that
+    ``scan_lanes`` makes on an H100: 1 (B 16), 2 (B 4) and 4 (the narrow
+    widths) at S > 1."""
+    from repro_torch.kernels.selective_scan import selective_scan_fwd
+
+    gen = torch.Generator(device=cuda).manual_seed(16)
+    x = _mamba_inputs(gen, B, S, Ch, N, dtype, with_h0, cuda)
+    y, h = selective_scan_fwd(**x)
+    y_ref, h_ref = ref.selective_scan_ref(**x)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (B, S, Ch)
+    assert h.dtype == torch.float32 and h.shape == (B, Ch, N)
+    _close_rel(y, y_ref, TOL[dtype]["atol"])
+    _close_rel(h, h_ref, TOL[torch.float32]["atol"])
+
+
+@pytest.mark.parametrize("S", [1, 7])
+def test_selective_scan_kernel_updates_the_state_in_place(cuda, S):
+    """With h_out = h0 the kernel writes the last state over the initial one
+    (each thread reads its state before it writes it), as the decode does
+    with its cache: the same y and state as the out-of-place call."""
+    from repro_torch.kernels.selective_scan import selective_scan_fwd
+
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    x = _mamba_inputs(gen, 4, S, 8192, 16, torch.bfloat16, True, cuda)
+    y, h = selective_scan_fwd(**x)
+    state = x["h0"].clone()
+    y2, h2 = selective_scan_fwd(**dict(x, h0=state), h_out=state)
+    torch.cuda.synchronize()
+    assert h2.data_ptr() == state.data_ptr()
+    assert torch.equal(h2, h) and torch.equal(y2, y)
+
+
+@pytest.mark.parametrize("B,S,W", [
+    (4, 512, 2560),   # recurrentgemma-2b prefill
+    (4, 1, 2560),     # recurrentgemma-2b decode
+    (2, 7, 300),      # channels not a multiple of the block; bf16 rows not 16-byte aligned
+    (3, 129, 384),
+    (1, 300, 2500),
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_rglru_gated_kernel_is_bitwise_its_plain_version(cuda, B, S, W, dtype, with_h0):
+    """The fused RG-LRU kernel forms the gates with the plain version's
+    rounding points (expf, products and sums rounded apart), so y and the
+    last state are its plain version's bit for bit, in f32 and in bf16."""
+    from repro_torch.kernels.rglru_scan import rglru_gated_fwd
+
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    x = _randn(gen, (B, S, W), dtype, cuda)
+    r = torch.sigmoid(_randn(gen, (B, S, W), torch.float32, cuda)).to(dtype)
+    i = torch.sigmoid(_randn(gen, (B, S, W), torch.float32, cuda)).to(dtype)
+    lam = _randn(gen, (W,), torch.float32, cuda)
+    h0 = _randn(gen, (B, W), torch.float32, cuda) if with_h0 else None
+    y, h = rglru_gated_fwd(x, r, i, ref.rglru_decay(lam), h0)
+    y_ref, h_ref = ref.rglru_gated_scan_ref(x, r, i, lam, h0)
+    torch.cuda.synchronize()
+    assert y.dtype == dtype and y.shape == (B, S, W) and h.shape == (B, W)
+    assert torch.equal(y, y_ref) and torch.equal(h, h_ref)
+
+
+def test_fused_scan_ops_launch_the_kernels(cuda):
+    from repro_torch.kernels.rglru_scan import rglru_gated_fwd
+    from repro_torch.kernels.selective_scan import selective_scan_fwd
+
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    x = _mamba_inputs(gen, 2, 3, 40, 8, torch.float32, True, cuda)
+    s0, g0 = selective_scan_fwd.launches, rglru_gated_fwd.launches
+    ops.selective_scan(**x)
+    w = torch.rand((2, 3, 40), device=cuda)
+    ops.rglru_gated_scan(w, w, w, w[0, 0])
+    assert (selective_scan_fwd.launches, rglru_gated_fwd.launches) == (s0 + 1, g0 + 1)
+    with pytest.raises(ValueError):  # N > 32
+        selective_scan_fwd(**_mamba_inputs(gen, 1, 2, 4, 33, torch.float32, False, cuda))
+    with pytest.raises(ValueError):  # h_out not contiguous
+        selective_scan_fwd(**x, h_out=torch.zeros((2, 8, 40), device=cuda).transpose(1, 2))
+    with pytest.raises(TypeError):
+        rglru_gated_fwd(w.half(), w.half(), w.half(), w[0, 0])
+
+
 @pytest.mark.parametrize("arch", ["falcon_mamba_7b", "recurrentgemma_2b"])
 def test_recurrent_kernel_path_matches_plain_path(cuda, arch):
     """The smoke models in f32 on the card: prefill and three decode steps
-    on the kernel path (``attn_impl="pallas"``) against the plain loop over
-    time (``"chunked"``), within 1e-5 of the largest logit, with one scan
-    launch per recurrent layer per call."""
+    on the kernel path (``attn_impl="pallas"``: the fused scan kernels)
+    against the plain loop over time (``"chunked"``), within 1e-5 of the
+    largest logit, with one fused scan launch per recurrent layer per
+    call."""
     from repro_torch.configs import get_smoke_config
-    from repro_torch.kernels.mamba_scan import mamba_scan_fwd
-    from repro_torch.kernels.rglru_scan import rglru_scan_fwd
+    from repro_torch.kernels.rglru_scan import rglru_gated_fwd
+    from repro_torch.kernels.selective_scan import selective_scan_fwd
     from repro_torch.launch.serve import Server
     from repro_torch.launch.steps import concrete_batch
     from repro_torch.models.transformer import block_kinds
 
     base = get_smoke_config(arch).replace(compute_dtype="float32")
-    counter = mamba_scan_fwd if base.family == "ssm" else rglru_scan_fwd
+    counter = selective_scan_fwd if base.family == "ssm" else rglru_gated_fwd
     per_call = (base.n_layers if base.family == "ssm"
                 else block_kinds(base).count("rec"))
     params = Server(base, device="cuda").model.init_params(seed=0)

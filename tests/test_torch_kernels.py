@@ -209,7 +209,7 @@ def test_kernel_build_dir_is_keyed_by_sources_and_ignored():
     assert d.parent == _build.BUILD_ROOT and len(d.name) == 16 and d == _build.build_dir()
     assert sorted(p.name for p in _build.CSRC.glob("*.cu")) == [
         "decode_attention.cu", "flash_attention.cu", "flash_attention_bwd.cu",
-        "mamba_scan.cu", "prefetch_gather.cu", "rglru_scan.cu"]
+        "mamba_scan.cu", "prefetch_gather.cu", "rglru_scan.cu", "selective_scan.cu"]
     repo = Path(__file__).resolve().parents[1]
     ignored = (repo / ".gitignore").read_text().split()
     assert str(_build.BUILD_ROOT.relative_to(repo)) + "/" in ignored

@@ -110,9 +110,12 @@ def test_mamba_single_step_is_dbu_dot_c():
 @pytest.mark.parametrize("kernel", [False, True])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_selective_scan_states_match_jax(kernel, with_h0):
-    """y and the last state from an initial state (or zeros), through the
-    loop over time and through ``ops.mamba_scan`` (its plain version here),
-    against JAX's ``selective_scan``."""
+    """y and the last state from an initial state (or zeros) against JAX's
+    ``selective_scan``: without ``kernel`` through the model's plain loop;
+    with it through ``ops.selective_scan``'s dispatch by device (its plain
+    version here), and also through the TPU kernel's materialised contract
+    (``ops.mamba_scan`` over dA = exp(dt A) and dBu = (dt u) B formed from
+    the same inputs, plus D u), which no model path runs any more."""
     rng = np.random.RandomState(8)
     Bn, S, C, N = 2, 12, 48, 16
     ju, u = _pair(rng.randn(Bn, S, C))
@@ -123,10 +126,17 @@ def test_selective_scan_states_match_jax(kernel, with_h0):
     jD, D = _pair(rng.randn(C))
     jh0, h0 = _pair(rng.randn(Bn, C, N)) if with_h0 else (None, None)
     want_y, want_h = jssm.selective_scan(ju, jdt, jA, jB, jC, jD, h0=jh0)
+    if kernel:
+        dA = torch.exp(dt[..., None] * A)
+        dBu = (dt * u)[..., None] * Bs[:, :, None, :]
+        ym, hm = ops.mamba_scan(dA, dBu, Cs, h0, with_state=True)
+        _close(ym + D * u, want_y, **TOL["float32"])
+        _close(hm, want_h, **TOL["float32"])
     y, h = ssm.selective_scan(u, dt, A, Bs, Cs, D, h0=h0, kernel=kernel)
     _close(y, want_y, **TOL["float32"])
     _close(h, want_h, **TOL["float32"])
     assert h.dtype == torch.float32 and h.shape == (Bn, C, N)
+    assert with_h0 == (h is h0)  # a given state is the decode's cache: updated in place
 
 
 @pytest.mark.parametrize("kernel", [False, True])
