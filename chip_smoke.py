@@ -20,19 +20,31 @@ Phases, each printing its lines; any failure exits non-zero:
      flash-decode's tensor-core variant for G in {1, 4, 7, 16, 32}, D 64
      and 128, bf16 and fp8 caches, kv_len around its steps and splits and
      a 32768-slot cache, and both variants at the serving shape (which one
-     ran is printed); flash-decode's host cost per call besides; the row
-     gather bitwise at the prefill and decode shapes and at edge cases;
+     ran is printed); flash-decode with kv_len in device memory (as the
+     captured decode step passes it) bitwise its int form for both variants
+     and bf16 and fp8 caches, at 1, around the steps and splits of its
+     capacity-sized grid and at S, and one captured call replayed at
+     several lengths; its time with a device kv_len beside the int form's
+     and beside a grid sized by the live length; flash-decode's host cost
+     per call besides; the row gather bitwise at the prefill and decode
+     shapes and at edge cases;
   4. slice: chatglm3-6b at full width (28 layers, d_model 4096, 32 query
      heads over 2 KV heads, vocab 65,024; random weights from seed 0) served
      by ``repro_torch.launch.serve.Server`` with ``attn_impl="pallas"``:
      B=4, prompt 512, 32 generated tokens.  First the head (``Model.logits``,
      a bf16 GEMM with f32 output) is held against the widened f32 product
-     and both are timed.  The launch counters are zeroed
-     just before that run and read just after it: flash-attention must have
+     and both are timed.  ``Server.generate`` (the prefill, then one
+     captured decode step replayed per token) and ``generate_eager`` (every
+     step launched from the host) are timed in turns eager, graph, graph,
+     eager, twice (prefill ms, decode ms per step, tokens/s, peak memory,
+     the busy share of ``generate(8)`` under torch.profiler, the captured
+     step's device time replayed back to back); their tokens must be equal
+     and their logits bitwise equal.  The launch counters are zeroed just
+     before the first graph run and read just after it (the eager run's
+     counts must be the same): flash-attention must have
      launched once per layer (the prefill), flash-decode once per layer per
      decode step, all on the tensor cores, and the row gather once per
-     prefill and once per decode step (the embedding).  A short torch.profiler run of the same serve gives
-     the device's busy share.  Then the plain ``attn_impl="chunked"`` path,
+     prefill and once per decode step (the embedding).  Then the plain ``attn_impl="chunked"`` path,
      teacher-forced on the generated tokens, must give the kernel path's
      logits within the tolerances below, in bf16 and, with the same weights
      kept in f32, in f32 (whose decode must run flash-decode's CUDA-core
@@ -97,9 +109,11 @@ Phases, each printing its lines; any failure exits non-zero:
   7. falcon-mamba-7b and 8. recurrentgemma-2b at full width and depth (64
      and 26 layers; random weights from seed 0), each served by
      ``Server.generate`` with ``attn_impl="pallas"``, B=4, prompt 512, 32
-     generated tokens, bf16 weights: prefill ms, decode ms per step,
-     tokens/s, peak memory, the busy share of ``generate(8)``, and the
-     launch counts of that run (the fused selective scan once per layer per
+     generated tokens, bf16 weights, the captured and the eager decode
+     side by side as in phase 4: prefill ms, decode ms per step,
+     tokens/s, peak memory, the busy share of ``generate(8)``, tokens and
+     logits bitwise equal, and the launch counts of the first graph run
+     (the fused selective scan once per layer per
      prefill and per decode step, 2,048 in all; the gated RG-LRU scan once
      per recurrent layer, 576; the gather 32; no attention kernel and
      neither materialised scan).  Then the kernel path against the plain loop over time
@@ -436,12 +450,74 @@ def check_decode_variants(torch, ref, decode_fwd) -> None:
           "the bf16 / fp8 decode checks did not all run on the tensor cores")
 
 
+def check_device_kv_len(torch, ref, decode_fwd) -> None:
+    """kv_len read from device memory, as the captured decode step passes
+    it: bitwise the int form (which the wrapper writes to the device) and
+    within the tolerance of the plain version, for both variants and bf16
+    and fp8 caches, at 1, around the steps and the splits of the
+    capacity-sized grid and at S; then one captured call replayed with the
+    device int rewritten between replays, against fresh calls."""
+    from repro_torch.kernels import decode_attention as dec
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(13)
+    B, S, H, KV = 4, 1024, 32, 2
+    n_sm = dec._sm_count(0)
+    for q_dt, kv_dt, D in ((torch.bfloat16, torch.bfloat16, 128),
+                           (torch.bfloat16, torch.float8_e4m3fn, 128),
+                           (torch.bfloat16, torch.float8_e4m3fn, 64),
+                           (torch.float32, torch.bfloat16, 128),
+                           (torch.float32, torch.float32, 64)):
+        q = torch.randn((B, H, D), generator=gen, device=dev).to(q_dt)
+        k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(kv_dt)
+        v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(kv_dt)
+        kind = dec.variant(q_dt, kv_dt, D)
+        split_len, n_split = (dec.mma_split_plan(B, KV, dec.n_head_tiles(H, KV), S, n_sm)
+                              if kind == "mma" else dec.split_plan(B, KV, S, n_sm))
+        lens = sorted({1, 15, 16, 17, split_len - 1, split_len, split_len + 1, 528, S - 1, S})
+        tol = TOL[str(q_dt).split(".")[-1]]
+        worst = 0.0
+        for kv_len in lens:
+            want = decode_fwd(q, k, v, kv_len)
+            got = decode_fwd(q, k, v, torch.full((1,), kv_len, dtype=torch.int32, device=dev))
+            ok, err = allclose(torch, got, ref.decode_attention_ref(q, k, v, kv_len), tol)
+            check(torch.equal(got, want), f"flash-decode ({kind}) with a device kv_len={kv_len} "
+                                          "is not bitwise its int form")
+            check(ok, f"flash-decode ({kind}) with a device kv_len={kv_len} disagrees")
+            worst = max(worst, err)
+        print(f"[decode] device kv_len, {kind} q {q_dt} cache {kv_dt} D={D}: grid {n_split} "
+              f"splits of {split_len} over S={S}; kv_len {lens} bitwise the int form, "
+              f"max_abs_err {worst:.3e} (tol {tol})")
+    q = torch.randn((B, H, 128), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, KV, 128), generator=gen, device=dev).to(torch.bfloat16)
+    kv = torch.ones((1,), dtype=torch.int32, device=dev)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_fwd(q, k, k, kv)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_fwd(q, k, k, kv)
+    lens = (1, 17, 528, 64, 1024, 2, 528)
+    for kv_len in lens:
+        kv.fill_(kv_len)
+        graph.replay()
+        check(torch.equal(out, decode_fwd(q, k, k, kv_len)),
+              f"a captured flash-decode replayed at kv_len={kv_len} disagrees with a fresh call")
+    check(int(dec._COUNTERS[0].abs().sum()) == 0, "flash-decode's tickets are not zero")
+    print(f"[decode] one captured call replayed at kv_len {lens} (the device int rewritten "
+          "between replays): bitwise fresh calls; tickets zero")
+
+
 def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
     """Check flash-decode at the decode shape for every cache dtype and
-    several lengths; time it at ``kv_len_main``."""
+    several lengths, with kv_len as an int and in device memory; time it
+    at ``kv_len_main``."""
     from repro_torch.kernels.decode_attention import variant
 
     check_decode_variants(torch, ref, decode_fwd)
+    check_device_kv_len(torch, ref, decode_fwd)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     B, S, H, KV, D = 4, 1024, 32, 2, 128
@@ -470,7 +546,13 @@ def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
     k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
     v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
     L = kv_len_main
-    ms = graph_ms(torch, lambda: decode_fwd(q, k, v, L), iters=50)
+    kv = torch.full((1,), L, dtype=torch.int32, device=dev)  # as the captured step passes it
+    ms = graph_ms(torch, lambda: decode_fwd(q, k, v, kv), iters=50)
+    # the int form: the wrapper's fill of the device int, then the kernel
+    int_ms = graph_ms(torch, lambda: decode_fwd(q, k, v, L), iters=50)
+    # a grid sized by the live length, as when the host passed kv_len: the
+    # same call on a cache whose capacity is L
+    live_ms = graph_ms(torch, lambda: decode_fwd(q, k[:, :L], v[:, :L], kv), iters=50)
     plain_ms = graph_ms(torch, lambda: ref.decode_attention_ref(q, k, v, L))
     sdpa = torch.nn.functional.scaled_dot_product_attention
     q4 = q[:, :, None]
@@ -494,6 +576,9 @@ def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device times, CUDA "
           f"graph); bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']} ({nbytes} B, "
           f"{flops} FLOP)")
+    print(f"[decode] kv_len {L} of S={S} slots: device kv_len {ms:.4f} ms, int kv_len (fill + "
+          f"kernel) {int_ms:.4f} ms, a grid sized by kv_len (the cache cut to {L} slots) "
+          f"{live_ms:.4f} ms (device times, CUDA graph)")
     print(f"[decode] wrapper on the host: {wrap_us:.2f} us per call; back-to-back calls "
           f"between CUDA events {loop_ms:.4f} ms per call")
     return rec
@@ -668,42 +753,104 @@ def profile_run(torch, label: str, fn, watch: tuple = ()):
 LAUNCH_COUNTS = ("launches", "launches_mma", "launches_simt")
 
 
-def time_serve(torch, server, params, batch, gen_tokens: int, counters: dict) -> dict:
-    """Serve ``batch`` through ``server.generate``, as a user would: a
-    4-token warm-up (cuBLAS handles, the allocator), the prefill alone
-    three times, then ``gen_tokens`` tokens three times.  The launch
-    counters are zeroed just before the first full run and read just after
-    it, and the peak memory is that run's.  The decode loop is bound by the
-    host, whose time varies from run to run, hence the medians."""
-    def timed_generate(steps: int):
+def time_serve(torch, server, params, batch, gen_tokens: int, counters: dict,
+               tag: str) -> dict:
+    """Serve ``batch`` as a user would, through ``server.generate`` (the
+    prefill, then one captured decode step replayed per token: the main
+    path) and, beside it in the same call, ``server.generate_eager`` (every
+    decode step launched from the host).  A 4-token warm-up of each (the
+    capture, cuBLAS handles, the allocator), the prefill alone three times,
+    then ``gen_tokens`` tokens four times per path in the order eager,
+    graph, graph, eager, eager, graph, graph, eager: the host moves the
+    eager decode from call to call, hence the medians.  The launch counters
+    are zeroed just before the first graph run and read just after it, and
+    likewise around the first eager run, which must count the same; the
+    peak memory is each first run's.  Then one run of each with the logits
+    of every step (tokens and logits bitwise equal), each path's busy share
+    of generate(8) under torch.profiler, and the captured step's device
+    time, replayed back to back between CUDA events."""
+    paths = {"eager": server.generate_eager, "graph": server.generate}
+    B, S = batch["inputs"].shape
+    name = server.cfg.name
+
+    def timed(path: str, steps: int):
         torch.cuda.synchronize()
         t = time.perf_counter()
-        out = server.generate(params, batch, steps)
+        out = paths[path](params, batch, steps)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t
 
-    timed_generate(4)
-    prefill_s = sorted(timed_generate(1)[1] for _ in range(3))[1]
-    torch.cuda.reset_peak_memory_stats()
-    for c in counters.values():
-        for attr in LAUNCH_COUNTS:
-            if hasattr(c, attr):
-                setattr(c, attr, 0)
-    tokens, first_s = timed_generate(gen_tokens)
-    launched = {n: c.launches for n, c in counters.items()}
-    by_variant = {f"{n}.{a}": getattr(c, a) for n, c in counters.items()
-                  for a in LAUNCH_COUNTS[1:] if hasattr(c, a)}
-    peak = torch.cuda.max_memory_allocated()
-    totals = sorted([first_s] + [timed_generate(gen_tokens)[1] for _ in range(2)])
-    total_s = totals[1]
-    B = tokens.shape[0]
-    decode_ms = (total_s - prefill_s) / (gen_tokens - 1) * 1e3
-    line = (f"B={B} prompt={batch['inputs'].shape[1]} generated={gen_tokens} "
-            f"max_len={server.max_len} {server.cfg.compute_dtype}: prefill "
-            f"{prefill_s * 1e3:.3f} ms (median of 3), decode {decode_ms:.3f} ms/token step, "
-            f"{B * gen_tokens / total_s:.1f} tokens/s end to end ({total_s:.3f} s, median of "
-            f"{', '.join(f'{t:.3f}' for t in totals)} s), peak memory {peak} B")
-    return {"tokens": tokens, "launched": launched, "by_variant": by_variant, "line": line}
+    for p in paths:
+        timed(p, 4)
+    prefill_s = sorted(timed("eager", 1)[1] for _ in range(3))[1]
+    totals = {p: [] for p in paths}
+    launched, by_variant, peak = {}, {}, {}
+    tokens = None
+    for p in ("eager", "graph", "graph", "eager") * 2:
+        first = p not in launched
+        if first:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for c in counters.values():
+                for attr in LAUNCH_COUNTS:
+                    if hasattr(c, attr):
+                        setattr(c, attr, 0)
+        out, secs = timed(p, gen_tokens)
+        totals[p].append(secs)
+        if first:
+            launched[p] = {n: c.launches for n, c in counters.items()}
+            by_variant[p] = {f"{n}.{a}": getattr(c, a) for n, c in counters.items()
+                             for a in LAUNCH_COUNTS[1:] if hasattr(c, a)}
+            peak[p] = torch.cuda.max_memory_allocated()
+        if p == "graph" and tokens is None:
+            tokens = out
+    check(launched["graph"] == launched["eager"] and by_variant["graph"] == by_variant["eager"],
+          f"{name}: the captured decode counted {launched['graph']}, the eager loop "
+          f"{launched['eager']}")
+    tg, lg = server.generate(params, batch, gen_tokens, with_logits=True)
+    te, le = server.generate_eager(params, batch, gen_tokens, with_logits=True)
+    check(torch.equal(tg, tokens), f"{name}: the captured decode's tokens change between runs")
+    check(torch.equal(tg, te), f"{name}: the captured decode's tokens differ from the eager loop's")
+    check(torch.equal(lg, le), f"{name}: the captured decode's logits are not bitwise the eager "
+                               "loop's")
+    print(f"[{tag}] captured decode against the eager loop, {gen_tokens} tokens: tokens equal, "
+          f"logits [B, {gen_tokens}, vocab] bitwise equal; launches in each first run equal: "
+          f"{launched['graph']}")
+    del lg, le
+    busy = {p: profile_run(torch, f"{name} {p} generate(8 tokens)",
+                           lambda p=p: paths[p](params, batch, 8)) for p in paths}
+    # the captured step alone: replays back to back (no host work between
+    # them beyond the launch of the graph), from the prompt's position
+    step = server.captured_decode(params, B)
+    with torch.inference_mode():  # the static buffers are inference tensors
+        step.pos.fill_(S)
+    n = gen_tokens - 1
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        step.replay()
+    end.record()
+    torch.cuda.synchronize()
+    step_ms = start.elapsed_time(end) / n
+    print(f"[{tag}] B={B} prompt={S} generated={gen_tokens} max_len={server.max_len} "
+          f"{server.cfg.compute_dtype}: prefill {prefill_s * 1e3:.3f} ms (median of 3)")
+    decode = {}
+    for p in ("eager", "graph"):
+        ts = sorted(totals[p])
+        total_s = statistics.median(ts)
+        decode[p] = (total_s - prefill_s) / (gen_tokens - 1) * 1e3
+        b = busy[p]
+        print(f"[{tag}] {p}: decode {decode[p]:.3f} ms/token step, "
+              f"{B * gen_tokens / total_s:.1f} tokens/s end to end ({total_s:.3f} s, median of "
+              f"{', '.join(f'{t:.3f}' for t in totals[p])} s in the order run), peak memory "
+              f"{peak[p]} B, busy share of generate(8) "
+              f"{'not measured' if b is None else f'{b:.4f}'}")
+    print(f"[{tag}] captured step replayed back to back: {step_ms:.4f} ms per step (device, "
+          f"CUDA events); {step_ms / decode['graph']:.4f} of the graph path's decode step, "
+          f"{step_ms / decode['eager']:.4f} of the eager one's; eager / graph decode "
+          f"{decode['eager'] / decode['graph']:.3f}")
+    return {"tokens": tokens, "launched": launched["graph"], "by_variant": by_variant["graph"]}
 
 
 def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
@@ -728,13 +875,12 @@ def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
     check_head(torch, model, params, B)
 
     run = time_serve(torch, server, params, batch, gen_tokens,
-                     {"flash": flash_fwd, "decode": decode_fwd, "gather": gather_fwd})
+                     {"flash": flash_fwd, "decode": decode_fwd, "gather": gather_fwd}, "slice")
     tokens = run["tokens"]
     n_flash, n_decode, n_gather = (run["launched"][k] for k in ("flash", "decode", "gather"))
     decode_steps = gen_tokens - 1
-    print(f"[slice] {run['line']}")
     n_mma, n_simt = (run["by_variant"][f"decode.{a}"] for a in LAUNCH_COUNTS[1:])
-    print(f"[slice] launches in that run: flash_attention_fwd {n_flash} "
+    print(f"[slice] launches in the first graph run: flash_attention_fwd {n_flash} "
           f"(want {cfg.n_layers}), decode_attention_fwd {n_decode} "
           f"(want {cfg.n_layers * decode_steps}; tensor cores {n_mma}, CUDA cores {n_simt}), "
           f"prefetch_gather_fwd {n_gather} (want {1 + decode_steps})")
@@ -747,7 +893,6 @@ def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
           "the decode did not run flash-decode once per layer per step")
     check(n_gather == 1 + decode_steps,
           "the serve did not run the row gather once per prefill and once per decode step")
-    profile_run(torch, "generate(8 tokens)", lambda: server.generate(params, batch, 8))
 
     # the plain path, teacher-forced on the kernel path's tokens, in bf16
     # and (same weights from the same seed, not cast) in f32
@@ -1306,6 +1451,7 @@ def phase_smoke_configs(torch, counters: dict) -> None:
         params = server.model.compute_params(server.model.init_params(seed=0))
         batch = concrete_batch(cfg, B, prompt, device="cuda")
         batch.pop("targets")
+        server.captured_decode(params, B)  # the capture (and its warm-up) before the count
         for c in counters.values():
             c.launches = 0
         tokens = server.generate(params, batch, gen_tokens)
@@ -1636,17 +1782,12 @@ def phase_recurrent(torch, arch: str, counters: dict, B: int, prompt: int,
     want[scan] = per_call * (1 + decode_steps)
     want["prefetch_gather_fwd"] = 1 + decode_steps
 
-    run = time_serve(torch, server, params, batch, gen_tokens, counters)
+    run = time_serve(torch, server, params, batch, gen_tokens, counters, tag)
     tokens, launched = run["tokens"], run["launched"]
-    print(f"[{tag}] {run['line']}")
-    print(f"[{tag}] launches in that run: {launched} (want {want})")
+    print(f"[{tag}] launches in the first graph run: {launched} (want {want})")
     check(tuple(tokens.shape) == (B, gen_tokens), f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token out of range")
     check(launched == want, f"{cfg.name}: the serve's launch counts are not the path's")
-    busy = profile_run(torch, f"{cfg.name} generate(8 tokens)",
-                       lambda: server.generate(params, batch, 8))
-    print(f"[{tag}] busy share of generate(8): "
-          f"{'not measured' if busy is None else f'{busy:.4f}'}")
 
     # the plain path, teacher-forced on the first 9 generated tokens, in
     # bf16, in bf16 at depth 3, and (the same weights, not cast) in f32

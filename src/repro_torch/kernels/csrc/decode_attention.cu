@@ -31,7 +31,16 @@
 //   * (batch, KV head) alone gives too few blocks for 132 SMs (4 x 2 = 8 at
 //     the serving shape), so the cache length is split across blocks and
 //     the splits' (m, l, acc) are merged per head;
-//   * only the first kv_len rows are read: splits cover [0, kv_len);
+//   * kv_len is read from device memory (one int32; the TPU kernel's
+//     scalar-prefetch operand), so one launch, and one captured CUDA
+//     graph, serves every position.  The splits are planned from the
+//     cache's capacity S, so the grid is the same for every kv_len, as the
+//     Pallas grid over S / bk is; a split that starts at or past kv_len is
+//     empty and its block returns at once, and only the live splits,
+//     ceil(kv_len / split_len) of them (at least one), are merged.  Only
+//     the first kv_len rows are read.  kv_len is clamped to [0, S] (the
+//     host cannot check a device value); 0 gives zeros, as in the TPU
+//     kernel;
 //   * p is kept in f32 (the TPU kernel casts p to V's upcast f32), masked
 //     slots use NEG_INF = -1e30, l is clamped at 1e-30 and the output is in
 //     q's dtype.
@@ -69,18 +78,31 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
+// the live length: *kv_len_p clamped to [0, S]
+__device__ __forceinline__ int live_len(const int* kv_len_p, int S) {
+  return min(max(__ldg(kv_len_p), 0), S);
+}
+
+// the splits that hold keys (split 0 always counts, so kv_len 0 writes zeros)
+__device__ __forceinline__ int live_splits(int kv_len, int split_len) {
+  return max(1, (kv_len + split_len - 1) / split_len);
+}
+
 // Pass 1.  grid (n_split, KV, B).  Split s covers cache rows
-// [s * split_len, min((s + 1) * split_len, kv_len)).  Writes, per
-// (b, kv head, split, g): acc[D] (unnormalised), m and l.
+// [s * split_len, min((s + 1) * split_len, kv_len)); a block past the live
+// splits returns at once.  Writes, per (b, kv head, split, g): acc[D]
+// (unnormalised), m and l.
 template <typename QT, typename KT>
 __global__ void __launch_bounds__(NT) decode_split_kernel(
     const QT* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
-    float* __restrict__ part_acc, float* __restrict__ part_ml,
-    int H, int KV, int D, int kv_len, int split_len, int n_split,
+    float* __restrict__ part_acc, float* __restrict__ part_ml, const int* __restrict__ kv_len_p,
+    int H, int KV, int D, int S, int split_len, int n_split,
     int64_t q_sb, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale) {
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int kv_len = live_len(kv_len_p, S);
+  if (split >= live_splits(kv_len, split_len)) return;
   const int G = H / KV;
   const int DP = D + 1;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
@@ -175,18 +197,20 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
   }
 }
 
-// Pass 2.  grid (H, B), D threads: merge the splits of one head.
+// Pass 2.  grid (H, B), D threads: merge the live splits of one head.
 template <typename QT>
 __global__ void decode_merge_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    QT* __restrict__ o, int H, int KV, int D, int n_split) {
+    const int* __restrict__ kv_len_p, QT* __restrict__ o, int H, int KV, int D, int S,
+    int split_len, int n_split) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int G = H / KV, kvh = h / G, g = h % G;
+  const int n_live = live_splits(live_len(kv_len_p, S), split_len);
   const int64_t row0 = ((int64_t)(b * KV + kvh) * n_split) * G + g;  // split 0
   float m = NEG_INF;
-  for (int s = 0; s < n_split; ++s) m = fmaxf(m, part_ml[(row0 + (int64_t)s * G) * 2]);
+  for (int s = 0; s < n_live; ++s) m = fmaxf(m, part_ml[(row0 + (int64_t)s * G) * 2]);
   float l = 0.f, a = 0.f;
-  for (int s = 0; s < n_split; ++s) {
+  for (int s = 0; s < n_live; ++s) {
     const int64_t row = row0 + (int64_t)s * G;
     const float w = expf(part_ml[row * 2] - m);
     l = fmaf(part_ml[row * 2 + 1], w, l);
@@ -197,8 +221,8 @@ __global__ void decode_merge_kernel(
 
 template <typename QT, typename KT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* part_acc, void* part_ml,
-                   int B, int H, int KV, int D, int kv_len, int split_len, int n_split,
+                   void* part_acc, void* part_ml, const int* kv_len,
+                   int B, int H, int KV, int D, int S, int split_len, int n_split,
                    int64_t q_sb, int64_t q_sh,
                    int64_t k_sb, int64_t k_ss, int64_t k_sh,
                    int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -210,13 +234,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   cudaError_t err = hopper::smem_cap((const void*)decode_split_kernel<QT, KT>, (int)smem, cap);
   if (err != cudaSuccess) return err;
   decode_split_kernel<QT, KT><<<dim3(n_split, KV, B), NT, smem, stream>>>(
-      (const QT*)q, (const KT*)k, (const KT*)v, (float*)part_acc, (float*)part_ml,
-      H, KV, D, kv_len, split_len, n_split,
+      (const QT*)q, (const KT*)k, (const KT*)v, (float*)part_acc, (float*)part_ml, kv_len,
+      H, KV, D, S, split_len, n_split,
       q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_merge_kernel<QT><<<dim3(H, B), D, 0, stream>>>(
-      (const float*)part_acc, (const float*)part_ml, (QT*)o, H, KV, D, n_split);
+      (const float*)part_acc, (const float*)part_ml, kv_len, (QT*)o, H, KV, D, S, split_len,
+      n_split);
   return cudaGetLastError();
 }
 
@@ -243,12 +268,14 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // bound by bytes, so the second product costs no time).
 //
 // One launch: the warps' (m, l, acc) merge in shared memory; with one
-// split the block writes o.  Otherwise it writes its f32 partial, fences,
-// and takes a ticket on the (batch, 16-head tile) counter; the last block of
-// the tile to arrive copies every split's partial (still in L2) into shared
-// memory with two bulk copies, merges them, writes o and resets the counter
-// to 0, so the counters stay zero between launches (CUDA-graph replays
-// included).  Launches that share a counter buffer must be ordered (one
+// live split the block writes o.  Otherwise it writes its f32 partial,
+// fences, and takes a ticket on the (batch, 16-head tile) counter; the last
+// of the tile's live blocks to arrive copies every live split's partial
+// (still in L2) into shared memory with two bulk copies, merges them,
+// writes o and resets the counter to 0, so the counters stay zero between
+// launches (CUDA-graph replays included).  The blocks of empty splits
+// return before they touch the counter, so a tile's tickets count its
+// live blocks only.  Launches that share a counter buffer must be ordered (one
 // stream), as the serving loop's are.
 
 constexpr int MW = 4;            // warps per block
@@ -279,12 +306,13 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // grid (n_split, KV * n_mt, B); split s covers keys [s * split_len,
-// min((s + 1) * split_len, kv_len)), split_len a multiple of STEP
+// min((s + 1) * split_len, kv_len)), split_len a multiple of STEP; the
+// splits past kv_len return at once
 template <typename KT, int D>
 __global__ void __launch_bounds__(MNT) decode_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
     __nv_bfloat16* __restrict__ o, float* __restrict__ part, int* __restrict__ counters,
-    int H, int KV, int kv_len, int split_len, int n_split,
+    const int* __restrict__ kv_len_p, int H, int KV, int S, int split_len, int n_split,
     int64_t q_sb, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale) {
@@ -298,6 +326,9 @@ __global__ void __launch_bounds__(MNT) decode_mma_kernel(
   const int n_mt = (G + 15) / 16;
   const int split = blockIdx.x, kvh = blockIdx.y / n_mt, mt = blockIdx.y % n_mt;
   const int b = blockIdx.z;
+  const int kv_len = live_len(kv_len_p, S);
+  const int n_live = live_splits(kv_len, split_len);
+  if (split >= n_live) return;  // no key of this split is live: no work, no ticket
   const int rows = min(16, G - mt * 16);          // live query heads in this tile
   const int head0 = kvh * G + mt * 16;
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
@@ -513,7 +544,7 @@ __global__ void __launch_bounds__(MNT) decode_mma_kernel(
     float aa = 0.f;
 #pragma unroll
     for (int w = 0; w < MW; ++w) aa = fmaf(wacc[(w * 16 + r) * D + d], wm[w * 16 + r], aa);
-    if (n_split == 1) {
+    if (n_live == 1) {
       if (r < rows)
         o[((int64_t)b * H + head0 + r) * D + d] =
             __float2bfloat16_rn(aa / fmaxf(bml[2 * r + 1], 1e-30f));
@@ -521,25 +552,26 @@ __global__ void __launch_bounds__(MNT) decode_mma_kernel(
       pacc[(int64_t)split * 16 * D + idx] = aa;
     }
   }
-  if (n_split == 1) return;
+  if (n_live == 1) return;
   if (tid < 32) pml[split * 32 + tid] = bml[tid];
 
-  // the last block of this tile to arrive merges the splits
+  // the last live block of this tile to arrive merges the live splits
   __shared__ int last;
   __threadfence();
   __syncthreads();
-  if (tid == 0) last = atomicAdd(counters + unit, 1) == n_split - 1;
+  if (tid == 0) last = atomicAdd(counters + unit, 1) == n_live - 1;
   __syncthreads();
   if (!last) return;
   __threadfence();
-  // every split's (M, L) and partial accumulator into shared memory by two
-  // bulk copies (one round trip to L2; CH splits at a time where they do
-  // not all fit), then each split's weight per row and the weighted sum
+  // every live split's (M, L) and partial accumulator into shared memory by
+  // two bulk copies (one round trip to L2; CH splits at a time where they
+  // do not all fit), then each split's weight per row and the weighted sum;
+  // the shared layout is sized for all n_split splits
   float* sml = reinterpret_cast<float*>(dsm);  // [n_split][16][2]
   float* wsp = sml + n_split * 32;             // [16][n_split] weights
   float* lsum = wsp + 16 * n_split;            // [16]
   float* stage = lsum + 16;                    // [CH][16][D], 16-byte aligned
-  const int CH = min(n_split, (int)((L::BYTES - (48 * n_split + 16) * 4) / (16 * D * 4)));
+  const int CH = min(n_live, (int)((L::BYTES - (48 * n_split + 16) * 4) / (16 * D * 4)));
   __shared__ __align__(8) uint64_t gbar;
   if (tid == 0) {
     hopper::mbar_init(&gbar, 1);
@@ -547,16 +579,16 @@ __global__ void __launch_bounds__(MNT) decode_mma_kernel(
     // the partials were written through the generic proxy; the bulk copies
     // read them through the async proxy
     asm volatile("fence.proxy.async.global;\n" ::: "memory");
-    hopper::mbar_expect_tx(&gbar, n_split * 32 * 4 + CH * 16 * D * 4);
-    hopper::bulk_load(sml, pml, n_split * 32 * 4, &gbar);
+    hopper::mbar_expect_tx(&gbar, n_live * 32 * 4 + CH * 16 * D * 4);
+    hopper::bulk_load(sml, pml, n_live * 32 * 4, &gbar);
     hopper::bulk_load(stage, pacc, CH * 16 * D * 4, &gbar);
   }
   __syncthreads();
   hopper::mbar_wait(&gbar, 0);
   if (tid < rows) {
     float mm = NEG_INF, ll = 0.f;
-    for (int sp = 0; sp < n_split; ++sp) mm = fmaxf(mm, sml[sp * 32 + 2 * tid]);
-    for (int sp = 0; sp < n_split; ++sp) {
+    for (int sp = 0; sp < n_live; ++sp) mm = fmaxf(mm, sml[sp * 32 + 2 * tid]);
+    for (int sp = 0; sp < n_live; ++sp) {
       const float c = expf(sml[sp * 32 + 2 * tid] - mm);
       wsp[tid * n_split + sp] = c;
       ll = fmaf(sml[sp * 32 + 2 * tid + 1], c, ll);
@@ -566,8 +598,8 @@ __global__ void __launch_bounds__(MNT) decode_mma_kernel(
   float accv[PER];
 #pragma unroll
   for (int e = 0; e < PER; ++e) accv[e] = 0.f;
-  for (int sp0 = 0, chunk = 0; sp0 < n_split; sp0 += CH, ++chunk) {
-    const int nch = min(CH, n_split - sp0);
+  for (int sp0 = 0, chunk = 0; sp0 < n_live; sp0 += CH, ++chunk) {
+    const int nch = min(CH, n_live - sp0);
     if (sp0 > 0) {
       __syncthreads();  // the previous chunk is summed
       if (tid == 0) {
@@ -597,7 +629,8 @@ __global__ void __launch_bounds__(MNT) decode_mma_kernel(
 
 template <typename KT, int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, void* part,
-                       int* counters, int B, int H, int KV, int kv_len, int split_len,
+                       int* counters, const int* kv_len, int B, int H, int KV, int S,
+                       int split_len,
                        int n_split, int64_t q_sb, int64_t q_sh,
                        int64_t k_sb, int64_t k_ss, int64_t k_sh,
                        int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -611,7 +644,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, voi
   const int n_mt = (H / KV + 15) / 16;
   decode_mma_kernel<KT, D><<<dim3(n_split, KV * n_mt, B), MNT, smem, stream>>>(
       (const __nv_bfloat16*)q, (const KT*)k, (const KT*)v, (__nv_bfloat16*)o, (float*)part,
-      counters, H, KV, kv_len, split_len, n_split,
+      counters, kv_len, H, KV, S, split_len, n_split,
       q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
   return cudaGetLastError();
 }
@@ -621,17 +654,20 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, voi
 // q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: 0 = float32, 1 = bfloat16,
 // 2 = float8_e4m3fn.  o is a contiguous [B, H, D] in q's dtype; part_acc is
 // f32 [B, KV, n_split, G, D] and part_ml f32 [B, KV, n_split, G, 2] scratch.
-// Strides are in elements; the last dim of q, k and v is contiguous.
+// kv_len points to one int32 in device memory; S is the cache's capacity,
+// which split_len * n_split covers.  Strides are in elements; the last dim
+// of q, k and v is contiguous.
 extern "C" int decode_attention_fwd(
     int q_dtype, int kv_dtype, const void* q, const void* k, const void* v, void* o,
-    void* part_acc, void* part_ml,
-    int B, int H, int KV, int D, int kv_len, int split_len, int n_split,
+    void* part_acc, void* part_ml, const void* kv_len,
+    int B, int H, int KV, int D, int S, int split_len, int n_split,
     int64_t q_sb, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define DA_ARGS q, k, v, o, part_acc, part_ml, B, H, KV, D, kv_len, split_len, n_split, \
+#define DA_ARGS q, k, v, o, part_acc, part_ml, (const int*)kv_len, B, H, KV, D, S, split_len, \
+                n_split, \
                 q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st
   if (q_dtype == 0 && kv_dtype == 0) return (int)launch<float, float>(DA_ARGS);
   if (q_dtype == 0 && kv_dtype == 1) return (int)launch<float, __nv_bfloat16>(DA_ARGS);
@@ -648,17 +684,21 @@ extern "C" int decode_attention_fwd(
 // scratch of B * KV * n_mt * n_split * 16 * (D + 2) words (the partial
 // accumulators, then M and L; unused when n_split is 1) and counters int32
 // [B * KV * n_mt], zero before the launch and zero after it (n_mt =
-// ceil(G / 16)).  split_len is a multiple of 16.  The cache rows (k, v data
-// and strides) are 16-byte aligned.  Strides are in elements.
+// ceil(G / 16)).  kv_len points to one int32 in device memory; S is the
+// cache's capacity, which split_len * n_split covers, split_len a multiple of
+// 16.  The cache rows (k, v data and strides) are 16-byte aligned.  Strides
+// are in elements.
 extern "C" int decode_attention_mma_fwd(
     int kv_dtype, const void* q, const void* k, const void* v, void* o, void* part,
-    void* counters, int B, int H, int KV, int D, int kv_len, int split_len, int n_split,
+    void* counters, const void* kv_len, int B, int H, int KV, int D, int S, int split_len,
+    int n_split,
     int64_t q_sb, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define DM_ARGS q, k, v, o, part, (int*)counters, B, H, KV, kv_len, split_len, n_split, \
+#define DM_ARGS q, k, v, o, part, (int*)counters, (const int*)kv_len, B, H, KV, S, split_len, \
+                n_split, \
                 q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st
   if (kv_dtype == 1 && D == 64) return (int)launch_mma<__nv_bfloat16, 64>(DM_ARGS);
   if (kv_dtype == 1 && D == 128) return (int)launch_mma<__nv_bfloat16, 128>(DM_ARGS);

@@ -11,6 +11,11 @@ model layouts, chosen by ``variant`` from the dtypes and the head dim alone:
 * ``"simt"``: everything else (an f32 query or cache, other head dims): the
   CUDA-core split pass and its merge pass.
 
+Both read ``kv_len`` from one int32 in device memory, as the TPU kernel
+takes it as a scalar-prefetch operand, and plan their splits from the
+cache's capacity S, so the grid is the same at every length and a captured
+decode step replays at any position (``launch.steps.CapturedDecode``).
+
 Launches are counted in ``decode_attention_fwd.launches`` (both) and in
 ``launches_mma`` and ``launches_simt``.  The plain version is
 ``ref.decode_attention_ref``; ``ops.decode_attention`` chooses between it and
@@ -47,10 +52,11 @@ def variant(q_dtype: torch.dtype, kv_dtype: torch.dtype, head_dim: int) -> str:
 def _lib(name: str):
     fn = getattr(_build.load("decode_attention"), name)
     if fn.argtypes is None:
-        # q and cache dtypes (the mma variant's q is bf16), then q, k, v, o
-        # and the split merge's scratch: (acc, m l) or (partials, tickets)
+        # q and cache dtypes (the mma variant's q is bf16), then q, k, v, o,
+        # the split merge's scratch ((acc, m l) or (partials, tickets)) and
+        # the device kv_len
         head = [ctypes.c_int] * (2 if name == "decode_attention_fwd" else 1)
-        head += [ctypes.c_void_p] * 6
+        head += [ctypes.c_void_p] * 7
         fn.argtypes = (head + [ctypes.c_int] * 7 + [ctypes.c_int64] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
@@ -62,13 +68,13 @@ def _sm_count(device_index: int) -> int:
     return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
-def split_plan(B: int, KV: int, kv_len: int, n_sm: int) -> tuple[int, int]:
-    """The CUDA-core kernel's (split_len, n_split): cut the first ``kv_len``
-    cache rows into whole tiles per block so that B * KV * n_split blocks
-    fill the card about twice over."""
+def split_plan(B: int, KV: int, S: int, n_sm: int) -> tuple[int, int]:
+    """The CUDA-core kernel's (split_len, n_split): cut the cache's ``S``
+    slots (its capacity, not the live length) into whole tiles per block so
+    that B * KV * n_split blocks fill the card about twice over."""
     want = max(1, -(-2 * n_sm // (B * KV)))
-    split_len = TILE * max(1, -(-kv_len // (TILE * want)))
-    return split_len, -(-kv_len // split_len)
+    split_len = TILE * max(1, -(-S // (TILE * want)))
+    return split_len, -(-S // split_len)
 
 
 def n_head_tiles(H: int, KV: int) -> int:
@@ -76,13 +82,14 @@ def n_head_tiles(H: int, KV: int) -> int:
     return -(-(H // KV) // 16)
 
 
-def mma_split_plan(B: int, KV: int, n_mt: int, kv_len: int, n_sm: int) -> tuple[int, int]:
-    """The tensor-core kernel's (split_len, n_split): cut the first
-    ``kv_len`` cache rows into splits of whole STEP-key steps so that the
-    B * KV * n_mt * n_split blocks are one wave on ``n_sm`` SMs, at least
-    half of it where there are steps enough (never more splits than
-    steps)."""
-    steps = -(-kv_len // STEP)
+def mma_split_plan(B: int, KV: int, n_mt: int, S: int, n_sm: int) -> tuple[int, int]:
+    """The tensor-core kernel's (split_len, n_split): cut the cache's ``S``
+    slots (its capacity, not the live length) into splits of whole STEP-key
+    steps so that the B * KV * n_mt * n_split blocks are one wave on
+    ``n_sm`` SMs, at least half of it where there are steps enough (never
+    more splits than steps).  At a live length kv_len < S only the first
+    ceil(kv_len / split_len) splits do work."""
+    steps = -(-S // STEP)
     want = max(1, n_sm // (B * KV * n_mt))
     per = -(-steps // want)
     return STEP * per, -(-steps // per)
@@ -101,7 +108,7 @@ def _counters(device: torch.device, n: int) -> torch.Tensor:
     return buf
 
 
-def _check(q, k, v, kv_len):
+def _check(q, k, v):
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError("decode_attention_fwd takes CUDA tensors")
     if not (q.device == k.device == v.device):
@@ -115,8 +122,6 @@ def _check(q, k, v, kv_len):
     B, H, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"shapes q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
-    if not 1 <= kv_len <= k.shape[1]:
-        raise ValueError(f"kv_len {kv_len} outside [1, {k.shape[1]}]")
     if D > 1024:
         raise ValueError(f"head_dim {D} > 1024")
     if q.stride(2) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
@@ -129,15 +134,36 @@ def _check(q, k, v, kv_len):
                                  "time: k and v rows must start on 16-byte boundaries")
 
 
-def decode_attention_fwd(q, k, v, kv_len: int):
+def device_kv_len(kv_len, S: int, device: torch.device) -> torch.Tensor:
+    """``kv_len`` as the one int32 in device memory that the kernels read.
+    A Python int is checked against [1, S] here and written by a fill
+    kernel (no blocking host-to-device copy); a tensor, which the host
+    cannot read without waiting for the device, is checked for its
+    shape, dtype and device only (the kernels clamp it to [0, S])."""
+    if isinstance(kv_len, torch.Tensor):
+        if kv_len.numel() != 1 or kv_len.dtype != torch.int32:
+            raise ValueError(f"a tensor kv_len is one int32; got {kv_len.dtype} "
+                             f"{tuple(kv_len.shape)}")
+        if kv_len.device != device:
+            raise ValueError(f"kv_len lies on {kv_len.device}, the cache on {device}")
+        return kv_len
+    kv_len = int(kv_len)
+    if not 1 <= kv_len <= S:
+        raise ValueError(f"kv_len {kv_len} outside [1, {S}]")
+    return torch.full((1,), kv_len, dtype=torch.int32, device=device)
+
+
+def decode_attention_fwd(q, k, v, kv_len):
     """q [B, H, D]; k, v [B, S, KV, D] (CUDA; q f32 or bf16, the cache f32,
     bf16 or fp8 e4m3; any strides with a contiguous last dim, the tensor-core
     variant's cache rows 16-byte aligned); attends to the first ``kv_len``
-    cache rows -> [B, H, D] in q's dtype."""
-    kv_len = int(kv_len)
-    _check(q, k, v, kv_len)
+    cache rows -> [B, H, D] in q's dtype.  ``kv_len`` is a Python int or a
+    one-element int32 tensor on q's device (``device_kv_len``); the grid
+    depends on S alone, so one launch and its replays serve every length."""
+    _check(q, k, v)
     B, H, D = q.shape
-    KV = k.shape[2]
+    S, KV = k.shape[1], k.shape[2]
+    kv = device_kv_len(kv_len, S, q.device)
     dev = q.device.index
     kind = variant(q.dtype, k.dtype, D)
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
@@ -151,7 +177,7 @@ def decode_attention_fwd(q, k, v, kv_len: int):
         stream = torch.cuda.current_stream(dev).cuda_stream
         if kind == "mma":
             n_mt = n_head_tiles(H, KV)
-            split_len, n_split = mma_split_plan(B, KV, n_mt, kv_len, _sm_count(dev))
+            split_len, n_split = mma_split_plan(B, KV, n_mt, S, _sm_count(dev))
             # f32 partials: acc [B, KV, n_mt, n_split, 16, D], then (M, L)
             # [B, KV, n_mt, n_split, 16, 2]; none with one split
             part = (torch.empty(B * KV * n_mt * n_split * 16 * (D + 2), dtype=torch.float32,
@@ -159,11 +185,11 @@ def decode_attention_fwd(q, k, v, kv_len: int):
             err = _lib("decode_attention_mma_fwd")(
                 _KV_DTYPES[k.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 0 if part is None else part.data_ptr(),
-                _counters(q.device, B * KV * n_mt).data_ptr(),
-                B, H, KV, D, kv_len, split_len, n_split, *strides, 1.0 / (D**0.5), stream,
+                _counters(q.device, B * KV * n_mt).data_ptr(), kv.data_ptr(),
+                B, H, KV, D, S, split_len, n_split, *strides, 1.0 / (D**0.5), stream,
             )
         else:
-            split_len, n_split = split_plan(B, KV, kv_len, _sm_count(dev))
+            split_len, n_split = split_plan(B, KV, S, _sm_count(dev))
             # the split pass's scratch, in one allocation: acc [B, KV, n_split,
             # G, D] then (m, l) [B, KV, n_split, G, 2], all f32
             rows = B * H * n_split
@@ -171,8 +197,8 @@ def decode_attention_fwd(q, k, v, kv_len: int):
             part_acc = part.data_ptr()
             err = _lib("decode_attention_fwd")(
                 _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), part_acc, part_acc + 4 * rows * D,
-                B, H, KV, D, kv_len, split_len, n_split, *strides, 1.0 / (D**0.5), stream,
+                v.data_ptr(), o.data_ptr(), part_acc, part_acc + 4 * rows * D, kv.data_ptr(),
+                B, H, KV, D, S, split_len, n_split, *strides, 1.0 / (D**0.5), stream,
             )
     if err != 0:
         raise RuntimeError(f"decode_attention_fwd ({kind}) launch failed: cudaError_t {err}")

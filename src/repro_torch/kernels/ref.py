@@ -87,9 +87,12 @@ def flash_attention_bwd_ref(q, k, v, do, lse, delta, *, causal: bool = True,
     return dq, dk.reshape(B, Sk, H, D).to(k.dtype), dv.reshape(B, Sk, H, D).to(v.dtype)
 
 
-def decode_attention_ref(q, k, v, kv_len: int):
-    """q [B, H, D]; k, v [B, S, KV, D]; kv_len scalar -> [B, H, D]: one query
-    row per head against the first ``kv_len`` cache slots."""
+def decode_attention_ref(q, k, v, kv_len):
+    """q [B, H, D]; k, v [B, S, KV, D]; kv_len a Python int or a 0-d or
+    one-element int tensor -> [B, H, D]: one query row per head against the
+    first ``kv_len`` cache slots."""
+    if isinstance(kv_len, torch.Tensor):
+        kv_len = kv_len.reshape(())
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV

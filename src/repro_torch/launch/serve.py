@@ -5,10 +5,15 @@ of ``repro.launch.serve``.
 
 With ``attn_impl="pallas"`` on a CUDA device the dense family's prefill
 runs the CUDA flash-attention kernel and every decode step the CUDA
-flash-decode kernel; the ssm family's prefill and decode run the CUDA mamba
-scan once per layer, the hybrid's the CUDA RG-LRU scan once per recurrent
-layer (its windowed attention takes the plain path, as in JAX); all take
-the embedding rows with the CUDA row gather.
+flash-decode kernel; the ssm family's prefill and decode run the CUDA
+selective scan once per layer, the hybrid's the CUDA gated RG-LRU scan once
+per recurrent layer (its windowed attention takes the plain path, as in
+JAX); all take the embedding rows with the CUDA row gather.
+
+On a CUDA device ``generate`` runs the prefill eagerly and then replays one
+captured decode step (``launch.steps.CapturedDecode``, the counterpart of
+the JAX server's ``_jit_decode``) for every further token; on the CPU it
+runs the eager loop (``generate_eager``).
 
 Usage (on the card; ``--device cpu`` runs the plain path on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
@@ -26,7 +31,13 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.core.access_plan import build_access_plan
-from repro_torch.launch.steps import concrete_batch, make_decode_step, make_prefill_step
+from repro_torch.launch.steps import (
+    CapturedDecode,
+    concrete_batch,
+    make_decode_step,
+    make_prefill_step,
+    params_key,
+)
 from repro_torch.models.common import tree_items
 from repro_torch.models.transformer import decode_layers
 
@@ -38,6 +49,7 @@ class Server:
         self.max_len = max_len
         self.model, self.prefill_fn = make_prefill_step(cfg, self.device)
         _, self.decode_fn = make_decode_step(cfg, self.device)
+        self._captured: dict[int, CapturedDecode] = {}  # by batch size
 
     def plan(self, batch_size: int):
         """The CAPre access plan of one decode step, traced on the ``meta``
@@ -51,19 +63,69 @@ class Server:
         )
 
     @torch.inference_mode()
-    def generate(self, params, batch: dict, steps: int):
+    def generate(self, params, batch: dict, steps: int, *, with_logits: bool = False):
         """Prefill the prompt batch, then greedily decode: ``steps`` tokens
-        in all ([B, steps]), the first from the prefill logits."""
+        in all ([B, steps]), the first from the prefill logits; with
+        ``with_logits`` also the logits of every step ([B, steps, vocab]).
+
+        On a CUDA device the decode replays the captured step of this batch
+        size (``captured_decode``), with no host work per token beyond the
+        replay and the copy of the token out; the prompt and the tokens must
+        fit ``max_len``, which is checked here (the eager loop's cache write
+        would raise ``IndexError``).  Elsewhere the eager loop runs."""
+        if self.device.type != "cuda":
+            return self.generate_eager(params, batch, steps, with_logits=with_logits)
+        B, S = batch["inputs"].shape
+        if S + steps - 1 > self.max_len:
+            raise ValueError(f"a prompt of {S} and {steps} tokens need {S + steps - 1} "
+                             f"positions; the server holds max_len={self.max_len}")
+        logits, cache = self.prefill_fn(params, batch)
+        step = self.captured_decode(params, B)
+        tok = torch.argmax(logits, dim=-1)
+        step.load(cache, tok, S)
+        del cache
+        out = torch.empty((B, steps), dtype=tok.dtype, device=self.device)
+        out[:, :1] = tok
+        if with_logits:
+            all_logits = logits.new_empty((B, steps, logits.shape[-1]))
+            all_logits[:, :1] = logits
+        for i in range(1, steps):
+            step.replay()
+            out[:, i : i + 1] = step.tokens
+            if with_logits:
+                all_logits[:, i : i + 1] = step.logits
+        return (out, all_logits) if with_logits else out
+
+    @torch.inference_mode()
+    def generate_eager(self, params, batch: dict, steps: int, *, with_logits: bool = False):
+        """``generate`` with every decode step run eagerly from the host at an
+        int position: the plain loop, which the captured step must equal."""
         B, S = batch["inputs"].shape
         logits, cache = self.prefill_fn(params, batch)
         cache = self._pad_cache(cache)
         tok = torch.argmax(logits, dim=-1)
-        out = [tok]
+        out, outs = [tok], [logits]
         for i in range(steps - 1):
             logits, cache = self.decode_fn(params, cache, tok, S + i)
             tok = torch.argmax(logits, dim=-1)
             out.append(tok)
-        return torch.cat(out, dim=1)
+            outs.append(logits)
+        out = torch.cat(out, dim=1)
+        return (out, torch.cat(outs, dim=1)) if with_logits else out
+
+    @torch.inference_mode()
+    def captured_decode(self, params, batch_size: int) -> CapturedDecode:
+        """The captured decode step for ``batch_size`` rows over this
+        server's ``max_len`` and these ``params``, captured at the first
+        call (and again when the params lie elsewhere)."""
+        step = self._captured.get(batch_size)
+        if step is None or step.key != params_key(params):
+            self._captured.pop(batch_size, None)  # its graph and buffers go first
+            step = CapturedDecode(self.decode_fn, params,
+                                  self.model.abstract_cache(batch_size, self.max_len),
+                                  self.device)
+            self._captured[batch_size] = step
+        return step
 
     @torch.inference_mode()
     def stream_decode(self, streamer, cache: dict, tokens, pos: int):

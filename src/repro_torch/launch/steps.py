@@ -3,8 +3,12 @@ and examples.  Counterpart of ``repro.launch.steps`` on one device (the
 mesh-info and abstract-input parts wait for the multi-device slice).
 
 PyTorch runs eagerly, so a step is a plain function (the serving steps
-under ``torch.inference_mode``); the JAX package's ``jit`` has no
-counterpart here.
+under ``torch.inference_mode``).  The JAX server's compiled decode step
+(``jax.jit(decode_fn, donate_argnums=(1,))``, replayed with ``pos`` as a
+traced int32) has its counterpart in ``CapturedDecode``: the eager step
+captured once in a CUDA graph over static buffers, the position among them
+on the device, and replayed for every token.  The train and prefill steps
+stay eager (they are bound by the device, not by the host).
 """
 
 from __future__ import annotations
@@ -15,6 +19,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.kernels import counters
 from repro_torch.models.common import tree_items, tree_map
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamW, warmup_cosine
@@ -82,14 +87,95 @@ def make_prefill_step(cfg: ModelConfig, device="cuda"):
 
 def make_decode_step(cfg: ModelConfig, device="cuda"):
     """(model, decode_step(params, cache, tokens, pos) -> (logits, cache));
-    the step writes into ``cache`` in place."""
+    the step writes into ``cache`` in place.  ``pos`` is a Python int or a
+    0-d int tensor on the model's device."""
     model = Model(cfg, device=device)
 
     @torch.inference_mode()
-    def decode_step(params, cache, tokens, pos: int):
+    def decode_step(params, cache, tokens, pos):
         return model.decode_step(params, cache, tokens, pos)
 
     return model, decode_step
+
+
+class CapturedDecode:
+    """One greedy decode step captured in a CUDA graph: the counterpart of
+    the JAX server's ``jax.jit(decode_fn, donate_argnums=(1,))``.
+
+    The graph reads and writes static buffers on the card: ``tokens``
+    [B, 1] int64 (the token at ``pos``), ``pos`` (0-d int64), ``cache`` (zeros
+    shaped as ``cache_like``: the padded layout ``Server._pad_cache``
+    gives) and ``logits`` [B, 1, vocab] f32.  One ``replay()`` runs
+    ``decode_fn`` at the device ``pos`` (the cache written in place), writes
+    the logits, the greedy next token into ``tokens`` and ``pos + 1`` into
+    ``pos``: no host work beyond the launch of the graph.
+
+    The step is warmed up on a side stream before the capture, so that the
+    kernels' builds, cuBLAS's handles, flash-decode's ticket buffer and the
+    allocator's blocks exist before it begins; the capture's own launch
+    counts are taken back and added again on every replay
+    (``kernels.counters``).  The graph reads ``params`` where they lay at
+    the capture, and holds no reference to them: ``key`` is their (address,
+    shape, stride, dtype) leaf by leaf, which a caller checks before it
+    replays (``Server.captured_decode``).  A capture that fails raises."""
+
+    def __init__(self, decode_fn, params: dict, cache_like: dict, device):
+        self.decode_fn = decode_fn
+        self.key = params_key(params)
+        B = next(iter(cache_like.values())).shape[1]
+        self.tokens = torch.zeros((B, 1), dtype=torch.int64, device=device)
+        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.cache = {k: torch.zeros(c.shape, dtype=c.dtype, device=device)
+                      for k, c in cache_like.items()}
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            for _ in range(2):
+                self._step(params)
+        torch.cuda.current_stream(device).wait_stream(side)
+        self.graph = torch.cuda.CUDAGraph()
+        before = counters.snapshot()
+        try:
+            with torch.cuda.graph(self.graph):
+                self._step(params)
+        finally:
+            self.launches = counters.since(before)  # per replay
+            counters.add(self.launches, -1)  # the capture launched nothing
+
+    def _step(self, params):
+        self.logits, _ = self.decode_fn(params, self.cache, self.tokens, self.pos)
+        self.tokens.copy_(torch.argmax(self.logits, dim=-1))
+        self.pos.add_(1)
+
+    @torch.inference_mode()
+    def load(self, cache: dict, tokens, pos: int) -> None:
+        """Start from a prefill: its ``cache`` into the static one (a k/v
+        cache with fewer slots into the first ones, the rest zeroed, as
+        ``Server._pad_cache`` pads), ``tokens`` [B, 1] and ``pos``, the
+        position of those tokens."""
+        for key, buf in self.cache.items():
+            src = cache[key]
+            if src.dtype != buf.dtype:
+                raise TypeError(f"cache {key!r}: {src.dtype}, the captured step holds {buf.dtype}")
+            if src.shape == buf.shape:
+                buf.copy_(src)
+            else:  # a k/v cache [L, B, slots, KV, hd] with fewer slots
+                n = src.shape[2]
+                buf[:, :, :n].copy_(src)
+                buf[:, :, n:].zero_()
+        self.tokens.copy_(tokens)
+        self.pos.fill_(pos)
+
+    def replay(self) -> None:
+        self.graph.replay()
+        counters.add(self.launches)
+
+
+def params_key(params: dict) -> tuple:
+    """What a captured step reads of ``params``: each leaf's address, shape,
+    stride and dtype."""
+    return tuple((path, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+                 for path, t in tree_items(params))
 
 
 def concrete_batch(cfg: ModelConfig, shape_or_bs, seq_len: Optional[int] = None,

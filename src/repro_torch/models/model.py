@@ -329,9 +329,11 @@ class Model:
         k, v = extras
         return {"k": k.to(kvdt), "v": v.to(kvdt)}
 
-    def decode_step(self, params, cache, tokens, pos: int):
+    def decode_step(self, params, cache, tokens, pos):
         """One decode step. tokens [B, 1] int; ``pos``: the position of the
-        new token.  Writes the new k/v (and recurrent states) into ``cache``
+        new token, a Python int or a 0-d int tensor on the model's device
+        (the JAX step's traced int32, which a captured CUDA graph reads at
+        replay).  Writes the new k/v (and recurrent states) into ``cache``
         in place and returns (logits [B, 1, vocab], cache)."""
         x = self.embed(params, tokens)
         h, cache = decode_layers(params, self.cfg, x, cache, pos)

@@ -211,24 +211,34 @@ def forward_hybrid(params, cfg, x, positions, *, collect_cache=False):
 # ---------------------------------------------------------------------------
 
 
-def _decode_attn(x, lp, cfg, dt, k_cache, v_cache, pos: int, angles, *, window: int = 0):
+def _decode_attn(x, lp, cfg, dt, k_cache, v_cache, pos, angles, *, window: int = 0,
+                 kv_len=None):
     """One-token attention against a cache [B, S, KV, hd]: writes the new
     k/v at ``pos`` (or ``pos % window`` for ring caches) and attends to the
     positions it holds; ``angles``: ``rope_angles`` of position ``pos``.
+    ``pos`` is a Python int or a 0-d int tensor on the step's device;
+    ``kv_len`` is ``pos + 1`` in the form flash-decode takes (``_kv_len``).
 
     The write is in place into ``k_cache`` / ``v_cache`` (views of the
     stacked cache): the counterpart of the JAX code's
-    ``dynamic_update_slice`` on a donated buffer.  A slot outside the cache
-    raises ``IndexError`` where JAX's write would be clamped onto the last
-    slot, so a ring must hold ``min(window, max_len)`` slots
-    (``Server._pad_cache``)."""
+    ``dynamic_update_slice`` on a donated buffer; at a device position it
+    is an ``index_copy_`` on the slot dim, which a CUDA graph can replay.
+    At an int position a slot outside the cache raises ``IndexError`` where
+    JAX's write would be clamped onto the last slot, so a ring must hold
+    ``min(window, max_len)`` slots (``Server._pad_cache``); at a device
+    position the caller checks the range on the host before it replays."""
     h = apply_norm(cfg.norm, x, lp["ln1"], lp.get("ln1_b"))
     q, k, v = qkv_project(h, lp["attn"], cfg, dt)
     q = apply_rope(q, angles)
     k = apply_rope(k, angles)
     slot = pos % window if window else pos
-    k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
-    v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+    if isinstance(pos, torch.Tensor):
+        at = slot.reshape(1).long()
+        k_cache.index_copy_(1, at, k.to(k_cache.dtype))
+        v_cache.index_copy_(1, at, v.to(v_cache.dtype))
+    else:
+        k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+        v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
     if window:
         # ring buffer: mask by the absolute position each slot holds
         S = k_cache.shape[1]
@@ -236,14 +246,17 @@ def _decode_attn(x, lp, cfg, dt, k_cache, v_cache, pos: int, angles, *, window: 
         ring_pos = pos - ((slot - idx) % S)
         valid = (ring_pos >= 0) & (ring_pos >= pos - window + 1)
         o = _masked_decode_attention(q, k_cache, v_cache, valid, cfg)
-    elif cfg.attn_impl == "pallas" and k_cache.shape[1] % 128 == 0:
+        return x + attn_output(o, lp["attn"], cfg, dt)
+    if kv_len is None:
+        kv_len = _kv_len(pos)
+    if cfg.attn_impl == "pallas" and k_cache.shape[1] % 128 == 0:
         # the flash-decode kernel reads the cache in its stored dtype (fp8
         # caches halve the traffic) and only the first pos + 1 slots
-        o = ops.decode_attention(q[:, 0], k_cache, v_cache, pos + 1).to(dt)[:, None]
+        o = ops.decode_attention(q[:, 0], k_cache, v_cache, kv_len).to(dt)[:, None]
     else:
         o = gqa_attention(
             q, k_cache.to(dt), v_cache.to(dt), causal=False,
-            impl="naive", q_offset=pos, kv_len=pos + 1,
+            impl="naive", q_offset=pos, kv_len=kv_len,
         )
     return x + attn_output(o, lp["attn"], cfg, dt)
 
@@ -262,15 +275,35 @@ def _masked_decode_attention(q, k_cache, v_cache, valid, cfg):
     return o.reshape(B, 1, H, hd)
 
 
-def decode_stack(params, cfg, x, cache, pos: int):
-    """Dense decode over all layers; updates ``cache`` in place and returns
-    (x, cache)."""
+def _kv_len(pos):
+    """The live cache length after the write at ``pos``: ``pos + 1``, as an
+    int, or as the one-element int32 tensor flash-decode reads on the
+    device."""
+    if isinstance(pos, torch.Tensor):
+        return (pos + 1).to(torch.int32)
+    return pos + 1
+
+
+def _step_angles(cfg, pos, B: int, device):
+    """``rope_angles`` of the decode position ``pos`` for a batch of ``B``: a
+    device ``pos`` expanded to [B, 1], an int filled in."""
+    if isinstance(pos, torch.Tensor):
+        positions = pos.reshape(1, 1).expand(B, 1)
+    else:
+        positions = torch.full((B, 1), pos, dtype=torch.int32, device=device)
+    return rope_angles(cfg.rope, positions, cfg.head_dim, cfg.rope_theta)
+
+
+def decode_stack(params, cfg, x, cache, pos):
+    """Dense decode over all layers at ``pos`` (an int, or a 0-d int tensor
+    on x's device); updates ``cache`` in place and returns (x, cache)."""
     dt = cfg_dtype(cfg)
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-    angles = rope_angles(cfg.rope, positions, cfg.head_dim, cfg.rope_theta)
+    angles = _step_angles(cfg, pos, x.shape[0], x.device)
+    kv_len = _kv_len(pos)  # once per step, not per layer
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
-        x = _decode_attn(x, lp, cfg, dt, cache["k"][l], cache["v"][l], pos, angles)
+        x = _decode_attn(x, lp, cfg, dt, cache["k"][l], cache["v"][l], pos, angles,
+                         kv_len=kv_len)
         x = ffn_block(x, lp, cfg, dt)
     return x, cache
 
@@ -290,13 +323,13 @@ def decode_ssm(params, cfg, x, cache):
     return x, cache
 
 
-def decode_hybrid(params, cfg, x, cache, pos: int):
-    """hybrid decode: one step per rec layer from its (conv, rec) states,
-    one ring-window attention per attn layer; overwrites the cache in
-    place and returns (x, cache)."""
+def decode_hybrid(params, cfg, x, cache, pos):
+    """hybrid decode at ``pos`` (an int, or a 0-d int tensor on x's
+    device): one step per rec layer from its (conv, rec) states, one
+    ring-window attention per attn layer; overwrites the cache in place
+    and returns (x, cache)."""
     dt = cfg_dtype(cfg)
-    positions = torch.full((x.shape[0], 1), pos, dtype=torch.int32, device=x.device)
-    angles = rope_angles(cfg.rope, positions, cfg.head_dim, cfg.rope_theta)
+    angles = _step_angles(cfg, pos, x.shape[0], x.device)
     rec_i = attn_i = 0
     for kind in block_kinds(cfg):
         if kind == "rec":
@@ -318,8 +351,10 @@ def decode_hybrid(params, cfg, x, cache, pos: int):
     return x, cache
 
 
-def decode_layers(params, cfg, x, cache, pos: int):
-    """The layer stack of one decode step, for the config's family."""
+def decode_layers(params, cfg, x, cache, pos):
+    """The layer stack of one decode step, for the config's family; ``pos``
+    is an int or a 0-d int tensor on x's device (the ssm family reads
+    none)."""
     if cfg.family == "ssm":
         return decode_ssm(params, cfg, x, cache)
     if cfg.family == "hybrid":

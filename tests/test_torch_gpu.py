@@ -173,7 +173,7 @@ def test_decode_tickets_survive_cuda_graph_replay(cuda):
     k = _randn(gen, (4, 1024, 2, 128), torch.bfloat16, cuda)
     v = _randn(gen, (4, 1024, 2, 128), torch.bfloat16, cuda)
     want = decode_attention_fwd(q, k, v, 528)
-    assert dec.mma_split_plan(4, 2, 1, 528, dec._sm_count(cuda.index or 0))[1] > 1
+    assert dec.mma_split_plan(4, 2, 1, 1024, dec._sm_count(cuda.index or 0))[1] > 1
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
@@ -784,3 +784,120 @@ def test_recurrent_kernel_path_matches_plain_path(cuda, arch):
         assert counter.launches - n0 == (4 * per_call if impl == "pallas" else 0)
     scale = float(out["chunked"].abs().max())
     assert float((out["pallas"] - out["chunked"]).abs().max()) <= 1e-5 * scale
+
+
+# ---------------------------------------------------------------------------
+# flash-decode's kv_len in device memory, and the captured decode step
+# ---------------------------------------------------------------------------
+
+
+def _kv(n, device):
+    return torch.full((1,), n, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,D", [
+    (torch.bfloat16, torch.bfloat16, 128),      # tensor cores
+    (torch.bfloat16, torch.float8_e4m3fn, 64),  # tensor cores, fp8 cache
+    (torch.float32, torch.bfloat16, 128),       # CUDA cores
+    (torch.float32, torch.float8_e4m3fn, 64),   # CUDA cores, fp8 cache
+])
+def test_decode_device_kv_len_is_bitwise_the_int_form(cuda, q_dtype, kv_dtype, D):
+    """kv_len read from device memory, at 1, around the 16-key steps and the
+    splits of the capacity-sized grid, and at S: the int form's output bit
+    for bit, and the plain version's within the tolerance."""
+    from repro_torch.kernels import decode_attention as dec
+
+    B, S, H, KV = 4, 1024, 32, 2
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    q = _randn(gen, (B, H, D), q_dtype, cuda)
+    k = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    v = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    n_sm = dec._sm_count(cuda.index or 0)
+    if dec.variant(q_dtype, kv_dtype, D) == "mma":
+        split_len = dec.mma_split_plan(B, KV, dec.n_head_tiles(H, KV), S, n_sm)[0]
+    else:
+        split_len = dec.split_plan(B, KV, S, n_sm)[0]
+    lens = sorted({1, 15, 16, 17, split_len - 1, split_len, split_len + 1, 528, S - 1, S})
+    for kv_len in lens:
+        want = decode_attention_fwd(q, k, v, kv_len)
+        got = decode_attention_fwd(q, k, v, _kv(kv_len, cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), kv_len
+        _close(got, ref.decode_attention_ref(q, k, v, kv_len), **TOL[q_dtype])
+    assert int(dec._COUNTERS[cuda.index or 0].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("q_dtype", [torch.bfloat16, torch.float32])
+def test_decode_capture_replays_at_every_kv_len(cuda, q_dtype):
+    """One captured flash-decode, its length written into the device int
+    between replays, equals a fresh call at each length."""
+    from repro_torch.kernels import decode_attention as dec
+
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    q = _randn(gen, (4, 32, 128), q_dtype, cuda)
+    k = _randn(gen, (4, 1024, 2, 128), torch.bfloat16, cuda)
+    v = _randn(gen, (4, 1024, 2, 128), torch.bfloat16, cuda)
+    kv = _kv(1, cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_fwd(q, k, v, kv)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_fwd(q, k, v, kv)
+    for kv_len in (1, 17, 528, 64, 1024, 2, 528):
+        kv.fill_(kv_len)
+        graph.replay()
+        want = decode_attention_fwd(q, k, v, kv_len)
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), kv_len
+    assert int(dec._COUNTERS[cuda.index or 0].abs().sum()) == 0
+
+
+GRAPH_CASES = [("chatglm3_6b", "bfloat16"), ("chatglm3_6b", "float32"),
+               ("falcon_mamba_7b", "bfloat16"), ("recurrentgemma_2b", "bfloat16"),
+               ("recurrentgemma_2b", "float32")]
+
+
+@pytest.mark.parametrize("arch,dtype", GRAPH_CASES)
+def test_captured_generate_is_bitwise_the_eager_loop(cuda, arch, dtype):
+    """``Server.generate`` on the card replays one captured step: its tokens
+    and the logits of every step equal the eager loop's bit for bit (the
+    same kernels at the same grids), with the hybrid's ring wrapping."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+
+    cfg = get_smoke_config(arch).replace(compute_dtype=dtype, attn_impl="pallas")
+    server = Server(cfg, device="cuda", max_len=256)
+    params = server.model.compute_params(server.model.init_params(seed=0))
+    batch = {"inputs": concrete_batch(cfg, 2, 16, device="cuda")["inputs"]}
+    for _ in range(2):  # the first call captures, the second reuses
+        tokens, logits = server.generate(params, batch, 12, with_logits=True)
+        want_tokens, want_logits = server.generate_eager(params, batch, 12, with_logits=True)
+        torch.cuda.synchronize()
+        assert torch.equal(tokens, want_tokens)
+        assert torch.equal(logits, want_logits)
+    assert list(server._captured) == [2]
+
+
+@pytest.mark.parametrize("arch", ["chatglm3_6b", "falcon_mamba_7b", "recurrentgemma_2b"])
+def test_captured_generate_counts_the_eager_launches(cuda, arch):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import counters
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+
+    cfg = get_smoke_config(arch).replace(compute_dtype="bfloat16", attn_impl="pallas")
+    server = Server(cfg, device="cuda", max_len=256)
+    params = server.model.compute_params(server.model.init_params(seed=0))
+    batch = {"inputs": concrete_batch(cfg, 2, 16, device="cuda")["inputs"]}
+    server.generate(params, batch, 2)  # captures
+    counted = {}
+    for run in (server.generate_eager, server.generate):
+        before = counters.snapshot()
+        run(params, batch, 9)
+        counted[run.__name__] = counters.since(before)
+    assert counted["generate"] == counted["generate_eager"]
+    assert counted["generate"][(counters.prefetch_gather_fwd, "launches")] == 9
