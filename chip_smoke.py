@@ -78,13 +78,16 @@ Phases, each printing its lines; any failure exits non-zero:
      bound and the backward of PyTorch's scaled_dot_product_attention (a
      yardstick);
   smoke: the chatglm3 and yi smoke configs (head_dim 16 and 8), unmodified,
-     and chatglm3's with head_dim 256 and 20 (which the flash kernels run on
-     the CUDA cores), all at depth 2 and unwindowed, with
-     ``attn_impl="pallas"``: served (B=2, prompt 128, 8 tokens) through
-     the flash forward and flash-decode, logits against the plain path in
-     bf16 (naive) and f32 (chunked), and one training step's gradients
-     through both backward kernels against the plain chunked path, in bf16
-     and f32;
+     and chatglm3's with head_dim 256, 20 and 320 (which the flash kernels
+     run on the CUDA cores, 320 in two pieces of the D = 256 build), and
+     the qwen3-moe and granite-moe smoke configs, all at depth 2 and
+     unwindowed, with ``attn_impl="pallas"``: served (B=2, prompt 128, 8
+     tokens) through the flash forward and flash-decode, the captured
+     decode bitwise the eager loop, logits against the plain path in bf16
+     (naive) and f32 (chunked), and (all but the moe configs, whose
+     training waits for MoE training) one training step's gradients
+     through both backward kernels against the plain chunked path, in
+     bf16 and f32;
   6. train: chatglm3-6b at full width.  (a) At depth 2, one step's gradient
      of every parameter on the kernel path against the plain chunked path,
      in bf16 and in f32.  (b) At depth 16 (the depth whose f32 parameters,
@@ -120,6 +123,25 @@ Phases, each printing its lines; any failure exits non-zero:
      (``"chunked"``), teacher-forced on the generated tokens (prefill and 8
      steps), in bf16 (at full depth, and at depth 3 with a tighter limit)
      and, with the same weights drawn again in f32, in f32.
+  9. qwen3-moe-30b-a3b (``[moe]``) and 10. granite-moe-1b-a400m
+     (``[granite]``) at full width and depth (48 and 24 layers, 128 and 32
+     experts, top-8), each after every earlier model is freed, bf16
+     weights made on the card (61.07 and 2.67 GB), served by
+     ``Server.generate`` as in phase 4 (B=4, prompt 512, 32 tokens, cache
+     1024): prefill ms, decode ms per step and tokens/s captured and eager,
+     busy share, the replayed step's device time and a profile of 8
+     replays, peak memory, the step's byte bound (every expert's weights:
+     capacity 1 at B=4); tokens and logits bitwise equal; launches 48 / 24
+     flash, 1,488 / 744 flash-decode all on the tensor cores, 32 gathers;
+     one eager decode step under ``torch.cuda.set_sync_debug_mode("error")``
+     (no host sync).  Then at depth 2 and full width the kernel path
+     against the plain path teacher-forced, with the plain path fed the
+     kernel path's expert choices and the choices it would have made
+     itself counted against them, call by call (prefill chunk or decode
+     step, and layer): in f32 (chunked) no choice may differ and the
+     logits agree within 1e-3; in bf16 (naive) the differing choices are
+     printed with where they fall, the plain path's own routing is printed
+     beside, and the logits on the kernel path's routes agree within 2e-2.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -198,6 +220,8 @@ TRAIN_DEPTH = 16
 RECURRENT_REL_TOL_BF16 = LOGITS_REL_TOL_BF16
 RECURRENT_REL_TOL_BF16_DEPTH3 = 2e-2
 RECURRENT = ("falcon_mamba_7b", "recurrentgemma_2b")
+# the moe family's full configs and their phases' tags
+MOE = (("qwen3_moe_30b_a3b", "moe"), ("granite_moe_1b_a400m", "granite"))
 # the fused RG-LRU kernel's f32 outputs against its plain version, relative
 # to the largest: both round every product and sum alike, so they are
 # expected bitwise equal (printed); this limit allows only for the card's
@@ -647,28 +671,31 @@ def phase_gather(torch, ref, gather_fwd):
     }
 
 
-def teacher_forced(torch, cfg, params, batch, tokens, max_len: int, plain: str = "chunked"):
-    """Logits [B, T, vocab] of the kernel path (``attn_impl="pallas"``) and
-    the plain path (``plain``), each fed the prompt and then
-    ``tokens[:, :-1]`` one decode step at a time."""
+def path_logits(torch, cfg, impl: str, params, batch, tokens, max_len: int):
+    """Logits [B, T, vocab] of the path ``attn_impl=impl``, fed the prompt
+    and then ``tokens[:, :-1]`` one decode step at a time."""
     from repro_torch.launch.serve import Server
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
 
     prompt = batch["inputs"].shape[1]
-    out = {}
-    for impl in ("pallas", plain):
-        c = cfg.replace(attn_impl=impl)
-        _, prefill_fn = make_prefill_step(c, "cuda")
-        _, decode_fn = make_decode_step(c, "cuda")
-        logits, cache = prefill_fn(params, batch)
-        cache = Server(c, "cuda", max_len)._pad_cache(cache)
-        steps = [logits]
-        for i in range(tokens.shape[1] - 1):
-            logits, cache = decode_fn(params, cache, tokens[:, i : i + 1], prompt + i)
-            steps.append(logits)
-        out[impl] = torch.cat(steps, dim=1)
-        del cache
-    return out["pallas"], out[plain]
+    c = cfg.replace(attn_impl=impl)
+    _, prefill_fn = make_prefill_step(c, "cuda")
+    _, decode_fn = make_decode_step(c, "cuda")
+    logits, cache = prefill_fn(params, batch)
+    cache = Server(c, "cuda", max_len)._pad_cache(cache)
+    steps = [logits]
+    for i in range(tokens.shape[1] - 1):
+        logits, cache = decode_fn(params, cache, tokens[:, i : i + 1], prompt + i)
+        steps.append(logits)
+    return torch.cat(steps, dim=1)
+
+
+def teacher_forced(torch, cfg, params, batch, tokens, max_len: int, plain: str = "chunked"):
+    """Logits [B, T, vocab] of the kernel path (``attn_impl="pallas"``) and
+    the plain path (``plain``), each fed the prompt and then
+    ``tokens[:, :-1]`` one decode step at a time."""
+    return tuple(path_logits(torch, cfg, impl, params, batch, tokens, max_len)
+                 for impl in ("pallas", plain))
 
 
 def rel_err(torch, got, want) -> tuple[float, float]:
@@ -1425,25 +1452,32 @@ def phase_train(torch, counters: dict) -> dict:
     return launches
 
 
-# (arch, head_dim override or 0): the chatglm3 and yi smoke configs as they
-# are (head_dim 16 and 8), and chatglm3's with head_dim 256 (the largest of
-# any config, recurrentgemma-2b's) and 20 (a bf16 row that is not a multiple
-# of 16 bytes), which the flash kernels run on the CUDA cores
-SMOKE_CONFIGS = (("chatglm3_6b", 0), ("yi_34b", 0), ("chatglm3_6b", 256), ("chatglm3_6b", 20))
+# (arch, head_dim override or 0, whether to train): the chatglm3 and yi
+# smoke configs as they are (head_dim 16 and 8), and chatglm3's with
+# head_dim 256 (the largest of any config, recurrentgemma-2b's), 20 (a bf16
+# row that is not a multiple of 16 bytes) and 320 (past 256: the D = 256
+# build in two pieces), which the flash kernels run on the CUDA cores; and
+# the two moe smoke configs (head_dim 16), served only: their training
+# step waits for MoE training
+SMOKE_CONFIGS = (("chatglm3_6b", 0, True), ("yi_34b", 0, True), ("chatglm3_6b", 256, True),
+                 ("chatglm3_6b", 20, True), ("chatglm3_6b", 320, True),
+                 ("qwen3_moe_30b_a3b", 0, False), ("granite_moe_1b_a400m", 0, False))
 
 
 def phase_smoke_configs(torch, counters: dict) -> None:
     """The smoke configs of ``SMOKE_CONFIGS`` (depth 2, unwindowed) with
     ``attn_impl="pallas"``: served through the flash forward and
-    flash-decode, logits against the plain path, then one training step's
-    gradients through both backward kernels against the plain path."""
+    flash-decode (the captured step and the eager loop, tokens and logits
+    bitwise), logits against the plain path, then (where the config trains)
+    one training step's gradients through both backward kernels against the
+    plain path."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels.flash_attention import padded_head_dim, route
     from repro_torch.launch.serve import Server
     from repro_torch.launch.steps import concrete_batch
 
     B, prompt, gen_tokens, max_len = 2, 128, 8, 256
-    for arch, head_dim in SMOKE_CONFIGS:
+    for arch, head_dim, train in SMOKE_CONFIGS:
         cfg = get_smoke_config(arch).replace(attn_impl="pallas")
         if head_dim:
             cfg = cfg.replace(head_dim=head_dim, name=f"{cfg.name}-hd{head_dim}")
@@ -1454,15 +1488,20 @@ def phase_smoke_configs(torch, counters: dict) -> None:
         server.captured_decode(params, B)  # the capture (and its warm-up) before the count
         for c in counters.values():
             c.launches = 0
-        tokens = server.generate(params, batch, gen_tokens)
+        tokens, logits = server.generate(params, batch, gen_tokens, with_logits=True)
         torch.cuda.synchronize()
         n = {name: c.launches for name, c in counters.items()}
+        eager_tokens, eager_logits = server.generate_eager(params, batch, gen_tokens,
+                                                           with_logits=True)
+        check(torch.equal(tokens, eager_tokens) and torch.equal(logits, eager_logits),
+              f"{cfg.name}: the captured decode is not bitwise the eager loop")
         D = cfg.head_dim
         print(f"[smoke] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
               f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {D}: served B={B} prompt "
-              f"{prompt} {gen_tokens} tokens, launches {n}; flash kernels: bf16 on "
-              f"{route(D, torch.bfloat16)} (build D = {padded_head_dim(D, torch.bfloat16)}), "
-              f"f32 on {route(D, torch.float32)}")
+              f"{prompt} {gen_tokens} tokens, launches {n}; captured decode bitwise the eager "
+              f"loop; flash kernels: bf16 on {route(D, torch.bfloat16)} (build D = "
+              f"{padded_head_dim(D, torch.bfloat16)}, {-(-D // 256)} piece(s) of the head dim "
+              f"past 128), f32 on {route(D, torch.float32)}")
         check(n["flash_attention_fwd"] == cfg.n_layers
               and n["decode_attention_fwd"] == cfg.n_layers * (gen_tokens - 1),
               f"{cfg.name}: the serve did not run the flash kernels")
@@ -1475,10 +1514,11 @@ def phase_smoke_configs(torch, counters: dict) -> None:
                                          tokens, max_len)
         check_paths(torch, f"{cfg.name} f32 compute", cfg32, kern32, plain32, LOGITS_REL_TOL_F32,
                     tag="smoke")
-        check_grads(torch, {k: counters[k] for k in ("flash_attention_fwd",
-                                                     "flash_attention_bwd_dkdv",
-                                                     "flash_attention_bwd_dq")},
-                    cfg, B, prompt, tag="smoke")
+        if train:
+            check_grads(torch, {k: counters[k] for k in ("flash_attention_fwd",
+                                                         "flash_attention_bwd_dkdv",
+                                                         "flash_attention_bwd_dq")},
+                        cfg, B, prompt, tag="smoke")
 
 
 def _check_scan(torch, label: str, got, want, tol: float) -> float:
@@ -1818,6 +1858,189 @@ def phase_recurrent(torch, arch: str, counters: dict, B: int, prompt: int,
     return launched
 
 
+def routed_logits(torch, cfg, impl: str, params, batch, tokens, max_len: int, force=None):
+    """(logits [B, T, vocab] of one path teacher-forced as in
+    ``teacher_forced``, [top-k [T, k] per router call]).  With ``force`` (a
+    list of top-k per call), every router call takes ``force``'s experts with
+    its own gates (its softmax at those experts, renormalised), and the
+    list records the experts it would have taken itself."""
+    from repro_torch.models import moe
+
+    log = []
+    topk = moe.router_topk
+
+    def recording(x2d, router_w, n_experts, k, router_dtype=torch.float32):
+        top_p, top_i = topk(x2d, router_w, n_experts, k, router_dtype)
+        if force is not None:
+            forced = force[len(log)]
+            probs = torch.softmax(x2d.to(router_dtype) @ router_w.to(router_dtype), dim=-1)
+            top_p = probs.gather(-1, forced)
+            top_p = top_p / torch.clamp(top_p.sum(-1, keepdim=True), min=1e-9)
+        log.append(top_i)
+        return top_p, (top_i if force is None else forced)
+
+    moe.router_topk = recording
+    try:
+        logits = path_logits(torch, cfg, impl, params, batch, tokens, max_len)
+    finally:
+        moe.router_topk = topk
+    return logits, log
+
+
+def route_flips(torch, cfg, kern: list, plain: list, prompt_tokens: int) -> tuple[int, list]:
+    """(choices on which the two paths differ, [(where, count)]): per router
+    call, each token's top-k experts on one path that the other did not
+    take.  Calls run layer by layer, the prefill's chunk by chunk first."""
+    check(len(kern) == len(plain), f"{cfg.name}: router calls {len(kern)} and {len(plain)}")
+    chunk = min(cfg.moe_chunk, prompt_tokens)
+    while prompt_tokens % chunk:
+        chunk //= 2
+    n_chunks = prompt_tokens // chunk
+    total, where = 0, []
+    for i, (a, b) in enumerate(zip(kern, plain)):
+        same = (a[:, :, None] == b[:, None, :]).any(-1).sum(-1)
+        n = int((a.shape[1] - same).sum())
+        if n:
+            if i < cfg.n_layers * n_chunks:
+                at = f"prefill layer {i // n_chunks} chunk {i % n_chunks}"
+            else:
+                j = i - cfg.n_layers * n_chunks
+                at = f"decode step {j // cfg.n_layers} layer {j % cfg.n_layers}"
+            where.append((at, n))
+        total += n
+    return total, where
+
+
+def check_no_host_sync(torch, server, params, batch, tag: str) -> None:
+    """One eager decode step under ``torch.cuda.set_sync_debug_mode("error")``:
+    any operation that waits for the device from the host raises."""
+    logits, cache = server.prefill_fn(params, batch)
+    cache = server._pad_cache(cache)
+    tok = torch.argmax(logits, dim=-1)
+    prompt = batch["inputs"].shape[1]
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        logits, cache = server.decode_fn(params, cache, tok, prompt)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(logits).all()), f"{server.cfg.name}: non-finite decode logits")
+    print(f"[{tag}] one eager decode step under torch.cuda.set_sync_debug_mode('error'): no "
+          "host sync")
+
+
+def phase_moe(torch, arch: str, tag: str, counters: dict, B: int, prompt: int,
+              gen_tokens: int, max_len: int) -> dict:
+    """One moe model at full width and depth, bf16 weights made on the card
+    (``param_dtype="bfloat16"``: ``torch.randn`` in bf16 leaf by leaf; the
+    router too, which is read in f32), served through ``Server.generate``
+    beside ``generate_eager`` (``time_serve``); the launch counts of the
+    first graph run; one eager decode step with no host sync; then, at
+    depth 2 and full width, the kernel path against the plain path
+    teacher-forced in bf16 and f32 with the router's choices of both paths
+    compared layer by layer (f32: none may differ).  Returns the launch
+    counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+    from repro_torch.models.common import tree_items
+
+    cfg = get_config(arch).replace(attn_impl="pallas", param_dtype="bfloat16")
+    server = Server(cfg, device="cuda", max_len=max_len)
+    model = server.model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.compute_params(model.init_params(seed=0))  # bf16 as made: no copy
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    leaves = dict(tree_items(params))
+    weight_bytes = sum(t.numel() * t.element_size() for t in leaves.values())
+    # what one decode step must read: every weight but the embedding table
+    # (B rows of it), or all of it where the head is the tied table
+    step_bytes = weight_bytes
+    if not cfg.tie_embeddings:
+        emb = leaves["embed"]
+        step_bytes -= emb.numel() * emb.element_size() - B * emb[0].numel() * emb.element_size()
+    bound_ms = step_bytes / HBM_BPS * 1e3
+    print(f"[{tag}] {cfg.name} (moe): {cfg.n_layers} layers, d_model {cfg.d_model}, heads "
+          f"{cfg.n_heads}/{cfg.n_kv_heads}, head_dim {cfg.head_dim}, {cfg.n_experts} experts "
+          f"top-{cfg.experts_per_token} (d_ff {cfg.d_ff}), vocab {cfg.vocab_size}, "
+          f"{cfg.param_count()} params ({cfg.active_param_count()} active per token), "
+          f"{weight_bytes} B of bf16 weights made on the card in {init_s:.3f} s; "
+          f"{torch.cuda.memory_allocated()} B allocated")
+    print(f"[{tag}] a decode step reads {step_bytes} B of weights (every expert: capacity "
+          f"{max(1, int(cfg.capacity_factor * B * cfg.experts_per_token / cfg.n_experts))} "
+          f"at B={B}): byte bound {bound_ms:.3f} ms per step at {HBM_BPS / 1e12} TB/s")
+    batch = concrete_batch(cfg, B, prompt, device="cuda")
+    batch.pop("targets")
+    check_no_host_sync(torch, server, params, batch, tag)
+
+    decode_steps = gen_tokens - 1
+    run = time_serve(torch, server, params, batch, gen_tokens, counters, tag)
+    tokens, launched = run["tokens"], run["launched"]
+    n_mma = run["by_variant"]["decode_attention_fwd.launches_mma"]
+    want = {n: 0 for n in counters}
+    want.update({"flash_attention_fwd": cfg.n_layers,
+                 "decode_attention_fwd": cfg.n_layers * decode_steps,
+                 "prefetch_gather_fwd": 1 + decode_steps})
+    print(f"[{tag}] launches in the first graph run: {launched} (want {want}); flash-decode on "
+          f"the tensor cores {n_mma}")
+    check(tuple(tokens.shape) == (B, gen_tokens), f"tokens shape {tuple(tokens.shape)}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token out of range")
+    check(launched == want, f"{cfg.name}: the serve's launch counts are not the path's")
+    check(n_mma == cfg.n_layers * decode_steps,
+          f"{cfg.name}: the bf16 decode did not run the tensor-core flash-decode")
+    # where the captured step's device time goes
+    step = server.captured_decode(params, B)
+    with torch.inference_mode():  # the static buffers are inference tensors
+        step.pos.fill_(prompt)
+    profile_run(torch, f"{cfg.name} 8 replays of the captured decode step",
+                lambda: [step.replay() for _ in range(8)])
+    del params, leaves, server, model, run, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # depth 2, full width: the kernel path against the plain path, with the
+    # router's choices compared (bf16 against the naive path, which rounds P
+    # as the kernels do; f32 against the chunked path)
+    cfg2 = cfg.replace(n_layers=2)
+    for dtype, plain, tol in (("bfloat16", "naive", LOGITS_REL_TOL_BF16_DEPTH2),
+                              ("float32", "chunked", LOGITS_REL_TOL_F32)):
+        c = cfg2.replace(compute_dtype=dtype, param_dtype=dtype)
+        m = Server(c, device="cuda", max_len=max_len).model
+        p = m.compute_params(m.init_params(seed=0))
+        kern, kern_routes = routed_logits(torch, c, "pallas", p, batch, tokens, max_len)
+        # the plain path fed the kernel path's routes: ``own`` records the
+        # experts it would have taken, given the same routes upstream
+        forced, own = routed_logits(torch, c, plain, p, batch, tokens, max_len,
+                                    force=kern_routes)
+        flips, where = route_flips(torch, c, [torch.sort(r, -1).values for r in kern_routes],
+                                   [torch.sort(r, -1).values for r in own], B * prompt)
+        n_choices = sum(r.numel() for r in kern_routes)
+        print(f"[{tag}] depth 2 {dtype}: router choices on which the plain {plain} path, fed "
+              f"the kernel path's routes, differs from it: {flips} of {n_choices} "
+              f"({len(kern_routes)} router calls a path)"
+              + (f"; by call: {where}" if where else ""))
+        if dtype == "float32":
+            # no choice differs, so the forced plain path is the free one
+            check(flips == 0, f"{cfg.name}: an f32 routing choice differs between the paths")
+            check_paths(torch, f"{dtype} compute, depth 2", c, kern, forced, tol,
+                        plain_impl=plain, tag=tag)
+        else:
+            free, _ = routed_logits(torch, c, plain, p, batch, tokens, max_len)
+            rel, rms = rel_err(torch, kern, free)
+            print(f"[{tag}] depth 2 {dtype}: the plain {plain} path routing on its own "
+                  f"(every flip above and what follows from it): max |logit diff| / max "
+                  f"|logit| {rel:.4e}, relative rms {rms:.4e} (not checked)")
+            check_paths(torch, f"{dtype} compute, depth 2, the plain path on the kernel "
+                        "path's routes", c, kern, forced, tol, plain_impl=plain, tag=tag)
+        del m, p, kern, forced, kern_routes, own
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
@@ -1891,6 +2114,14 @@ def main() -> int:
     for arch in RECURRENT:
         run = phase_recurrent(torch, arch, serve_counters, B, prompt, gen_tokens)
         launches.update({k: v for k, v in run.items() if k in scans and v})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the moe family at full width and depth, each after every earlier model
+    # is freed (qwen3-moe-30b-a3b's bf16 weights take 61 GB of the 80)
+    for arch, tag in MOE:
+        phase_moe(torch, arch, tag, serve_counters, B, prompt, gen_tokens, max_len)
+        gc.collect()
+        torch.cuda.empty_cache()
     for r in recs:
         r["launches"] = launches[r["name"]]
         if r["name"] in OFF_PATH:

@@ -2,8 +2,8 @@
 backs ``--arch <id>`` selection.
 
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
-package).  The port serves the dense, ssm and hybrid families so far, so
-the registry holds their six architectures; each ``<id>.py`` carries the
+package).  The port serves the dense, moe, ssm and hybrid families so far,
+so the registry holds their eight architectures; each ``<id>.py`` carries the
 exact published numbers and a ``smoke()`` reduction (same family, tiny
 dims).
 """
@@ -132,6 +132,13 @@ class ModelConfig:
 
         return count_params_config(self)
 
+    def active_param_count(self) -> int:
+        """Parameters a token reads: the moe family's expert banks count
+        ``experts_per_token / n_experts`` of their size."""
+        from repro_torch.models.model import count_params_config
+
+        return count_params_config(self, active_only=True)
+
     def replace(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
 
@@ -173,13 +180,15 @@ def runnable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
 # Registry
 # ---------------------------------------------------------------------------
 
-# the dense, ssm and hybrid families; the other four architectures of
-# ``repro.configs`` join with their families' slices
+# the dense, moe, ssm and hybrid families; the other two architectures of
+# ``repro.configs`` (encdec, and the mrope qwen2-vl) join with their slices
 ARCH_IDS = (
     "chatglm3_6b",
     "yi_34b",
     "qwen1_5_4b",
     "minitron_8b",
+    "qwen3_moe_30b_a3b",
+    "granite_moe_1b_a400m",
     "falcon_mamba_7b",
     "recurrentgemma_2b",
 )

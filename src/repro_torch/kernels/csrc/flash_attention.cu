@@ -58,9 +58,14 @@
 // columns.  The CUDA-core kernel is built for DP = 64, 128 and 256 (the
 // largest head dim of any config, recurrentgemma-2b's; its tiles take
 // ~140 KB of shared memory there) and masks its loads and stores; the
-// launcher sends it f32, and bf16 with D % 8 != 0 or 128 < D <= 256: a
-// dispatch by shape between two kernels, not a fallback.  The scale is
-// 1/sqrt(D) of the true D (the caller's).
+// launcher sends it f32, and bf16 with D % 8 != 0 or 128 < D <= 1024: a
+// dispatch by shape between two kernels, not a fallback.  A head dim past
+// 256 (up to flash-decode's 1024) runs on the D = 256 build in pieces of
+// 256 columns, since a wider build's tiles would not fit shared memory
+// (~270 KB at 512): the scores sum over the pieces, reloading the Q and K
+// columns of each, and each of ceil(D / 256) blocks per q tile writes one
+// 256-column slab of the output, so the scores are computed once per slab.
+// The scale is 1/sqrt(D) of the true D (the caller's).
 //
 // The launcher has a plain C interface (loaded with ctypes) and returns
 // the cudaError_t of the launch.
@@ -444,7 +449,13 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
   float* Vs = Ks + BK * DP;     // [BK][D]
   float* Ps = Vs + BK * D;      // [BQ][BK + 1]
 
-  const int q0 = blockIdx.x * BQ;
+  // a head dim past the build's D is walked in pieces of D columns: the
+  // scores sum over every piece (in column order, as for one piece), and
+  // the block writes the output columns of its slab only (blocks of one q
+  // tile differ in slab and compute the same scores)
+  const int pieces = (Dt + D - 1) / D;
+  const int slab = blockIdx.x % pieces;
+  const int q0 = (blockIdx.x / pieces) * BQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (H / KV);
@@ -456,11 +467,23 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
   const T* kb = k + b * k_sb + kvh * k_sh;
   const T* vb = v + b * v_sb + kvh * v_sh;
 
-  for (int idx = tid; idx < BQ * D; idx += NT) {
-    const int r = idx / D, d = idx % D;
-    const int qi = q0 + r;
-    Qs[r * DP + d] = qi < Sq && d < Dt ? to_f32(qb[qi * q_ss + d]) : 0.f;
-  }
+  // columns [d0, d0 + D) of the q tile (of a K tile) into Qs (Ks)
+  auto load_q = [&](int d0) {
+    for (int idx = tid; idx < BQ * D; idx += NT) {
+      const int r = idx / D, d = idx % D;
+      const int qi = q0 + r;
+      Qs[r * DP + d] = qi < Sq && d0 + d < Dt ? to_f32(qb[qi * q_ss + d0 + d]) : 0.f;
+    }
+  };
+  auto load_k = [&](int k0, int d0) {
+    for (int idx = tid; idx < BK * D; idx += NT) {
+      const int r = idx / D, d = idx % D;
+      const int ki = k0 + r;
+      Ks[r * DP + d] = ki < Sk && d0 + d < Dt ? to_f32(kb[ki * k_ss + d0 + d]) : 0.f;
+    }
+  };
+
+  if (pieces == 1) load_q(0);  // resident for the whole KV walk
 
   float m[TR], l[TR], acc[TR][DC];
 #pragma unroll
@@ -480,32 +503,35 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
 
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * BK;
-    __syncthreads();  // the previous tile's Ks / Vs / Ps are consumed
-    for (int idx = tid; idx < BK * D; idx += NT) {
-      const int r = idx / D, d = idx % D;
-      const int ki = k0 + r;
-      const bool ok = ki < Sk && d < Dt;
-      Ks[r * DP + d] = ok ? to_f32(kb[ki * k_ss + d]) : 0.f;
-      Vs[r * D + d] = ok ? to_f32(vb[ki * v_ss + d]) : 0.f;
-    }
-    __syncthreads();
-
     float s[TR][TC];
 #pragma unroll
     for (int i = 0; i < TR; ++i)
 #pragma unroll
       for (int c = 0; c < TC; ++c) s[i][c] = 0.f;
+    for (int pc = 0; pc < pieces; ++pc) {
+      __syncthreads();  // the previous piece's (tile's) Qs, Ks, Vs, Ps are consumed
+      if (pieces > 1) load_q(pc * D);
+      load_k(k0, pc * D);
+      if (pc == 0) {
+        for (int idx = tid; idx < BK * D; idx += NT) {
+          const int r = idx / D, d = slab * D + idx % D;
+          const int ki = k0 + r;
+          Vs[idx] = ki < Sk && d < Dt ? to_f32(vb[ki * v_ss + d]) : 0.f;
+        }
+      }
+      __syncthreads();
 #pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qa[TR], kc[TC];
+      for (int d = 0; d < D; ++d) {
+        float qa[TR], kc[TC];
 #pragma unroll
-      for (int i = 0; i < TR; ++i) qa[i] = Qs[(ty * TR + i) * DP + d];
+        for (int i = 0; i < TR; ++i) qa[i] = Qs[(ty * TR + i) * DP + d];
 #pragma unroll
-      for (int c = 0; c < TC; ++c) kc[c] = Ks[(tx + 16 * c) * DP + d];
+        for (int c = 0; c < TC; ++c) kc[c] = Ks[(tx + 16 * c) * DP + d];
 #pragma unroll
-      for (int i = 0; i < TR; ++i)
+        for (int i = 0; i < TR; ++i)
 #pragma unroll
-        for (int c = 0; c < TC; ++c) s[i][c] = fmaf(qa[i], kc[c], s[i][c]);
+          for (int c = 0; c < TC; ++c) s[i][c] = fmaf(qa[i], kc[c], s[i][c]);
+      }
     }
 
 #pragma unroll
@@ -564,9 +590,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_simt_kernel(
     const float ls = fmaxf(l[i], 1e-30f);
     T* orow = o + b * o_sb + qi * o_ss + h * o_sh;
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      if (tx + 16 * c < Dt) orow[tx + 16 * c] = from_f32<T>(acc[i][c] / ls);
-    if (tx == 0) lse[((int64_t)b * H + h) * Sq + qi] = m[i] + logf(ls);
+    for (int c = 0; c < DC; ++c) {
+      const int col = slab * D + tx + 16 * c;
+      if (col < Dt) orow[col] = from_f32<T>(acc[i][c] / ls);
+    }
+    if (tx == 0 && slab == 0) lse[((int64_t)b * H + h) * Sq + qi] = m[i] + logf(ls);
   }
 }
 
@@ -585,7 +613,8 @@ cudaError_t launch_simt(const Args& a, int B, cudaStream_t stream) {
   static int cap[64];
   cudaError_t err = hopper::smem_cap((const void*)flash_fwd_simt_kernel<T, D>, smem, cap);
   if (err != cudaSuccess) return err;
-  dim3 grid((a.Sq + BQ - 1) / BQ, a.H, B);
+  const int pieces = (a.D + D - 1) / D;  // > 1 only on the D = 256 build
+  dim3 grid((a.Sq + BQ - 1) / BQ * pieces, a.H, B);
   flash_fwd_simt_kernel<T, D><<<grid, NT, smem, stream>>>(
       (const T*)a.q, (const T*)a.k, (const T*)a.v, (T*)a.o, (float*)a.lse,
       a.H, a.KV, a.Sq, a.Sk, a.D, a.q_sb, a.q_ss, a.q_sh, a.k_sb, a.k_ss, a.k_sh,
@@ -617,7 +646,8 @@ cudaError_t launch_bf16(const Args& a, int B, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
-// the CUDA-core kernel's build for head dim D: 64, 128 or 256
+// the CUDA-core kernel's build for head dim D: 64, 128 or 256, the last
+// walking a head dim up to 1024 in pieces of 256
 template <typename T>
 cudaError_t simt_by_dim(const Args& a, int B, cudaStream_t st) {
   if (a.D <= 64) return launch_simt<T, 64>(a, B, st);
@@ -627,11 +657,12 @@ cudaError_t simt_by_dim(const Args& a, int B, cudaStream_t st) {
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 1 <= D <= 256.
+// dtype: 0 = float32, 1 = bfloat16 (q, k, v and o share it); 1 <= D <= 1024.
 // bf16 with D % 8 == 0 and D <= 128 runs on the tensor cores (the D = 64
 // build up to 64, the D = 128 build above), and its rows must start on
 // 16-byte boundaries (checked by the caller); every other case on the CUDA
-// cores (builds D = 64, 128, 256).  Strides are in elements; the last dim
+// cores (builds D = 64, 128, 256; past 256 the D = 256 build in pieces).
+// Strides are in elements; the last dim
 // of every operand is contiguous.
 extern "C" int flash_attention_fwd(
     int dtype, const void* q, const void* k, const void* v, void* o, void* lse,
@@ -644,7 +675,7 @@ extern "C" int flash_attention_fwd(
   const Args a{q, k, v, o, lse, H, KV, Sq, Sk, D, q_sb, q_ss, q_sh, k_sb, k_ss, k_sh,
                v_sb, v_ss, v_sh, o_sb, o_ss, o_sh, causal, q_offset, scale};
   cudaStream_t st = (cudaStream_t)stream;
-  if (D < 1 || D > 256) return (int)cudaErrorInvalidValue;
+  if (D < 1 || D > 1024) return (int)cudaErrorInvalidValue;
   if (dtype == 0) return (int)simt_by_dim<float>(a, B, st);
   if (dtype != 1) return (int)cudaErrorInvalidValue;
   if (D % 8 || D > 128) return (int)simt_by_dim<bf16>(a, B, st);

@@ -89,10 +89,11 @@
 //
 // CUDA cores (`dkdv_simt_kernel`, `dq_simt_kernel`): f32, since TF32 would
 // round the operands, and the bf16 head dims the tensor-core pair cannot
-// take (D % 8 != 0, or 128 < D <= 256).  The same passes in f32 SIMT: one
+// take (D % 8 != 0, or 128 < D <= 1024).  The same passes in f32 SIMT: one
 // block per (32-key tile, KV head, batch row) walking its group's query
 // heads, and one per (32-row q tile, head, batch row); built for D = 64,
-// 128 and 256 (~140 KB of shared memory at 256).  bf16 is widened on load,
+// 128 and 256 (~140 KB of shared memory at 256), a head dim past 256 walked
+// in pieces of 256 columns with one block per output slab (below).  bf16 is widened on load,
 // P and dS rounded to bf16 where the TPU kernels round them, and the
 // gradients rounded on store; the GQA group sum of dK and dV stays in f32.
 //
@@ -694,18 +695,27 @@ constexpr int FB = 32;    // rows of every tile (keys or queries)
 constexpr int FT = 256;   // threads per block: a 16 x 16 grid; thread (ty, tx)
                           // owns rows 2 ty, 2 ty + 1 and columns tx + 16 c
 
-// load rows [row0, row0 + FB) of a [rows, Dt] operand into shared memory
-// as f32 with row stride D + 1 (D >= Dt, the build's head dim); rows at or
-// past `nrows` and columns at or past Dt become zero
+// load rows [row0, row0 + FB) and columns [col0, col0 + D) of a [rows, Dt]
+// operand into shared memory as f32 with row stride D + 1 (D, the build's
+// head dim, is its piece width); rows at or past `nrows` and columns at or
+// past Dt become zero
 template <typename T, int D>
 __device__ __forceinline__ void load_f32(float* dst, const T* src, int64_t stride, int row0,
-                                         int nrows, int Dt) {
+                                         int nrows, int col0, int Dt) {
   for (int idx = threadIdx.x; idx < FB * D; idx += FT) {
     const int r = idx / D, d = idx % D;
     const int gr = row0 + r;
-    dst[r * (D + 1) + d] = gr < nrows && d < Dt ? to_f32(src[gr * stride + d]) : 0.f;
+    dst[r * (D + 1) + d] =
+        gr < nrows && col0 + d < Dt ? to_f32(src[gr * stride + col0 + d]) : 0.f;
   }
 }
+
+// A head dim Dt past the build's D (the D = 256 build, up to 1024) is walked
+// in pieces of D columns, as the forward does: both products that make the
+// scores (S and dP) sum over every piece in column order, reloading each
+// piece's columns; then the tiles that the gradient products read are
+// reloaded at the block's slab (its D columns of the output), unless the
+// last piece is that slab.  Blocks of one row tile differ in slab only.
 
 template <typename T, int D>
 __global__ void __launch_bounds__(FT) dkdv_simt_kernel(const Args a) {
@@ -722,18 +732,22 @@ __global__ void __launch_bounds__(FT) dkdv_simt_kernel(const Args a) {
   float* Ls = St + FB * PP;     // lse of the q tile
   float* Es = Ls + FB;          // delta of the q tile
 
-  const int k0 = blockIdx.x * FB;
+  const int pieces = (a.D + D - 1) / D;
+  const int slab = blockIdx.x % pieces;
+  const int k0 = (blockIdx.x / pieces) * FB;
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = a.H / a.KV;
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
   const T* q = static_cast<const T*>(a.q);
   const T* dout = static_cast<const T*>(a.dout);
+  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
+  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
-  load_f32<T, D>(Ks, static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh, a.k_ss, k0, a.Sk,
-                 a.D);
-  load_f32<T, D>(Vs, static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh, a.v_ss, k0, a.Sk,
-                 a.D);
+  if (pieces == 1) {  // K and V resident for the whole walk
+    load_f32<T, D>(Ks, kb, a.k_ss, k0, a.Sk, 0, a.D);
+    load_f32<T, D>(Vs, vb, a.v_ss, k0, a.Sk, 0, a.D);
+  }
   float dka[2][DC], dva[2][DC];
 #pragma unroll
   for (int r = 0; r < 2; ++r)
@@ -744,31 +758,44 @@ __global__ void __launch_bounds__(FT) dkdv_simt_kernel(const Args a) {
   for (int hh = 0; hh < G; ++hh) {
     const int h = kvh * G + hh;
     const int64_t row = ((int64_t)b * a.H + h) * a.Sq;
+    const T* qh = q + b * a.q_sb + h * a.q_sh;
+    const T* dh = dout + b * a.do_sb + h * a.do_sh;
     for (int i = first_q_tile(a.causal, a.q_offset, k0, FB); i < n_q; ++i) {
       const int q0 = i * FB;
-      __syncthreads();  // the previous step's tiles are consumed
-      load_f32<T, D>(Qs, q + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.Sq, a.D);
-      load_f32<T, D>(Ds, dout + b * a.do_sb + h * a.do_sh, a.do_ss, q0, a.Sq, a.D);
-      if (threadIdx.x < FB) {
-        const int qi = q0 + threadIdx.x;
-        Ls[threadIdx.x] = qi < a.Sq ? a.lse[row + qi] : 0.f;
-        Es[threadIdx.x] = qi < a.Sq ? a.delta[row + qi] : 0.f;
-      }
-      __syncthreads();
-
       float s[2][2] = {}, dp[2][2] = {};
-#pragma unroll 8
-      for (int d = 0; d < D; ++d) {
-        const float k_0 = Ks[(2 * ty) * DP + d], k_1 = Ks[(2 * ty + 1) * DP + d];
-        const float v_0 = Vs[(2 * ty) * DP + d], v_1 = Vs[(2 * ty + 1) * DP + d];
-#pragma unroll
-        for (int c = 0; c < 2; ++c) {
-          const float qv = Qs[(tx + 16 * c) * DP + d], dv_ = Ds[(tx + 16 * c) * DP + d];
-          s[0][c] = fmaf(k_0, qv, s[0][c]);
-          s[1][c] = fmaf(k_1, qv, s[1][c]);
-          dp[0][c] = fmaf(v_0, dv_, dp[0][c]);
-          dp[1][c] = fmaf(v_1, dv_, dp[1][c]);
+      for (int pc = 0; pc < pieces; ++pc) {
+        __syncthreads();  // the previous step's (piece's) tiles are consumed
+        if (pieces > 1) {
+          load_f32<T, D>(Ks, kb, a.k_ss, k0, a.Sk, pc * D, a.D);
+          load_f32<T, D>(Vs, vb, a.v_ss, k0, a.Sk, pc * D, a.D);
         }
+        load_f32<T, D>(Qs, qh, a.q_ss, q0, a.Sq, pc * D, a.D);
+        load_f32<T, D>(Ds, dh, a.do_ss, q0, a.Sq, pc * D, a.D);
+        if (pc == 0 && threadIdx.x < FB) {
+          const int qi = q0 + threadIdx.x;
+          Ls[threadIdx.x] = qi < a.Sq ? a.lse[row + qi] : 0.f;
+          Es[threadIdx.x] = qi < a.Sq ? a.delta[row + qi] : 0.f;
+        }
+        __syncthreads();
+
+#pragma unroll 8
+        for (int d = 0; d < D; ++d) {
+          const float k_0 = Ks[(2 * ty) * DP + d], k_1 = Ks[(2 * ty + 1) * DP + d];
+          const float v_0 = Vs[(2 * ty) * DP + d], v_1 = Vs[(2 * ty + 1) * DP + d];
+#pragma unroll
+          for (int c = 0; c < 2; ++c) {
+            const float qv = Qs[(tx + 16 * c) * DP + d], dv_ = Ds[(tx + 16 * c) * DP + d];
+            s[0][c] = fmaf(k_0, qv, s[0][c]);
+            s[1][c] = fmaf(k_1, qv, s[1][c]);
+            dp[0][c] = fmaf(v_0, dv_, dp[0][c]);
+            dp[1][c] = fmaf(v_1, dv_, dp[1][c]);
+          }
+        }
+      }
+      if (slab != pieces - 1) {  // dV and dK read the slab's columns of dO and Q
+        __syncthreads();
+        load_f32<T, D>(Qs, qh, a.q_ss, q0, a.Sq, slab * D, a.D);
+        load_f32<T, D>(Ds, dh, a.do_ss, q0, a.Sq, slab * D, a.D);
       }
 #pragma unroll
       for (int r = 0; r < 2; ++r) {
@@ -811,9 +838,10 @@ __global__ void __launch_bounds__(FT) dkdv_simt_kernel(const Args a) {
     if (kr >= a.Sk) continue;
 #pragma unroll
     for (int c = 0; c < DC; ++c) {
-      if (tx + 16 * c >= a.D) continue;
-      dk[b * a.dk_sb + kr * a.dk_ss + kvh * a.dk_sh + tx + 16 * c] = from_f32<T>(dka[r][c]);
-      dv[b * a.dv_sb + kr * a.dv_ss + kvh * a.dv_sh + tx + 16 * c] = from_f32<T>(dva[r][c]);
+      const int col = slab * D + tx + 16 * c;
+      if (col >= a.D) continue;
+      dk[b * a.dk_sb + kr * a.dk_ss + kvh * a.dk_sh + col] = from_f32<T>(dka[r][c]);
+      dv[b * a.dv_sb + kr * a.dv_ss + kvh * a.dv_sh + col] = from_f32<T>(dva[r][c]);
     }
   }
 }
@@ -832,18 +860,22 @@ __global__ void __launch_bounds__(FT) dq_simt_kernel(const Args a) {
   float* Ls = Sm + FB * PP;
   float* Es = Ls + FB;
 
-  const int q0 = blockIdx.x * FB;
+  const int pieces = (a.D + D - 1) / D;
+  const int slab = blockIdx.x % pieces;
+  const int q0 = (blockIdx.x / pieces) * FB;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int kvh = h / (a.H / a.KV);
   const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+  const T* qb = static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh;
+  const T* db = static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh;
   const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + kvh * a.k_sh;
   const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + kvh * a.v_sh;
 
-  load_f32<T, D>(Qs, static_cast<const T*>(a.q) + b * a.q_sb + h * a.q_sh, a.q_ss, q0, a.Sq,
-                 a.D);
-  load_f32<T, D>(Ds, static_cast<const T*>(a.dout) + b * a.do_sb + h * a.do_sh, a.do_ss, q0,
-                 a.Sq, a.D);
+  if (pieces == 1) {  // Q and dO resident for the whole walk
+    load_f32<T, D>(Qs, qb, a.q_ss, q0, a.Sq, 0, a.D);
+    load_f32<T, D>(Ds, db, a.do_ss, q0, a.Sq, 0, a.D);
+  }
   if (threadIdx.x < FB) {
     const int qi = q0 + threadIdx.x;
     const int64_t row = ((int64_t)b * a.H + h) * a.Sq;
@@ -859,24 +891,34 @@ __global__ void __launch_bounds__(FT) dq_simt_kernel(const Args a) {
   const int n_kv = kv_tiles(a, q0, FB, FB);
   for (int j = 0; j < n_kv; ++j) {
     const int k0 = j * FB;
-    __syncthreads();  // the previous tile's Ks, Vs and Sm are consumed
-    load_f32<T, D>(Ks, kb, a.k_ss, k0, a.Sk, a.D);
-    load_f32<T, D>(Vs, vb, a.v_ss, k0, a.Sk, a.D);
-    __syncthreads();
-
     float s[2][2] = {}, dp[2][2] = {};
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      const float q_0 = Qs[(2 * ty) * DP + d], q_1 = Qs[(2 * ty + 1) * DP + d];
-      const float d_0 = Ds[(2 * ty) * DP + d], d_1 = Ds[(2 * ty + 1) * DP + d];
-#pragma unroll
-      for (int c = 0; c < 2; ++c) {
-        const float kv = Ks[(tx + 16 * c) * DP + d], vv = Vs[(tx + 16 * c) * DP + d];
-        s[0][c] = fmaf(q_0, kv, s[0][c]);
-        s[1][c] = fmaf(q_1, kv, s[1][c]);
-        dp[0][c] = fmaf(d_0, vv, dp[0][c]);
-        dp[1][c] = fmaf(d_1, vv, dp[1][c]);
+    for (int pc = 0; pc < pieces; ++pc) {
+      __syncthreads();  // the previous tile's (piece's) Ks, Vs and Sm are consumed
+      if (pieces > 1) {
+        load_f32<T, D>(Qs, qb, a.q_ss, q0, a.Sq, pc * D, a.D);
+        load_f32<T, D>(Ds, db, a.do_ss, q0, a.Sq, pc * D, a.D);
       }
+      load_f32<T, D>(Ks, kb, a.k_ss, k0, a.Sk, pc * D, a.D);
+      load_f32<T, D>(Vs, vb, a.v_ss, k0, a.Sk, pc * D, a.D);
+      __syncthreads();
+
+#pragma unroll 8
+      for (int d = 0; d < D; ++d) {
+        const float q_0 = Qs[(2 * ty) * DP + d], q_1 = Qs[(2 * ty + 1) * DP + d];
+        const float d_0 = Ds[(2 * ty) * DP + d], d_1 = Ds[(2 * ty + 1) * DP + d];
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float kv = Ks[(tx + 16 * c) * DP + d], vv = Vs[(tx + 16 * c) * DP + d];
+          s[0][c] = fmaf(q_0, kv, s[0][c]);
+          s[1][c] = fmaf(q_1, kv, s[1][c]);
+          dp[0][c] = fmaf(d_0, vv, dp[0][c]);
+          dp[1][c] = fmaf(d_1, vv, dp[1][c]);
+        }
+      }
+    }
+    if (slab != pieces - 1) {  // dQ reads the slab's columns of K
+      __syncthreads();
+      load_f32<T, D>(Ks, kb, a.k_ss, k0, a.Sk, slab * D, a.D);
     }
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -911,9 +953,10 @@ __global__ void __launch_bounds__(FT) dq_simt_kernel(const Args a) {
     const int qi = q0 + 2 * ty + r;
     if (qi >= a.Sq) continue;
 #pragma unroll
-    for (int c = 0; c < DC; ++c)
-      if (tx + 16 * c < a.D)
-        dq[b * a.dq_sb + qi * a.dq_ss + h * a.dq_sh + tx + 16 * c] = from_f32<T>(dqa[r][c]);
+    for (int c = 0; c < DC; ++c) {
+      const int col = slab * D + tx + 16 * c;
+      if (col < a.D) dq[b * a.dq_sb + qi * a.dq_ss + h * a.dq_sh + col] = from_f32<T>(dqa[r][c]);
+    }
   }
 }
 
@@ -981,7 +1024,8 @@ cudaError_t dkdv_simt(const Args& a, int B, cudaStream_t stream) {
   static int cap[64];
   cudaError_t err = smem_cap((const void*)dkdv_simt_kernel<T, D>, smem, cap);
   if (err != cudaSuccess) return err;
-  dkdv_simt_kernel<T, D><<<dim3((a.Sk + FB - 1) / FB, a.KV, B), FT, smem, stream>>>(a);
+  const int pieces = (a.D + D - 1) / D;  // > 1 only on the D = 256 build
+  dkdv_simt_kernel<T, D><<<dim3((a.Sk + FB - 1) / FB * pieces, a.KV, B), FT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
@@ -991,11 +1035,13 @@ cudaError_t dq_simt(const Args& a, int B, cudaStream_t stream) {
   static int cap[64];
   cudaError_t err = smem_cap((const void*)dq_simt_kernel<T, D>, smem, cap);
   if (err != cudaSuccess) return err;
-  dq_simt_kernel<T, D><<<dim3((a.Sq + FB - 1) / FB, a.H, B), FT, smem, stream>>>(a);
+  const int pieces = (a.D + D - 1) / D;
+  dq_simt_kernel<T, D><<<dim3((a.Sq + FB - 1) / FB * pieces, a.H, B), FT, smem, stream>>>(a);
   return cudaGetLastError();
 }
 
-// the CUDA-core pair's build for head dim D (64, 128 or 256)
+// the CUDA-core pair's build for head dim D (64, 128 or 256, the last
+// walking a head dim up to 1024 in pieces of 256)
 template <typename T>
 cudaError_t dkdv_simt_by_dim(const Args& a, int B, cudaStream_t st) {
   if (a.D <= 64) return dkdv_simt<T, 64>(a, B, st);
@@ -1011,7 +1057,7 @@ cudaError_t dq_simt_by_dim(const Args& a, int B, cudaStream_t st) {
 }
 
 bool takes(int dtype, int D, int H, int KV) {
-  return (dtype == 0 || dtype == 1) && D >= 1 && D <= 256 && KV > 0 && H % KV == 0;
+  return (dtype == 0 || dtype == 1) && D >= 1 && D <= 1024 && KV > 0 && H % KV == 0;
 }
 
 // the tensor-core pair takes bf16 with D % 8 == 0 (TMA's 16-byte strides)
@@ -1021,7 +1067,7 @@ bool on_tensor_cores(int dtype, int D) { return dtype == 1 && D % 8 == 0 && D <=
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v, do and the gradients share
-// it); 1 <= D <= 256.  bf16 with D % 8 == 0 and D <= 128 runs on the tensor
+// it); 1 <= D <= 1024.  bf16 with D % 8 == 0 and D <= 128 runs on the tensor
 // cores, with bases and strides 16-byte aligned (checked by the caller);
 // every other case on the CUDA cores.  Strides are in elements, in the
 // order batch, seq, head; the last dim of every operand is contiguous.  lse

@@ -31,6 +31,7 @@ import functools
 import torch
 
 from . import _build
+from .flash_attention import check_head_dim
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float8_e4m3fn: 2}
@@ -122,8 +123,7 @@ def _check(q, k, v):
     B, H, D = q.shape
     if k.shape[0] != B or k.shape[3] != D or H % k.shape[2]:
         raise ValueError(f"shapes q {tuple(q.shape)} and k {tuple(k.shape)} do not match")
-    if D > 1024:
-        raise ValueError(f"head_dim {D} > 1024")
+    check_head_dim(D)
     if q.stride(2) != 1 or k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("the head dim of q, k and v must be contiguous")
     if variant(q.dtype, k.dtype, D) == "mma":

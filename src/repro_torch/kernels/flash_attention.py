@@ -6,11 +6,13 @@ layouts and counts its launches in ``flash_attention_fwd.launches``.  The
 plain version is ``ref.flash_attention_ref``; ``ops.flash_attention``
 chooses between the two by the tensors' device.
 
-The kernels (forward and backward) take every head dim up to 256.  Two
-kernels serve each pass, chosen by shape (``route``): the tensor-core one
-(TMA, wgmma) for bf16 with D % 8 == 0 up to 128, the CUDA-core one for f32
-and for every other bf16 D; ``padded_head_dim`` says which build of it runs
-and refuses D > 256.
+The kernels (forward and backward) take every head dim up to 1024,
+flash-decode's bound, which all three attention kernels state as one
+(``check_head_dim``).  Two kernels serve each pass, chosen by shape
+(``route``): the tensor-core one (TMA, wgmma) for bf16 with D % 8 == 0 up
+to 128, the CUDA-core one for f32 and for every other bf16 D;
+``padded_head_dim`` says which build of it runs (past 256 the D = 256 build
+walks the head dim in pieces of 256 columns) and refuses D > 1024.
 """
 
 from __future__ import annotations
@@ -22,8 +24,15 @@ import torch
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-MAX_HEAD_DIM = 256
+MAX_HEAD_DIM = 1024
 MAX_TENSOR_CORE_HEAD_DIM = 128
+
+
+def check_head_dim(D: int) -> None:
+    """The one head-dim bound of the attention kernels (the flash forward,
+    its backward pair and flash-decode): ``ValueError`` outside 1..1024."""
+    if not 1 <= D <= MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D}: the attention kernels take 1 <= D <= {MAX_HEAD_DIM}")
 
 
 def route(D: int, dtype: torch.dtype) -> str:
@@ -38,11 +47,10 @@ def route(D: int, dtype: torch.dtype) -> str:
 
 def padded_head_dim(D: int, dtype: torch.dtype) -> int:
     """The head dim of the kernel build that runs ``D``: 64 for D <= 64, 128
-    up to 128 and (on the CUDA cores) 256 up to 256; the columns past D are
-    zeros in the kernels' tiles.  Raises ``ValueError`` for D outside
-    1..256."""
-    if not 1 <= D <= MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {D}: the flash kernels take 1 <= D <= {MAX_HEAD_DIM}")
+    up to 128 and (on the CUDA cores) 256 above, in ceil(D / 256) pieces
+    past 256; the columns past D are zeros in the kernels' tiles.  Raises
+    ``ValueError`` for D outside 1..1024."""
+    check_head_dim(D)
     return 64 if D <= 64 else 128 if D <= 128 else 256
 
 
@@ -90,7 +98,7 @@ def _check(q, k, v):
 
 def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     """q [B, Sq, H, D]; k, v [B, Sk, KV, D] (CUDA, f32 or bf16, 1 <= D <=
-    256, any strides with a contiguous last dim; on the tensor-core route,
+    1024, any strides with a contiguous last dim; on the tensor-core route,
     bases and strides 16-byte aligned) -> (o [B, Sq, H, D] in q's dtype,
     lse [B*H, Sq] f32).  ``route`` says which kernel runs: bf16 on the
     tensor cores (wgmma, TMA, warp specialisation) where D allows, the rest

@@ -114,7 +114,7 @@ def _launch(fn, args, what: str):
 def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
                              q_offset: int = 0):
     """q, do [B, Sq, H, D]; k, v [B, Sk, KV, D]; lse, delta [B*H, Sq] f32 (CUDA;
-    f32 or bf16, 1 <= D <= 256, contiguous last dim, rows 16-byte aligned on
+    f32 or bf16, 1 <= D <= 1024, contiguous last dim, rows 16-byte aligned on
     the tensor-core route) -> (dk, dv) [B, Sk, KV, D] in k's dtype, summed
     over each KV head's query group."""
     _check_bwd(q, k, v, do, lse, delta, q_offset)

@@ -3,12 +3,14 @@ KV cache, with the CAPre access plan of one decode step printed before
 serving (the paper's prefetching hints for the tensor store).  Counterpart
 of ``repro.launch.serve``.
 
-With ``attn_impl="pallas"`` on a CUDA device the dense family's prefill
-runs the CUDA flash-attention kernel and every decode step the CUDA
-flash-decode kernel; the ssm family's prefill and decode run the CUDA
-selective scan once per layer, the hybrid's the CUDA gated RG-LRU scan once
-per recurrent layer (its windowed attention takes the plain path, as in
-JAX); all take the embedding rows with the CUDA row gather.
+With ``attn_impl="pallas"`` on a CUDA device the dense and moe families'
+prefill runs the CUDA flash-attention kernel and every decode step the
+CUDA flash-decode kernel (the moe family's router, dispatch, expert
+products and combine are plain PyTorch, as in JAX they are XLA's); the ssm
+family's prefill and decode run the CUDA selective scan once per layer,
+the hybrid's the CUDA gated RG-LRU scan once per recurrent layer (its
+windowed attention takes the plain path, as in JAX); all take the
+embedding rows with the CUDA row gather.
 
 On a CUDA device ``generate`` runs the prefill eagerly and then replays one
 captured decode step (``launch.steps.CapturedDecode``, the counterpart of
@@ -18,7 +20,8 @@ runs the eager loop (``generate_eager``).
 Usage (on the card; ``--device cpu`` runs the plain path on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
       --batch 4 --prompt-len 512 --gen 32 --attn-impl pallas
-  (also ``--arch falcon_mamba_7b`` and ``--arch recurrentgemma_2b``)
+  (also ``--arch qwen3_moe_30b_a3b``, ``granite_moe_1b_a400m``,
+  ``falcon_mamba_7b`` and ``recurrentgemma_2b``)
 """
 
 from __future__ import annotations
@@ -178,9 +181,10 @@ class Server:
 
     def _pad_cache(self, cache: dict) -> dict:
         """Grow the seq dim of the k/v cache to the slots decode writes in
-        place: ``max_len`` (dense: slot ``pos``), or ``min(local_window,
-        max_len)`` (hybrid: slot ``pos % local_window``; a prompt shorter
-        than the window leaves fewer).  The ssm cache has no seq dim.
+        place: ``max_len`` (dense and moe: slot ``pos``), or
+        ``min(local_window, max_len)`` (hybrid: slot ``pos % local_window``;
+        a prompt shorter than the window leaves fewer).  The ssm cache has
+        no seq dim.
 
         The JAX server pads only the dense, moe and encdec caches, so its
         hybrid decode after a prompt shorter than the window writes outside
@@ -204,7 +208,7 @@ class Server:
 
 
 # the top-level parameter groups of a layer stack, per family: ``layers``
-# (dense, ssm), ``rec_layers`` and ``attn_layers`` (hybrid)
+# (dense, moe, ssm), ``rec_layers`` and ``attn_layers`` (hybrid)
 _STACKS = ("layers", "rec_layers", "attn_layers")
 
 

@@ -1,12 +1,12 @@
-"""Model facade for the dense, ssm and hybrid families: parameter template,
-init, the training loss, prefill and decode.  Counterpart of
+"""Model facade for the dense, moe, ssm and hybrid families: parameter
+template, init, the training loss, prefill and decode.  Counterpart of
 ``repro.models.model``.
 
 The parameter template (``build_template``) is the single source of truth
 for parameter shapes and initializers; its dotted paths and stacked
-``[L, ...]`` shapes are exactly the JAX package's.  The other families
-(moe, encdec) raise ``NotImplementedError`` naming the ROADMAP item that
-ports them.
+``[L, ...]`` shapes are exactly the JAX package's.  The one family left,
+encdec, raises ``NotImplementedError`` naming the ROADMAP item that ports
+it.
 """
 
 from __future__ import annotations
@@ -95,6 +95,16 @@ def _mlp_tmpl(cfg: ModelConfig) -> dict:
     return t
 
 
+def _moe_tmpl(cfg: ModelConfig) -> dict:
+    d, f, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    return {
+        "router": ParamSpec((d, E), ("embed", None)),
+        "we_gate": ParamSpec((E, d, f), ("experts", "embed", None)),
+        "we_up": ParamSpec((E, d, f), ("experts", "embed", None)),
+        "we_down": ParamSpec((E, f, d), ("experts", None, "embed")),
+    }
+
+
 def _mamba_tmpl(cfg: ModelConfig) -> dict:
     d, di, N, R, K = cfg.d_model, cfg.d_inner, cfg.ssm_state, cfg.dt_rank, cfg.ssm_conv
     return {
@@ -126,12 +136,13 @@ def _rec_tmpl(cfg: ModelConfig) -> dict:
 
 def _layer_tmpl(cfg: ModelConfig, mixer: str = "attn") -> dict:
     """One pre-norm layer: ``ln1``, ``ln2``, the mixer (``attn`` or the
-    hybrid's ``rec``) and the MLP."""
+    hybrid's ``rec``) and the MLP (the moe family's: the router and the
+    expert banks)."""
     t = {}
     t.update(_norm_tmpl(cfg, "ln1"))
     t.update(_norm_tmpl(cfg, "ln2"))
     t[mixer] = _attn_tmpl(cfg) if mixer == "attn" else _rec_tmpl(cfg)
-    t["mlp"] = _mlp_tmpl(cfg)
+    t["mlp"] = _moe_tmpl(cfg) if cfg.family == "moe" else _mlp_tmpl(cfg)
     return t
 
 
@@ -142,14 +153,14 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def build_template(cfg: ModelConfig) -> dict:
-    if cfg.family not in ("dense", "ssm", "hybrid"):
+    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
         raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {_NOT_PORTED}")
     V, d = padded_vocab(cfg), cfg.d_model
     base = {"embed": ParamSpec((V, d), ("vocab", "embed"), scale=0.01)}
     if not cfg.tie_embeddings:
         base["lm_head"] = ParamSpec((d, V), ("embed", "vocab"), scale=0.01)
     base.update(_norm_tmpl(cfg, "final_norm"))
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         base["layers"] = _stack(_layer_tmpl(cfg), cfg.n_layers)
     elif cfg.family == "ssm":
         lt = _norm_tmpl(cfg, "ln1")
@@ -162,16 +173,26 @@ def build_template(cfg: ModelConfig) -> dict:
     return base
 
 
-def count_params_config(cfg: ModelConfig) -> int:
-    return param_count(build_template(cfg))
+def count_params_config(cfg: ModelConfig, active_only: bool = False) -> int:
+    """The parameter count; with ``active_only``, the moe family's expert
+    banks count only the ``experts_per_token / n_experts`` share a token
+    reads (JAX's rounding)."""
+    tmpl = build_template(cfg)
+    total = param_count(tmpl)
+    if active_only and cfg.family == "moe":
+        mlp = tmpl["layers"]["mlp"]
+        expert_total = param_count({k: v for k, v in mlp.items() if k.startswith("we_")})
+        total -= int(expert_total * (1.0 - cfg.experts_per_token / cfg.n_experts))
+    return total
 
 
 # parameters read through a norm (upcast to f32) rather than cast to the
-# compute dtype, and the ssm and hybrid parameters read in f32 (A_log, D:
-# ``models/ssm.py``; lam: ``models/rglru.py``; rounding them would change
-# every step's decay); ``Model.compute_params`` leaves them as they are
+# compute dtype, and those read in f32 (A_log, D: ``models/ssm.py``; lam:
+# ``models/rglru.py``; rounding them would change every step's decay; the
+# moe router: ``models/moe.py``, rounding it would move the top-k choice);
+# ``Model.compute_params`` leaves them as they are
 _KEEP_LEAVES = ("ln1", "ln1_b", "ln2", "ln2_b", "final_norm", "final_norm_b",
-                "q_norm", "k_norm", "A_log", "D", "lam")
+                "q_norm", "k_norm", "A_log", "D", "lam", "router")
 
 
 # ---------------------------------------------------------------------------

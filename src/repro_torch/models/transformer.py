@@ -1,5 +1,5 @@
-"""Transformer assembly for the dense, ssm and hybrid families: blocks, the
-layer stacks and the decode paths.  Counterpart of those parts of
+"""Transformer assembly for the dense, moe, ssm and hybrid families: blocks,
+the layer stacks and the decode paths.  Counterpart of those parts of
 ``repro.models.transformer``.
 
 Layer parameters are stacked on a leading ``layers`` dim as in the JAX
@@ -32,6 +32,7 @@ from .layers import (
     qkv_project,
     rope_angles,
 )
+from .moe import moe_apply
 from .rglru import recurrent_block
 from .ssm import mamba_block
 
@@ -119,11 +120,11 @@ def attn_block(x, lp, cfg, dt, angles, *, causal=True, local_window=0,
 
 
 def ffn_block(x, lp, cfg, dt):
+    """Pre-norm FFN sub-block: the MLP, or for the moe family the routed
+    experts (``moe.moe_apply``)."""
     h = apply_norm(cfg.norm, x, lp["ln2"], lp.get("ln2_b"))
     if cfg.family == "moe":
-        raise NotImplementedError(
-            f"family {cfg.family!r} is not ported yet: ROADMAP.md, section 1, item 5"
-        )
+        return x + moe_apply(h, lp["mlp"], cfg, dt)
     return x + mlp_apply(cfg.mlp, h, lp["mlp"], dt)
 
 
@@ -157,9 +158,9 @@ def _stack_pairs(pairs):
 
 
 def forward_stack(params, cfg, x, positions, *, causal=True, collect_cache=False):
-    """The homogeneous stacks (dense, ssm); with ``collect_cache`` also
+    """The homogeneous stacks (dense, moe, ssm); with ``collect_cache`` also
     returns the per-layer caches stacked on a leading layer dim: (k, v)
-    [L, B, S, KV, hd] each (dense), (conv [L, B, K-1, d_inner], ssm
+    [L, B, S, KV, hd] each (dense, moe), (conv [L, B, K-1, d_inner], ssm
     [L, B, d_inner, N]) (ssm)."""
     dt = cfg_dtype(cfg)
     if cfg.family == "ssm":
@@ -295,7 +296,7 @@ def _step_angles(cfg, pos, B: int, device):
 
 
 def decode_stack(params, cfg, x, cache, pos):
-    """Dense decode over all layers at ``pos`` (an int, or a 0-d int tensor
+    """Dense and moe decode over all layers at ``pos`` (an int, or a 0-d int tensor
     on x's device); updates ``cache`` in place and returns (x, cache)."""
     dt = cfg_dtype(cfg)
     angles = _step_angles(cfg, pos, x.shape[0], x.device)

@@ -4,8 +4,9 @@ the ``meta`` device) against the JAX package's (traced with
 
 Twins of tests/test_access_plan.py:34-97 (a toy loop over stacked
 parameters, ``torch.cond`` for ``lax.cond``, a real decode plan, the ROP
-plan), then parity: for the four dense, the ssm and the hybrid smoke
-configs and for chatglm3-6b and falcon-mamba-7b at full size,
+plan), then parity: for the four dense, the two moe, the ssm and the hybrid
+smoke configs and for chatglm3-6b, qwen3-moe-30b-a3b and falcon-mamba-7b
+at full size,
 ``Server.plan`` of both packages has the same records (path, shape, bytes,
 collection and branch flags) and the same groups (records of equal first
 use) in the same order.  ``first_use`` values and ``uses``
@@ -219,3 +220,33 @@ def test_decode_plan_matches_jax_falcon_mamba_full_size():
     assert groups[0] == {"embed"} and groups[2] == {"final_norm"} and groups[3] == {"lm_head"}
     assert groups[1] == {r.path for r in plan.collections()}
     assert plan.total_bytes == 29_090_660_352  # f32, as the abstract parameters are
+
+
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "granite_moe_1b_a400m"])
+def test_decode_plan_matches_jax_moe_smoke(arch):
+    """The router and the three expert banks are one record each, the whole
+    stacked bank (CAPre's superset of the experts a token may take), in the
+    layer stack's group."""
+    plan = Server(get_smoke_config(arch), device="cpu", max_len=64).plan(2)
+    jplan = JServer(jget_smoke(arch), max_len=64).plan(2)
+    _assert_same_plan(plan, jplan)
+    by_path = {r.path: r for r in plan.records}
+    for leaf in ("router", "we_gate", "we_up", "we_down"):
+        assert by_path[f"layers.mlp.{leaf}"].collection
+
+
+def test_decode_plan_matches_jax_qwen3_moe_full_size():
+    """qwen3-moe-30b-a3b at full size, abstract on both sides: the 12
+    stacked layer leaves (4 of them the router and expert banks, 28.99e9
+    of the 30.53e9 parameters) in one group between the embedding and the
+    final norm and head."""
+    plan = Server(get_config("qwen3_moe_30b_a3b"), device="cpu", max_len=1024).plan(4)
+    jplan = JServer(jget_config("qwen3_moe_30b_a3b"), max_len=1024).plan(4)
+    _assert_same_plan(plan, jplan)
+    groups = _groups(plan)
+    assert [len(g) for g in groups] == [1, 12, 1, 1]
+    assert groups[0] == {"embed"} and groups[2] == {"final_norm"} and groups[3] == {"lm_head"}
+    assert groups[1] == {r.path for r in plan.collections()}
+    banks = sum(r.nbytes for r in plan.records if r.path.split(".")[-1].startswith("we_"))
+    assert banks == 4 * 28_991_029_248  # f32, as the abstract parameters are
+    assert plan.total_bytes == 4 * 30_532_646_912

@@ -15,7 +15,11 @@ torch.set_num_threads(2)  # beside the other test workers on the CPU
 
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as bwd  # noqa: E402
-from repro_torch.kernels.flash_attention import padded_head_dim, tma_aligned  # noqa: E402
+from repro_torch.kernels.flash_attention import (  # noqa: E402
+    check_head_dim,
+    padded_head_dim,
+    tma_aligned,
+)
 from repro_torch.kernels.flash_attention import route as flash_route  # noqa: E402
 
 H100_SMS = 132
@@ -128,14 +132,19 @@ def test_flash_head_dim_runs_on_the_padded_build(D, dtypes, want):
         assert padded_head_dim(D, dtype) == want
 
 
-@pytest.mark.parametrize("D,dtype", [(0, torch.float32), (257, torch.float32),
-                                     (264, torch.bfloat16), (264, torch.float32),
-                                     (0, torch.bfloat16), (300, torch.bfloat16),
-                                     (512, torch.float32)])
+@pytest.mark.parametrize("D,dtype", [(0, torch.float32), (1025, torch.float32),
+                                     (1032, torch.bfloat16), (1032, torch.float32),
+                                     (0, torch.bfloat16), (1536, torch.bfloat16),
+                                     (2048, torch.float32)])
 def test_flash_head_dims_refused(D, dtype):
-    """D outside 1..256 raises, in either dtype."""
-    with pytest.raises(ValueError, match=f"head_dim {D}"):
+    """D outside 1..1024 raises, in either dtype, with the one message of
+    the three attention kernels (flash-decode's ``_check`` calls the same
+    ``check_head_dim``)."""
+    message = f"head_dim {D}: the attention kernels take 1 <= D <= 1024$"
+    with pytest.raises(ValueError, match=message):
         padded_head_dim(D, dtype)
+    with pytest.raises(ValueError, match=message):
+        check_head_dim(D)
 
 
 @pytest.mark.parametrize("D,dtype,build,route", [
@@ -147,14 +156,17 @@ def test_flash_head_dims_refused(D, dtype):
     (256, torch.bfloat16, 256, "simt"),   # recurrentgemma-2b's head_dim
     (256, torch.float32, 256, "simt"),
     (129, torch.float32, 256, "simt"),
+    (320, torch.bfloat16, 256, "simt"),   # past 256: the D = 256 build in two pieces
+    (512, torch.float32, 256, "simt"),
+    (1024, torch.bfloat16, 256, "simt"),  # flash-decode's bound, four pieces
     (8, torch.bfloat16, 64, "wgmma"),
     (128, torch.bfloat16, 128, "wgmma"),
     (64, torch.float32, 64, "simt"),
 ])
 def test_flash_head_dims_route_by_shape(D, dtype, build, route):
     """bf16 with D % 8 == 0 up to 128 runs on the tensor cores; every other
-    head dim up to 256, and f32, on the CUDA cores, whose builds are D = 64,
-    128 and 256."""
+    head dim up to 1024, and f32, on the CUDA cores, whose builds are D = 64,
+    128 and 256 (walking a larger D in pieces of 256)."""
     assert padded_head_dim(D, dtype) == build
     assert flash_route(D, dtype) == route
 

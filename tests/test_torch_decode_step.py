@@ -4,7 +4,8 @@ card.
 
 A decode loop driven by a 0-d tensor ``pos`` gives the int-``pos`` loop's
 logits and caches bit for bit (dense on the flash-decode route and the
-plain one, ssm, hybrid with its ring wrapping), and JAX's jitted
+plain one, both moe smoke configs, ssm, hybrid with its ring wrapping), and
+JAX's jitted
 ``Model.decode_step`` with ``pos`` a traced int32, from the same weights
 (``repro_torch.convert``) and numpy-seeded tokens.  The hybrid is held
 against JAX only after a prompt at least its window long: after a shorter
@@ -41,6 +42,8 @@ B, STEPS = 2, 10  # 10 steps take the hybrid's ring (window 8) round once more
 CASES = [
     ("chatglm3_6b", "pallas", 16, 128),
     ("chatglm3_6b", "naive", 16, 40),
+    ("qwen3_moe_30b_a3b", "pallas", 16, 128),
+    ("granite_moe_1b_a400m", "pallas", 16, 128),
     ("falcon_mamba_7b", "pallas", 16, 26),
     ("recurrentgemma_2b", "pallas", 16, 26),
 ]

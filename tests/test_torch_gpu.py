@@ -230,13 +230,16 @@ def test_logits_bf16_gemm_matches_widened_product(cuda):
 
 
 def test_kernels_refuse_what_they_cannot_take(cuda):
-    for dtype in (torch.bfloat16, torch.float32):  # D = 264: past the D = 256 build
-        q = torch.zeros((1, 128, 4, 264), dtype=dtype, device=cuda)
-        with pytest.raises(ValueError, match="head_dim 264"):
+    message = "head_dim 1032: the attention kernels take 1 <= D <= 1024"
+    for dtype in (torch.bfloat16, torch.float32):  # D = 1032: past the one bound of all three
+        q = torch.zeros((1, 128, 4, 1032), dtype=dtype, device=cuda)
+        with pytest.raises(ValueError, match=message):
             flash_attention_fwd(q, q[:, :, :2], q[:, :, :2])
         lse = torch.zeros((4, 128), dtype=torch.float32, device=cuda)
-        with pytest.raises(ValueError, match="head_dim 264"):
+        with pytest.raises(ValueError, match=message):
             flash_attention_bwd_dkdv(q, q[:, :, :2], q[:, :, :2], q, lse, lse)
+        with pytest.raises(ValueError, match=message):
+            decode_attention_fwd(q[:, 0], q[:, :, :2], q[:, :, :2], 10)
     odd = torch.zeros((1, 128, 4, 68), dtype=torch.bfloat16, device=cuda)[..., :64]
     with pytest.raises(ValueError):  # rows not 16-byte aligned
         flash_attention_fwd(odd, odd[:, :, :2], odd[:, :, :2])
@@ -272,12 +275,13 @@ def test_flash_attention_wgmma_kernel_matches_ref(cuda, B, Sq, Sk, H, KV, D, cau
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [8, 16, 20, 96, 136, 256])
+@pytest.mark.parametrize("D", [8, 16, 20, 96, 136, 256, 320, 512])
 def test_flash_attention_takes_every_head_dim(cuda, D, dtype):
     """Head dims below 64 run on the D = 64 build, those between 64 and 128
     on the D = 128 build and those up to 256 on the CUDA cores' D = 256
-    build, whose extra columns are zero; a bf16 D of 20 (40-byte rows, no
-    TMA) runs on the CUDA cores."""
+    build, whose extra columns are zero; past 256 (320, 512) that build in
+    pieces of 256 columns; a bf16 D of 20 (40-byte rows, no TMA) runs on the
+    CUDA cores."""
     gen = torch.Generator(device=cuda).manual_seed(13)
     q = _randn(gen, (2, 200, 8, D), dtype, cuda)
     k = _randn(gen, (2, 200, 2, D), dtype, cuda)
@@ -357,7 +361,7 @@ def _bwd_inputs(gen, B, Sq, Sk, H, KV, D, dtype, causal, q_offset, device):
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
-@pytest.mark.parametrize("D", [8, 16, 20, 64, 96, 128, 136, 256])
+@pytest.mark.parametrize("D", [8, 16, 20, 64, 96, 128, 136, 256, 320, 512])
 @pytest.mark.parametrize("B,Sq,Sk,G,KV,causal,q_offset", [
     (2, 256, 256, 1, 2, True, 0),       # G = 1: one head a cluster
     (1, 77, 200, 7, 2, True, 123),      # G = 7 over clusters of 4, ragged, q_offset
@@ -368,7 +372,8 @@ def test_flash_attention_bwd_kernels_every_head_dim(cuda, B, Sq, Sk, G, KV, caus
                                                     dtype):
     """Both backward kernels at every head dim class the flash kernels take
     (the tensor-core builds, and the CUDA cores' for bf16 D 20, 136 and
-    256), for each way dK/dV splits a query group over a cluster."""
+    256, and 320 and 512 in pieces), for each way dK/dV splits a query
+    group over a cluster."""
     gen = torch.Generator(device=cuda).manual_seed(14)
     q, k, v, do, lse, delta = _bwd_inputs(gen, B, Sq, Sk, G * KV, KV, D, dtype, causal,
                                           q_offset, cuda)
@@ -786,6 +791,56 @@ def test_recurrent_kernel_path_matches_plain_path(cuda, arch):
     assert float((out["pallas"] - out["chunked"]).abs().max()) <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("arch", ["qwen3_moe_30b_a3b", "granite_moe_1b_a400m"])
+def test_moe_kernel_path_matches_plain_path(cuda, arch):
+    """The moe smoke models in f32 on the card: prefill and three decode
+    steps through the flash kernels (``attn_impl="pallas"``) against the
+    plain chunked path, within 1e-5 of the largest logit, with the same
+    router choices on both paths, one flash forward per layer and one
+    flash-decode per layer per step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+    from repro_torch.models import moe
+
+    base = get_smoke_config(arch).replace(compute_dtype="float32")
+    params = Server(base, device="cuda").model.init_params(seed=0)
+    batch = concrete_batch(base, 2, 128, device="cuda")  # the flash kernels take S % 128 == 0
+    routes = {}
+    topk = moe.router_topk
+
+    def recording(*args, **kw):
+        top_p, top_i = topk(*args, **kw)
+        routes[impl].append(torch.sort(top_i, dim=-1).values)
+        return top_p, top_i
+
+    out = {}
+    try:
+        moe.router_topk = recording
+        for impl in ("pallas", "chunked"):
+            routes[impl] = []
+            server = Server(base.replace(attn_impl=impl), device="cuda", max_len=256)
+            f0, d0 = flash_attention_fwd.launches, decode_attention_fwd.launches
+            logits, cache = server.prefill_fn(params, {"inputs": batch["inputs"]})
+            cache = server._pad_cache(cache)
+            steps = [logits]
+            for i in range(3):
+                logits, cache = server.decode_fn(params, cache,
+                                                 batch["targets"][:, i : i + 1], 128 + i)
+                steps.append(logits)
+            out[impl] = torch.cat(steps, dim=1)
+            on_path = impl == "pallas"
+            assert flash_attention_fwd.launches - f0 == (base.n_layers if on_path else 0)
+            assert decode_attention_fwd.launches - d0 == (3 * base.n_layers if on_path else 0)
+    finally:
+        moe.router_topk = topk
+    assert len(routes["pallas"]) == len(routes["chunked"]) == 4 * base.n_layers
+    for a, b in zip(routes["pallas"], routes["chunked"]):
+        assert torch.equal(a, b)
+    scale = float(out["chunked"].abs().max())
+    assert float((out["pallas"] - out["chunked"]).abs().max()) <= 1e-5 * scale
+
+
 # ---------------------------------------------------------------------------
 # flash-decode's kv_len in device memory, and the captured decode step
 # ---------------------------------------------------------------------------
@@ -856,6 +911,7 @@ def test_decode_capture_replays_at_every_kv_len(cuda, q_dtype):
 
 
 GRAPH_CASES = [("chatglm3_6b", "bfloat16"), ("chatglm3_6b", "float32"),
+               ("qwen3_moe_30b_a3b", "bfloat16"), ("granite_moe_1b_a400m", "float32"),
                ("falcon_mamba_7b", "bfloat16"), ("recurrentgemma_2b", "bfloat16"),
                ("recurrentgemma_2b", "float32")]
 
@@ -882,7 +938,8 @@ def test_captured_generate_is_bitwise_the_eager_loop(cuda, arch, dtype):
     assert list(server._captured) == [2]
 
 
-@pytest.mark.parametrize("arch", ["chatglm3_6b", "falcon_mamba_7b", "recurrentgemma_2b"])
+@pytest.mark.parametrize("arch", ["chatglm3_6b", "qwen3_moe_30b_a3b", "falcon_mamba_7b",
+                                  "recurrentgemma_2b"])
 def test_captured_generate_counts_the_eager_launches(cuda, arch):
     from repro_torch.configs import get_smoke_config
     from repro_torch.kernels import counters

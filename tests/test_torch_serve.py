@@ -111,9 +111,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                "repro_torch.kernels.prefetch_gather", "repro_torch.kernels.mamba_scan",
                "repro_torch.kernels.rglru_scan", "repro_torch.models.ssm",
                "repro_torch.models.rglru", "repro_torch.configs.falcon_mamba_7b",
-               "repro_torch.configs.recurrentgemma_2b"}
+               "repro_torch.configs.recurrentgemma_2b", "repro_torch.models.moe",
+               "repro_torch.configs.qwen3_moe_30b_a3b",
+               "repro_torch.configs.granite_moe_1b_a400m"}
         assert new <= set(names), sorted(new - set(names))
-        assert len(names) >= 36, names
+        assert len(names) >= 39, names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))

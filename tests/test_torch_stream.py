@@ -3,8 +3,8 @@ against the JAX package's, on the CPU, with the modeled host store
 (``HostParamStore(device="cpu")``: a fetch sleeps its modeled transfer
 time, as the JAX store's does, so the tests mean what JAX's mean).
 
-Twins of tests/test_access_plan.py:100-147 (the MoE loss plan there becomes
-the dense ``loss_fn`` plan), tests/test_predict.py:343-380,
+Twins of tests/test_access_plan.py:100-147 (the MoE loss plan there, and
+the dense ``loss_fn`` plan beside it), tests/test_predict.py:343-380,
 tests/test_multitenant.py:175-210, tests/test_obs.py:484-504 and
 tests/test_batch_dispatch.py:581; a traced run whose spans each reach one
 terminal state; the deterministic counters of one JAX run and one port run
@@ -25,6 +25,7 @@ import torch
 torch.set_num_threads(2)  # beside the other test workers on the CPU
 
 from repro.configs import get_smoke_config as jget_smoke
+from repro.core.access_plan import build_access_plan as jbuild_access_plan
 from repro.launch.serve import Server as JServer
 from repro.models.model import Model as JModel
 from repro.runtime.prefetch import HostParamStore as JHostParamStore
@@ -83,16 +84,28 @@ def test_weight_streaming_capre_beats_rop_and_none():
     assert metrics["capre"].prefetch_hits > metrics["rop"].prefetch_hits
 
 
-def test_streaming_correctness_all_params_served():
-    """Every record of the dense training loss's plan is served with its
-    shape (the JAX twin plans an MoE loss; the port has the dense family)."""
-    cfg = get_smoke_config("qwen1_5_4b")
+@pytest.mark.parametrize("arch,records,collections", [
+    ("qwen1_5_4b", 15, 12),             # the dense loss
+    ("granite_moe_1b_a400m", 12, 10),   # the JAX twin's own: an MoE loss, tied head
+])
+def test_streaming_correctness_all_params_served(arch, records, collections):
+    """The training loss's plan has JAX's records (paths, shapes, bytes,
+    collection flags), and every record is served with its shape; the moe
+    case's records include the router and the three expert banks, each as
+    one stacked collection."""
+    cfg = get_smoke_config(arch)
     model = Model(cfg, device="cpu")
-    _, params = _jax_params("qwen1_5_4b", seed=1)
+    _, params = _jax_params(arch, seed=1)
     tokens = torch.empty((2, 8), dtype=torch.int64, device="meta")
     plan = build_access_plan(lambda p, b: model.loss_fn(p, b), model.abstract_params(),
                              {"inputs": tokens, "targets": tokens})
-    assert len(plan.records) == 15 and len(plan.collections()) == 12
+    assert len(plan.records) == records and len(plan.collections()) == collections
+    jtok = jax.ShapeDtypeStruct((2, 8), jnp.int32)
+    jmodel = JModel(jget_smoke(arch))
+    jplan = jbuild_access_plan(lambda p, b: jmodel.loss_fn(p, b), jmodel.abstract_params(),
+                               {"inputs": jtok, "targets": jtok})
+    assert ({r.path: (tuple(r.shape), r.nbytes, r.collection) for r in plan.records}
+            == {r.path: (tuple(r.shape), r.nbytes, r.collection) for r in jplan.records})
     store = HostParamStore(params, bandwidth_gbps=50.0, base_latency_s=1e-5, device="cpu")
     ws = WeightStreamer(store, plan=plan, mode="capre", k_ahead=2)
     seen = {}
