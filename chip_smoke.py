@@ -20,7 +20,11 @@ Phases, each printing its lines; any failure exits non-zero:
      flash-decode's tensor-core variant for G in {1, 4, 7, 16, 32}, D 64
      and 128, bf16 and fp8 caches, kv_len around its steps and splits and
      a 32768-slot cache, and both variants at the serving shape (which one
-     ran is printed); flash-decode with kv_len in device memory (as the
+     ran is printed); the forward and flash-decode also at qwen2-vl-2b's
+     and whisper-large-v3's serving shapes (G = 6, D 128; G = 1, D 64),
+     and the forward at whisper's encoder (1500 x 1500) and
+     cross-attention (128 x 1500) shapes, which the models run off the
+     kernel (the JAX guard wants multiples of 128), each beside SDPA; flash-decode with kv_len in device memory (as the
      captured decode step passes it) bitwise its int form for both variants
      and bf16 and fp8 caches, at 1, around the steps and splits of its
      capacity-sized grid and at S, and one captured call replayed at
@@ -87,7 +91,10 @@ Phases, each printing its lines; any failure exits non-zero:
      (naive) and f32 (chunked), and (all but the moe configs, whose
      training waits for MoE training) one training step's gradients
      through both backward kernels against the plain chunked path, in
-     bf16 and f32;
+     bf16 and f32; then whisper's smoke config at 256 frames (encoder,
+     decoder and cross-attention all on the flash forward: enc_layers +
+     2 n_layers launches; served only) and qwen2-vl's (the prompt as
+     embeddings at an image's 3-stream positions; served and trained);
   6. train: chatglm3-6b at full width.  (a) At depth 2, one step's gradient
      of every parameter on the kernel path against the plain chunked path,
      in bf16 and in f32.  (b) At depth 16 (the depth whose f32 parameters,
@@ -142,6 +149,21 @@ Phases, each printing its lines; any failure exits non-zero:
      logits agree within 1e-3; in bf16 (naive) the differing choices are
      printed with where they fall, the plain path's own routing is printed
      beside, and the logits on the kernel path's routes agree within 2e-2.
+  11. whisper-large-v3 (``[whisper]``: 32 encoder and 32 decoder layers,
+     audio frames [4, 1500, 1280], decoder prompt 128, 32 tokens, cache
+     256) and 12. qwen2-vl-2b (``[qwen2vl]``: 28 layers, the prompt as
+     embeddings [4, 512, 1536] at an image's 3-stream positions, 32
+     tokens, cache 1024) at full width and depth, each after every
+     earlier model is freed, weights from seed 0 in f32 cast to bf16,
+     served as in phase 9: the access plan of a decode step (25 and 15
+     records) and its byte bound (the weights it reads, the live self
+     cache and whisper's cross cache); launches 32 / 28 flash (whisper's
+     encoder and cross-attention stay off it, as in JAX), 992 / 868
+     flash-decode on the tensor cores, 32 / 31 gathers (qwen2-vl's prompt
+     is not gathered); tokens and logits bitwise; a profile of 8 replays;
+     no host sync in an eager step; then at depth 2 (full width) the
+     kernel path against the plain path teacher-forced, bf16 (naive) within
+     2e-2 and f32 (chunked) within 1e-3 of the largest logit.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -363,6 +385,15 @@ def phase_flash(torch, ref, flash_fwd):
         (1, 269, 14, 2, 136, torch.bfloat16, True, 192, 77),
         (2, 256, 8, 2, 256, torch.bfloat16, True, 0, 256),
         (1, 130, 4, 2, 256, torch.float32, False, 0, 130),
+        # qwen2-vl-2b's prefill (G = 6, D 128) and whisper-large-v3's decoder
+        # self-attention at prefill (G = 1, D 64): their models' main path
+        (4, 512, 12, 2, 128, torch.bfloat16, True, 0, 512),
+        (4, 128, 20, 20, 64, torch.bfloat16, True, 0, 128),
+        # whisper's encoder (1500 x 1500) and cross-attention (128 x 1500),
+        # not causal: off the kernel in the models (the JAX guard wants
+        # lengths that are multiples of 128), which the kernel takes
+        (4, 1500, 20, 20, 64, torch.bfloat16, False, 0, 1500),
+        (4, 1500, 20, 20, 64, torch.bfloat16, False, 0, 128),
     ]
     main_err = None
     for B, S, H, KV, D, dt, causal, q_off, Sq in cases:
@@ -410,23 +441,47 @@ def phase_flash(torch, ref, flash_fwd):
           f"graph); bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']} ({nbytes} B, "
           f"{flops} FLOP)")
 
-    # the training shape (the forward runs twice per layer per train step)
-    B, S = 2, 2048
-    q = torch.randn((B, S, H, D), generator=gen, device=dev).to(torch.bfloat16)
-    k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
-    v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
-    t_ms = graph_ms(torch, lambda: flash_fwd(q, k, v, causal=True), iters=10)
-    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-    t_lib = graph_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True), iters=10)
-    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * S
-    flops = 4 * B * H * D * (S * (S + 1) // 2)
-    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
-    print(f"[flash] training shape B={B} S={S} H={H} KV={KV} D={D} bf16 causal: kernel "
-          f"{t_ms:.4f} ms, sdpa {t_lib:.4f} ms (device times, CUDA graph); bound "
-          f"{max(t_bytes, t_ops) * 1e3:.2f} us by {'bytes' if t_bytes >= t_ops else 'operations'} "
-          f"({nbytes} B, {flops} FLOP); {flops / t_ms / 1e9:.1f} TFLOP/s, sdpa "
-          f"{flops / t_lib / 1e9:.1f}")
+    for shape in FLASH_SHAPES:
+        time_flash_shape(torch, flash_fwd, gen, *shape)
     return rec
+
+
+# shapes the forward is timed at beside SDPA (the serving prefill is timed
+# above): (label, B, Sq, Sk, H, KV, D, causal).  The training shape (the
+# forward runs twice per layer per train step), and the two newest models'
+# at their serving sizes
+FLASH_SHAPES = (
+    ("training shape", 2, 2048, 2048, 32, 2, 128, True),
+    ("qwen2-vl-2b prefill", 4, 512, 512, 12, 2, 128, True),
+    ("whisper-large-v3 decoder prefill", 4, 128, 128, 20, 20, 64, True),
+    ("whisper-large-v3 encoder (off the models' kernel path)", 4, 1500, 1500, 20, 20, 64, False),
+    ("whisper-large-v3 cross-attention (off the models' kernel path)", 4, 128, 1500, 20, 20, 64,
+     False),
+)
+
+
+def time_flash_shape(torch, flash_fwd, gen, label: str, B: int, Sq: int, Sk: int, H: int,
+                     KV: int, D: int, causal: bool) -> None:
+    """The bf16 flash forward at one shape beside SDPA (device times, CUDA
+    graph of 10 calls) and its bound."""
+    dev = torch.device("cuda")
+    q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, Sk, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, Sk, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    ms = graph_ms(torch, lambda: flash_fwd(q, k, v, causal=causal), iters=10)
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = graph_ms(torch, lambda: sdpa(qt, kt, vt, is_causal=causal, enable_gqa=True),
+                      iters=10)
+    nbytes = 2 * (2 * q.numel() + k.numel() + v.numel()) + 4 * B * H * Sq
+    pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk  # (query, key) pairs per head
+    flops = 4 * B * H * D * pairs
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    print(f"[flash] {label}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} bf16 causal={causal}: "
+          f"kernel {ms:.5f} ms, sdpa {lib_ms:.5f} ms (device times, CUDA graph); bound "
+          f"{max(t_bytes, t_ops) * 1e3:.2f} us by {'bytes' if t_bytes >= t_ops else 'operations'} "
+          f"({nbytes} B, {flops} FLOP); {flops / ms / 1e9:.1f} TFLOP/s, sdpa "
+          f"{flops / lib_ms / 1e9:.1f}")
 
 
 DECODE_LENS = (1, 15, 16, 17, 63, 64, 65, 528, 1024)
@@ -605,7 +660,50 @@ def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
           f"{live_ms:.4f} ms (device times, CUDA graph)")
     print(f"[decode] wrapper on the host: {wrap_us:.2f} us per call; back-to-back calls "
           f"between CUDA events {loop_ms:.4f} ms per call")
+    for label, B, S, H, KV, D, L in DECODE_MODEL_SHAPES:
+        time_decode_shape(torch, ref, decode_fwd, gen, label, B, S, H, KV, D, L)
     return rec
+
+
+# the two newest models' decode at their serving sizes, halfway through the
+# 32 generated tokens: (label, B, S, H, KV, D, kv_len)
+DECODE_MODEL_SHAPES = (
+    ("qwen2-vl-2b", 4, 1024, 12, 2, 128, 528),
+    ("whisper-large-v3 decoder", 4, 256, 20, 20, 64, 144),
+)
+
+
+def time_decode_shape(torch, ref, decode_fwd, gen, label: str, B: int, S: int, H: int, KV: int,
+                      D: int, L: int) -> None:
+    """bf16 flash-decode at one shape: on the tensor cores, against its
+    plain version at 1, ``L`` and S, then timed with a device kv_len beside
+    SDPA over the live keys (device times, CUDA graph), and its bound."""
+    from repro_torch.kernels.decode_attention import variant
+
+    dev = torch.device("cuda")
+    q = torch.randn((B, H, D), generator=gen, device=dev).to(torch.bfloat16)
+    k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(torch.bfloat16)
+    check(variant(q.dtype, k.dtype, D) == "mma", f"{label}: flash-decode not on the tensor cores")
+    worst = 0.0
+    for length in (1, L, S):
+        ok, err = allclose(torch, decode_fwd(q, k, v, length),
+                           ref.decode_attention_ref(q, k, v, length), TOL["bfloat16"])
+        check(ok, f"flash-decode disagrees with its plain version ({label}, kv_len {length})")
+        worst = max(worst, err)
+    kv = torch.full((1,), L, dtype=torch.int32, device=dev)
+    ms = graph_ms(torch, lambda: decode_fwd(q, k, v, kv), iters=50)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    q4, kt, vt = q[:, :, None], k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
+    lib_ms = graph_ms(torch, lambda: sdpa(q4, kt, vt, enable_gqa=True), iters=50)
+    nbytes = 2 * (2 * q.numel() + 2 * B * L * KV * D)
+    flops = 4 * B * H * L * D
+    t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    print(f"[decode] {label}: B={B} S={S} kv_len={L} H={H} KV={KV} (G={H // KV}) D={D} bf16, "
+          f"tensor cores: max_abs_err {worst:.3e} over kv_len 1, {L}, {S} (tol "
+          f"{TOL['bfloat16']}); kernel {ms:.5f} ms, sdpa {lib_ms:.5f} ms (device times, CUDA "
+          f"graph); bound {max(t_bytes, t_ops) * 1e3:.3f} us by "
+          f"{'bytes' if t_bytes >= t_ops else 'operations'} ({nbytes} B, {flops} FLOP)")
 
 
 def phase_gather(torch, ref, gather_fwd):
@@ -677,9 +775,9 @@ def path_logits(torch, cfg, impl: str, params, batch, tokens, max_len: int):
     from repro_torch.launch.serve import Server
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
 
-    prompt = batch["inputs"].shape[1]
     c = cfg.replace(attn_impl=impl)
-    _, prefill_fn = make_prefill_step(c, "cuda")
+    model, prefill_fn = make_prefill_step(c, "cuda")
+    prompt = model.prompt_shape(batch)[1]
     _, decode_fn = make_decode_step(c, "cuda")
     logits, cache = prefill_fn(params, batch)
     cache = Server(c, "cuda", max_len)._pad_cache(cache)
@@ -797,7 +895,7 @@ def time_serve(torch, server, params, batch, gen_tokens: int, counters: dict,
     of generate(8) under torch.profiler, and the captured step's device
     time, replayed back to back between CUDA events."""
     paths = {"eager": server.generate_eager, "graph": server.generate}
-    B, S = batch["inputs"].shape
+    B, S = server.model.prompt_shape(batch)
     name = server.cfg.name
 
     def timed(path: str, steps: int):
@@ -1333,6 +1431,21 @@ def check_train_head(torch) -> None:
     check(max(rels) <= GRAD_REL_TOL["bfloat16"], "the head's gradient disagrees with f32")
 
 
+def image_positions(torch, B: int, text: int, rows: int, cols: int, tail: int):
+    """[3, B, text + rows*cols + tail] (t, h, w) positions on the card, laid
+    out as Qwen2-VL lays out an image in a text: ``text`` tokens at
+    0..text-1 in all three streams, a rows x cols grid of image tokens at
+    t = text, h = text + row, w = text + column, then ``tail`` text tokens
+    from one past the grid's largest position."""
+    dev = torch.device("cuda")
+    r = torch.arange(rows * cols, device=dev)
+    image = torch.stack([torch.full_like(r, text), text + r // cols, text + r % cols])
+    start = text + max(rows, cols)
+    pos = torch.cat([torch.arange(text, device=dev).expand(3, text), image,
+                     (start + torch.arange(tail, device=dev)).expand(3, tail)], dim=1)
+    return pos[:, None].expand(3, B, pos.shape[1]).contiguous()
+
+
 def _device_batch(torch, cfg, B: int, S: int, step: int = 0) -> dict:
     from repro_torch.data import SyntheticLMSource
 
@@ -1352,6 +1465,10 @@ def check_grads(torch, counters: dict, cfg, B: int, S: int, tag: str = "train") 
     L = cfg.n_layers
     params = Model(cfg, "cuda").init_params(seed=0)
     batch = _device_batch(torch, cfg, B, S)
+    if cfg.embeds_input:  # qwen2-vl: the prompt as embeddings at the image layout's positions
+        gen = torch.Generator(device="cuda").manual_seed(6)
+        batch["embeds"] = 0.02 * torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
+        batch["positions"] = image_positions(torch, B, S // 4, S // 16, 8, S // 4)
     for dtype in ("bfloat16", "float32"):
         out = {}
         for impl in ("pallas", "chunked"):
@@ -1456,12 +1573,16 @@ def phase_train(torch, counters: dict) -> dict:
 # smoke configs as they are (head_dim 16 and 8), and chatglm3's with
 # head_dim 256 (the largest of any config, recurrentgemma-2b's), 20 (a bf16
 # row that is not a multiple of 16 bytes) and 320 (past 256: the D = 256
-# build in two pieces), which the flash kernels run on the CUDA cores; and
-# the two moe smoke configs (head_dim 16), served only: their training
-# step waits for MoE training
+# build in two pieces), which the flash kernels run on the CUDA cores; the
+# two moe smoke configs (head_dim 16), served only: their training step
+# waits for MoE training; whisper's (head_dim 16, served at 256 frames:
+# encoder, decoder and cross-attention on the flash kernel; served only,
+# encdec training is not ported) and qwen2-vl's (head_dim 16, the prompt as
+# embeddings at the image layout's positions)
 SMOKE_CONFIGS = (("chatglm3_6b", 0, True), ("yi_34b", 0, True), ("chatglm3_6b", 256, True),
                  ("chatglm3_6b", 20, True), ("chatglm3_6b", 320, True),
-                 ("qwen3_moe_30b_a3b", 0, False), ("granite_moe_1b_a400m", 0, False))
+                 ("qwen3_moe_30b_a3b", 0, False), ("granite_moe_1b_a400m", 0, False),
+                 ("whisper_large_v3", 0, False), ("qwen2_vl_2b", 0, True))
 
 
 def phase_smoke_configs(torch, counters: dict) -> None:
@@ -1481,10 +1602,17 @@ def phase_smoke_configs(torch, counters: dict) -> None:
         cfg = get_smoke_config(arch).replace(attn_impl="pallas")
         if head_dim:
             cfg = cfg.replace(head_dim=head_dim, name=f"{cfg.name}-hd{head_dim}")
+        n_flash = cfg.n_layers  # one flash forward per attention of the prefill
+        if cfg.family == "encdec":
+            cfg = cfg.replace(enc_positions=256)
+            n_flash += cfg.enc_layers + cfg.n_layers  # the encoder, the cross-attention
         server = Server(cfg, device="cuda", max_len=max_len)
         params = server.model.compute_params(server.model.init_params(seed=0))
         batch = concrete_batch(cfg, B, prompt, device="cuda")
         batch.pop("targets")
+        if cfg.embeds_input:  # the prompt as embeddings only, at an image's positions
+            batch.pop("inputs")
+            batch["positions"] = image_positions(torch, B, 32, 8, 8, 32)
         server.captured_decode(params, B)  # the capture (and its warm-up) before the count
         for c in counters.values():
             c.launches = 0
@@ -1502,7 +1630,7 @@ def phase_smoke_configs(torch, counters: dict) -> None:
               f"loop; flash kernels: bf16 on {route(D, torch.bfloat16)} (build D = "
               f"{padded_head_dim(D, torch.bfloat16)}, {-(-D // 256)} piece(s) of the head dim "
               f"past 128), f32 on {route(D, torch.float32)}")
-        check(n["flash_attention_fwd"] == cfg.n_layers
+        check(n["flash_attention_fwd"] == n_flash
               and n["decode_attention_fwd"] == cfg.n_layers * (gen_tokens - 1),
               f"{cfg.name}: the serve did not run the flash kernels")
         kern, plain = teacher_forced(torch, cfg, params, batch, tokens, max_len, plain="naive")
@@ -1917,7 +2045,7 @@ def check_no_host_sync(torch, server, params, batch, tag: str) -> None:
     logits, cache = server.prefill_fn(params, batch)
     cache = server._pad_cache(cache)
     tok = torch.argmax(logits, dim=-1)
-    prompt = batch["inputs"].shape[1]
+    prompt = server.model.prompt_shape(batch)[1]
     torch.cuda.synchronize()
     torch.cuda.set_sync_debug_mode("error")
     try:
@@ -2041,6 +2169,112 @@ def phase_moe(torch, arch: str, tag: str, counters: dict, B: int, prompt: int,
     return launched
 
 
+# the encoder-decoder and the M-RoPE model at full width and depth: (arch,
+# tag, decoder prompt, cache slots).  whisper's decoder context is 448
+# positions: a prompt of 128 and 32 tokens stay inside it
+ENC_VLM = (("whisper_large_v3", "whisper", 128, 256), ("qwen2_vl_2b", "qwen2vl", 512, 1024))
+
+
+def phase_enc_vlm(torch, arch: str, tag: str, counters: dict, B: int, prompt: int,
+                  gen_tokens: int, max_len: int) -> dict:
+    """whisper-large-v3 (audio frames [B, 1500, d] through the encoder, the
+    decoder prompted with tokens) or qwen2-vl-2b (the prompt as embeddings
+    at the image layout's positions, no tokens) at full width and depth,
+    weights from seed 0 in f32 cast to bf16, served through
+    ``Server.generate`` beside ``generate_eager`` (``time_serve``); the
+    launch counts of the first graph run, the step's byte bound, a profile
+    of 8 replays, one eager decode step with no host sync; then at depth 2
+    (full width) the kernel path against the plain path teacher-forced, in
+    bf16 (naive) and f32 (chunked).  Returns the launch counts."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+    from repro_torch.models.common import tree_items
+
+    cfg = get_config(arch).replace(attn_impl="pallas")
+    server = Server(cfg, device="cuda", max_len=max_len)
+    model = server.model
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    params = model.compute_params(model.init_params(seed=0))  # bf16 weights, f32 dropped
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    batch = concrete_batch(cfg, B, prompt, device="cuda")
+    batch.pop("targets")
+    if cfg.embeds_input:
+        batch.pop("inputs")
+        batch["positions"] = image_positions(torch, B, prompt // 8, 16, 24, prompt // 8)
+    # what one decode step reads: the parameters of its access plan (the
+    # embedding as B rows, unless it is the tied head), the live self cache
+    # halfway through the run and (encdec) the whole cross cache
+    t0 = time.perf_counter()
+    plan = server.plan(B)
+    plan_s = time.perf_counter() - t0
+    leaves = dict(tree_items(params))
+    nbytes = {p: t.numel() * t.element_size() for p, t in leaves.items()}
+    weight_bytes = sum(nbytes[r.path] for r in plan.records)
+    if not cfg.tie_embeddings:
+        weight_bytes -= nbytes["embed"] - B * nbytes["embed"] // leaves["embed"].shape[0]
+    kv_row = cfg.n_layers * B * cfg.n_kv_heads * cfg.head_dim * model.kv_dtype().itemsize
+    self_bytes = 2 * kv_row * (prompt + gen_tokens // 2)
+    cross_bytes = 2 * kv_row * cfg.enc_positions if cfg.family == "encdec" else 0
+    step_bytes = weight_bytes + self_bytes + cross_bytes
+    bound_ms = step_bytes / HBM_BPS * 1e3
+    print(f"[{tag}] {cfg.name} ({cfg.family}): {cfg.n_layers} layers"
+          + (f" + {cfg.enc_layers} encoder layers" if cfg.family == "encdec" else "")
+          + f", d_model {cfg.d_model}, heads {cfg.n_heads}/{cfg.n_kv_heads}, head_dim "
+          f"{cfg.head_dim}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, rope {cfg.rope}, "
+          f"{cfg.param_count()} params; {sum(nbytes.values())} B of weights after the f32 init "
+          f"and bf16 cast ({init_s:.3f} s); prompt "
+          + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}" for k, v in batch.items()))
+    print(f"[{tag}] decode step access plan: {len(plan.records)} records, "
+          f"{len(plan.collections())} collections (traced in {plan_s:.3f} s); a step reads "
+          f"{weight_bytes} B of weights, {self_bytes} B of live self cache, {cross_bytes} B of "
+          f"cross cache: byte bound {bound_ms:.3f} ms per step at {HBM_BPS / 1e12} TB/s")
+    check_no_host_sync(torch, server, params, batch, tag)
+
+    decode_steps = gen_tokens - 1
+    run = time_serve(torch, server, params, batch, gen_tokens, counters, tag)
+    tokens, launched = run["tokens"], run["launched"]
+    n_mma = run["by_variant"]["decode_attention_fwd.launches_mma"]
+    want = {n: 0 for n in counters}
+    want.update({"flash_attention_fwd": cfg.n_layers,  # whisper's encoder and cross: off it
+                 "decode_attention_fwd": cfg.n_layers * decode_steps,
+                 "prefetch_gather_fwd": decode_steps + ("inputs" in batch)})
+    print(f"[{tag}] launches in the first graph run: {launched} (want {want}); flash-decode on "
+          f"the tensor cores {n_mma}")
+    check(tuple(tokens.shape) == (B, gen_tokens), f"tokens shape {tuple(tokens.shape)}")
+    check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token out of range")
+    check(launched == want, f"{cfg.name}: the serve's launch counts are not the path's")
+    check(n_mma == cfg.n_layers * decode_steps,
+          f"{cfg.name}: the bf16 decode did not run the tensor-core flash-decode")
+    step = server.captured_decode(params, B)
+    with torch.inference_mode():  # the static buffers are inference tensors
+        step.pos.fill_(prompt)
+    profile_run(torch, f"{cfg.name} 8 replays of the captured decode step",
+                lambda: [step.replay() for _ in range(8)])
+    del params, leaves, server, model, run, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # depth 2, full width: the kernel path against the plain path
+    # (bf16 against the naive path, which rounds P as the kernels do; f32
+    # against the chunked path)
+    cfg2 = cfg.replace(n_layers=2, enc_layers=min(cfg.enc_layers, 2))
+    for dtype, plain, tol in (("bfloat16", "naive", LOGITS_REL_TOL_BF16_DEPTH2),
+                              ("float32", "chunked", LOGITS_REL_TOL_F32)):
+        c = cfg2.replace(compute_dtype=dtype)
+        m = Server(c, device="cuda", max_len=max_len).model
+        kern, ref_logits = teacher_forced(torch, c, m.compute_params(m.init_params(seed=0)),
+                                          batch, tokens, max_len, plain=plain)
+        check_paths(torch, f"{dtype} compute, depth 2", c, kern, ref_logits, tol,
+                    plain_impl=plain, tag=tag)
+        del m, kern, ref_logits
+        gc.collect()
+        torch.cuda.empty_cache()
+    return launched
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
@@ -2120,6 +2354,12 @@ def main() -> int:
     # is freed (qwen3-moe-30b-a3b's bf16 weights take 61 GB of the 80)
     for arch, tag in MOE:
         phase_moe(torch, arch, tag, serve_counters, B, prompt, gen_tokens, max_len)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the encoder-decoder and the M-RoPE model, each after every earlier one
+    # is freed
+    for arch, tag, dec_prompt, slots in ENC_VLM:
+        phase_enc_vlm(torch, arch, tag, serve_counters, B, dec_prompt, gen_tokens, slots)
         gc.collect()
         torch.cuda.empty_cache()
     for r in recs:

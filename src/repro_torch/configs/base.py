@@ -2,10 +2,9 @@
 backs ``--arch <id>`` selection.
 
 A copy of ``repro.configs.base`` (the port imports nothing of the JAX
-package).  The port serves the dense, moe, ssm and hybrid families so far,
-so the registry holds their eight architectures; each ``<id>.py`` carries the
-exact published numbers and a ``smoke()`` reduction (same family, tiny
-dims).
+package).  The registry holds the JAX package's ten architectures, in its
+order; each ``<id>.py`` carries the exact published numbers and a
+``smoke()`` reduction (same family, tiny dims).
 """
 
 from __future__ import annotations
@@ -180,17 +179,18 @@ def runnable_shapes(cfg: ModelConfig) -> list[ShapeConfig]:
 # Registry
 # ---------------------------------------------------------------------------
 
-# the dense, moe, ssm and hybrid families; the other two architectures of
-# ``repro.configs`` (encdec, and the mrope qwen2-vl) join with their slices
+# every architecture of ``repro.configs``, in its order
 ARCH_IDS = (
+    "whisper_large_v3",
     "chatglm3_6b",
     "yi_34b",
     "qwen1_5_4b",
     "minitron_8b",
+    "qwen2_vl_2b",
+    "recurrentgemma_2b",
     "qwen3_moe_30b_a3b",
     "granite_moe_1b_a400m",
     "falcon_mamba_7b",
-    "recurrentgemma_2b",
 )
 
 

@@ -6,7 +6,12 @@ of ``repro.launch.serve``.
 With ``attn_impl="pallas"`` on a CUDA device the dense and moe families'
 prefill runs the CUDA flash-attention kernel and every decode step the
 CUDA flash-decode kernel (the moe family's router, dispatch, expert
-products and combine are plain PyTorch, as in JAX they are XLA's); the ssm
+products and combine are plain PyTorch, as in JAX they are XLA's); so do
+whisper's decoder self-attention (encdec; its encoder and cross-attention
+take the flash kernel where both lengths are multiples of 128, as in JAX,
+and the decode's cross-attention the plain path) and qwen2-vl (dense, M-RoPE;
+its prompt arrives as precomputed ``embeds``, so only the decode steps
+gather embedding rows); the ssm
 family's prefill and decode run the CUDA selective scan once per layer,
 the hybrid's the CUDA gated RG-LRU scan once per recurrent layer (its
 windowed attention takes the plain path, as in JAX); all take the
@@ -21,7 +26,8 @@ Usage (on the card; ``--device cpu`` runs the plain path on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
       --batch 4 --prompt-len 512 --gen 32 --attn-impl pallas
   (also ``--arch qwen3_moe_30b_a3b``, ``granite_moe_1b_a400m``,
-  ``falcon_mamba_7b`` and ``recurrentgemma_2b``)
+  ``falcon_mamba_7b``, ``recurrentgemma_2b``, ``whisper_large_v3`` (random
+  audio frames) and ``qwen2_vl_2b`` (random prompt embeddings))
 """
 
 from __future__ import annotations
@@ -75,10 +81,14 @@ class Server:
         size (``captured_decode``), with no host work per token beyond the
         replay and the copy of the token out; the prompt and the tokens must
         fit ``max_len``, which is checked here (the eager loop's cache write
-        would raise ``IndexError``).  Elsewhere the eager loop runs."""
+        would raise ``IndexError``).  Elsewhere the eager loop runs.
+
+        The prompt is ``batch["inputs"]`` [B, S], or for an ``embeds_input``
+        config ``batch["embeds"]`` [B, S, d] where given (with its
+        ``positions``); encdec also reads ``batch["frames"]``."""
         if self.device.type != "cuda":
             return self.generate_eager(params, batch, steps, with_logits=with_logits)
-        B, S = batch["inputs"].shape
+        B, S = self.model.prompt_shape(batch)
         if S + steps - 1 > self.max_len:
             raise ValueError(f"a prompt of {S} and {steps} tokens need {S + steps - 1} "
                              f"positions; the server holds max_len={self.max_len}")
@@ -103,7 +113,7 @@ class Server:
     def generate_eager(self, params, batch: dict, steps: int, *, with_logits: bool = False):
         """``generate`` with every decode step run eagerly from the host at an
         int position: the plain loop, which the captured step must equal."""
-        B, S = batch["inputs"].shape
+        B, S = self.model.prompt_shape(batch)
         logits, cache = self.prefill_fn(params, batch)
         cache = self._pad_cache(cache)
         tok = torch.argmax(logits, dim=-1)
@@ -138,8 +148,12 @@ class Server:
         stack, the final norm, the head) runs as soon as every parameter it
         reads has been served, and its parameters are dropped once no later
         part reads them.  Writes into ``cache`` in place, as ``decode_fn``
-        does; returns (logits [B, 1, vocab], cache)."""
+        does; returns (logits [B, 1, vocab], cache).  The encdec family is
+        not streamed yet: it raises."""
         cfg, model = self.cfg, self.model
+        if cfg.family == "encdec":
+            raise NotImplementedError(
+                "streaming the encdec family is not ported yet: ROADMAP.md, section 1, item 5.8")
         paths = [p for p, _ in tree_items(model.template)]
         head = "embed" if cfg.tie_embeddings else "lm_head"
         out = {}
@@ -181,12 +195,14 @@ class Server:
 
     def _pad_cache(self, cache: dict) -> dict:
         """Grow the seq dim of the k/v cache to the slots decode writes in
-        place: ``max_len`` (dense and moe: slot ``pos``), or
-        ``min(local_window, max_len)`` (hybrid: slot ``pos % local_window``;
-        a prompt shorter than the window leaves fewer).  The ssm cache has
-        no seq dim.
+        place: ``max_len`` (dense, moe and encdec's self-attention cache:
+        slot ``pos``), or ``min(local_window, max_len)`` (hybrid: slot
+        ``pos % local_window``; a prompt shorter than the window leaves
+        fewer).  The ssm cache has no seq dim, and encdec's cross k/v keep
+        their ``enc_positions`` slots.
 
-        The JAX server pads only the dense, moe and encdec caches, so its
+        The JAX server pads the dense, moe and encdec caches alike (their
+        k/v only), and not the hybrid's, so its
         hybrid decode after a prompt shorter than the window writes outside
         the ring (clamped onto the last prompt key) and masks modulo the
         wrong length."""
@@ -208,7 +224,8 @@ class Server:
 
 
 # the top-level parameter groups of a layer stack, per family: ``layers``
-# (dense, moe, ssm), ``rec_layers`` and ``attn_layers`` (hybrid)
+# (dense, moe, ssm), ``rec_layers`` and ``attn_layers`` (hybrid); encdec's
+# decode is not streamed (``Server.stream_decode`` raises)
 _STACKS = ("layers", "rec_layers", "attn_layers")
 
 

@@ -40,7 +40,15 @@ def loss_and_grads(model: Model, params: dict, batch: dict):
     into row ``l`` of a stacked f32 gradient tensor.  With the stacked tensor
     itself as the leaf, autograd would build a zero tensor the size of the
     whole stack for every layer's view and add them all up: O(L^2) bytes
-    per step."""
+    per step.  A parameter the loss does not read (the token embedding of
+    an ``embeds_input`` batch with an untied head) gets a zero gradient, as
+    under ``jax.grad``.
+
+    The encdec family's stacks (``enc_layers``, ``dec_layers``) are not
+    walked yet: it raises."""
+    if model.cfg.family == "encdec":
+        raise NotImplementedError(
+            "training the encdec family is not ported yet: ROADMAP.md, section 1, item 5.7")
     top = tree_map(lambda p: p.detach().requires_grad_(),
                    {k: v for k, v in params.items() if k != "layers"})
     stacked = tree_map(torch.zeros_like, params["layers"])
@@ -53,7 +61,7 @@ def loss_and_grads(model: Model, params: dict, batch: dict):
     with torch.enable_grad():
         loss = model.loss_fn({**top, "layers": layers}, batch)
         loss.backward()
-    grads = tree_map(lambda p: p.grad, top)
+    grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, top)
     grads["layers"] = stacked
     return loss.detach(), grads
 
@@ -151,7 +159,8 @@ class CapturedDecode:
     def load(self, cache: dict, tokens, pos: int) -> None:
         """Start from a prefill: its ``cache`` into the static one (a k/v
         cache with fewer slots into the first ones, the rest zeroed, as
-        ``Server._pad_cache`` pads), ``tokens`` [B, 1] and ``pos``, the
+        ``Server._pad_cache`` pads; encdec's cross k/v, whose shape the
+        prefill fixes, as it is), ``tokens`` [B, 1] and ``pos``, the
         position of those tokens."""
         for key, buf in self.cache.items():
             src = cache[key]
@@ -181,7 +190,11 @@ def params_key(params: dict) -> tuple:
 def concrete_batch(cfg: ModelConfig, shape_or_bs, seq_len: Optional[int] = None,
                    generator: Optional[torch.Generator] = None, device="cuda") -> dict:
     """A random token batch ({"inputs", "targets"} [B, S]) drawn from
-    ``generator`` (seed 0 when none is given) on ``device``."""
+    ``generator`` (seed 0 when none is given) on ``device``, with what the
+    modality stubs read (JAX ``concrete_batch``): ``embeds_input`` configs
+    get ``embeds`` [B, S, d] (and, for mrope, ``positions`` [3, B, S]: 0..S-1
+    in every stream), encdec gets the audio ``frames`` [B, enc_positions,
+    d]; both f32, 0.02 times a standard normal."""
     if isinstance(shape_or_bs, ShapeConfig):
         B, S = shape_or_bs.global_batch, shape_or_bs.seq_len
     else:
@@ -191,7 +204,15 @@ def concrete_batch(cfg: ModelConfig, shape_or_bs, seq_len: Optional[int] = None,
         generator = torch.Generator(device=dev)
         generator.manual_seed(0)
     kw = dict(generator=generator, device=dev, dtype=torch.int64)
-    return {
+    batch = {
         "inputs": torch.randint(0, cfg.vocab_size, (B, S), **kw),
         "targets": torch.randint(0, cfg.vocab_size, (B, S), **kw),
     }
+    normal = dict(generator=generator, device=dev, dtype=torch.float32)
+    if cfg.embeds_input:
+        batch["embeds"] = 0.02 * torch.randn((B, S, cfg.d_model), **normal)
+        if cfg.rope == "mrope":
+            batch["positions"] = torch.arange(S, device=dev)[None, None].expand(3, B, S)
+    if cfg.family == "encdec":
+        batch["frames"] = 0.02 * torch.randn((B, cfg.enc_positions, cfg.d_model), **normal)
+    return batch

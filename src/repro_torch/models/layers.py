@@ -16,6 +16,7 @@ in f32.  Rounding points follow the JAX code so that the two agree.
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -56,7 +57,7 @@ def apply_norm(kind: str, x, scale, bias=None):
 
 
 # ---------------------------------------------------------------------------
-# Rotary position embeddings (default / half)
+# Position embeddings: rotary (default / half / mrope) and sinusoidal
 # ---------------------------------------------------------------------------
 
 
@@ -76,22 +77,44 @@ def _rotate(x, cos, sin):
 
 
 def rope_angles(kind: str, positions, head_dim: int, theta: float):
-    """The rotation tables of ``apply_rope`` for positions [B, S]: (cos,
-    sin) of shape [B, S, 1, rot/2], or None for kinds that do not rotate.
-    Every layer rotates at the same positions, so a stack computes them
-    once per forward or decode step (the JAX code recomputes them in each
-    layer; the values are the same)."""
+    """The rotation tables of ``apply_rope`` for positions [B, S] ([3, B, S]
+    for mrope): (cos, sin) of shape [B, S, 1, rot/2], or None for kinds that
+    do not rotate.  Every layer rotates at the same positions, so a stack
+    computes them once per forward or decode step (the JAX code recomputes
+    them in each layer; the values are the same)."""
     if kind in ("none", "sinusoidal"):
         return None
     if kind == "mrope":
-        raise NotImplementedError(
-            "mrope (qwen2-vl) is not ported yet: ROADMAP.md, section 1, item 5"
-        )
+        # qwen2-vl: the half head dim split into (t, h, w) sections, each
+        # with its own frequency ladder turned by its own position stream
+        parts = [_rope_angles(positions[i], 2 * width, theta)
+                 for i, width in enumerate(_mrope_sections(head_dim // 2))]
+        cos = torch.cat([c for c, _ in parts], dim=-1)
+        sin = torch.cat([s for _, s in parts], dim=-1)
+        return cos[:, :, None, :], sin[:, :, None, :]
     if kind not in ("default", "half"):
         raise ValueError(f"unknown rope kind {kind}")
     # "half" rotates only the first half of the head dim (ChatGLM 2d / partial)
     cos, sin = _rope_angles(positions, head_dim if kind == "default" else head_dim // 2, theta)
     return cos[:, :, None, :], sin[:, :, None, :]
+
+
+def _mrope_sections(half: int) -> tuple[int, int, int]:
+    """(t, h, w) frequency sections; qwen2-vl uses (16, 24, 24) for hd=128."""
+    t = half // 4
+    h = (half - t) // 2
+    return (t, h, half - t - h)
+
+
+def sinusoidal_embedding(positions, d_model: int):
+    """Absolute sinusoidal position embeddings [..., d_model] in f32: the
+    [sin, cos] halves of ``positions`` times a ladder of ``d_model / 2``
+    frequencies from 1 down to 1e-4 (whisper)."""
+    half = d_model // 2
+    steps = torch.arange(half, dtype=torch.float32, device=positions.device)
+    freqs = torch.exp(-math.log(10_000.0) * steps / max(1, half - 1))
+    ang = positions.float()[..., None] * freqs
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def apply_rope(x, angles):

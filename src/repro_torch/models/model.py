@@ -1,12 +1,13 @@
-"""Model facade for the dense, moe, ssm and hybrid families: parameter
-template, init, the training loss, prefill and decode.  Counterpart of
-``repro.models.model``.
+"""Model facade for every family (dense, moe, ssm, hybrid, encdec):
+parameter template, init, the training loss, prefill and decode.
+Counterpart of ``repro.models.model``.
 
 The parameter template (``build_template``) is the single source of truth
 for parameter shapes and initializers; its dotted paths and stacked
-``[L, ...]`` shapes are exactly the JAX package's.  The one family left,
-encdec, raises ``NotImplementedError`` naming the ROADMAP item that ports
-it.
+``[L, ...]`` shapes are exactly the JAX package's.  The modality front ends
+are stubs, as in JAX: whisper's encoder reads precomputed audio frames
+(``batch["frames"]``), qwen2-vl reads precomputed embeddings
+(``batch["embeds"]``) at 3-stream positions.
 """
 
 from __future__ import annotations
@@ -24,17 +25,17 @@ from .common import (
     param_count,
     tree_map,
 )
-from .layers import apply_norm
+from .layers import apply_norm, sinusoidal_embedding
 from .transformer import (
     block_kinds,
     cfg_dtype,
     decode_layers,
+    forward_decoder,
     forward_hybrid,
     forward_stack,
+    step_positions,
     torch_dtype,
 )
-
-_NOT_PORTED = "ROADMAP.md, section 1, item 5 (other families)"
 
 # ---------------------------------------------------------------------------
 # Parameter templates
@@ -48,7 +49,9 @@ def _stack(tmpl: dict, n: int) -> dict:
     )
 
 
-def _attn_tmpl(cfg: ModelConfig) -> dict:
+def _attn_tmpl(cfg: ModelConfig, cross: bool = False) -> dict:
+    """Self-attention's projections; the ``cross`` block (encdec) has no
+    biases and no qk-norm."""
     d, qd, kvd, hd = cfg.d_model, cfg.q_dim, cfg.kv_dim, cfg.head_dim
     t = {
         "wq": ParamSpec((d, qd), ("embed", "heads")),
@@ -56,13 +59,13 @@ def _attn_tmpl(cfg: ModelConfig) -> dict:
         "wv": ParamSpec((d, kvd), ("embed", "kv_heads")),
         "wo": ParamSpec((qd, d), ("heads", "embed")),
     }
-    if cfg.qkv_bias:
+    if cfg.qkv_bias and not cross:
         t["bq"] = ParamSpec((qd,), ("heads",), init="zeros")
         t["bk"] = ParamSpec((kvd,), ("kv_heads",), init="zeros")
         t["bv"] = ParamSpec((kvd,), ("kv_heads",), init="zeros")
-    if cfg.attn_out_bias:
+    if cfg.attn_out_bias and not cross:
         t["bo"] = ParamSpec((d,), ("embed",), init="zeros")
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         t["q_norm"] = ParamSpec((hd,), (None,), init="ones")
         t["k_norm"] = ParamSpec((hd,), (None,), init="ones")
     return t
@@ -153,8 +156,6 @@ def padded_vocab(cfg: ModelConfig) -> int:
 
 
 def build_template(cfg: ModelConfig) -> dict:
-    if cfg.family not in ("dense", "moe", "ssm", "hybrid"):
-        raise NotImplementedError(f"family {cfg.family!r} is not ported yet: {_NOT_PORTED}")
     V, d = padded_vocab(cfg), cfg.d_model
     base = {"embed": ParamSpec((V, d), ("vocab", "embed"), scale=0.01)}
     if not cfg.tie_embeddings:
@@ -166,10 +167,22 @@ def build_template(cfg: ModelConfig) -> dict:
         lt = _norm_tmpl(cfg, "ln1")
         lt["mamba"] = _mamba_tmpl(cfg)
         base["layers"] = _stack(lt, cfg.n_layers)
-    else:
+    elif cfg.family == "hybrid":
         kinds = block_kinds(cfg)
         base["rec_layers"] = _stack(_layer_tmpl(cfg, "rec"), kinds.count("rec"))
         base["attn_layers"] = _stack(_layer_tmpl(cfg, "attn"), kinds.count("attn"))
+    elif cfg.family == "encdec":
+        # the decoder layer: the encoder's, plus a cross-attention block
+        # behind its own norm ``lnc``
+        dec = _layer_tmpl(cfg)
+        dec.update(_norm_tmpl(cfg, "lnc"))
+        dec["cross"] = _attn_tmpl(cfg, cross=True)
+        base["enc_layers"] = _stack(_layer_tmpl(cfg), cfg.enc_layers)
+        base["dec_layers"] = _stack(dec, cfg.n_layers)
+        base.update({k.replace("final_norm", "enc_norm"): v
+                     for k, v in _norm_tmpl(cfg, "final_norm").items()})
+    else:
+        raise ValueError(f"unknown family {cfg.family}")
     return base
 
 
@@ -191,8 +204,9 @@ def count_params_config(cfg: ModelConfig, active_only: bool = False) -> int:
 # ``models/rglru.py``; rounding them would change every step's decay; the
 # moe router: ``models/moe.py``, rounding it would move the top-k choice);
 # ``Model.compute_params`` leaves them as they are
-_KEEP_LEAVES = ("ln1", "ln1_b", "ln2", "ln2_b", "final_norm", "final_norm_b",
-                "q_norm", "k_norm", "A_log", "D", "lam", "router")
+_KEEP_LEAVES = ("ln1", "ln1_b", "ln2", "ln2_b", "lnc", "lnc_b", "final_norm",
+                "final_norm_b", "enc_norm", "enc_norm_b", "q_norm", "k_norm", "A_log", "D",
+                "lam", "router")
 
 
 # ---------------------------------------------------------------------------
@@ -237,6 +251,14 @@ class Model:
 
         return walk(params)
 
+    def prompt_shape(self, batch) -> tuple[int, int]:
+        """(B, S) of the prompt that ``hidden_states`` reads from ``batch``:
+        ``embeds`` where an ``embeds_input`` config is given them, else
+        ``inputs``."""
+        if self.cfg.embeds_input and "embeds" in batch:
+            return tuple(batch["embeds"].shape[:2])
+        return tuple(batch["inputs"].shape)
+
     # -- embedding / head ----------------------------------------------------
 
     def embed(self, params, tokens):
@@ -280,14 +302,32 @@ class Model:
     # -- full-sequence forward -------------------------------------------------
 
     def hidden_states(self, params, batch, collect_cache=False):
+        """The final-normed hidden states [B, S, d] and, with
+        ``collect_cache``, what the family's cache is assembled from.
+        encdec: the encoder over ``batch["frames"]``, then the decoder over
+        the tokens at absolute positions; ``embeds_input`` configs read
+        ``batch["embeds"]`` in place of the token embedding where it is
+        given, at ``batch["positions"]`` ([3, B, S] for mrope; by default
+        0..S-1 in every stream)."""
         cfg = self.cfg
+        dt = cfg_dtype(cfg)
+        if cfg.family == "encdec":
+            x = self.embed(params, batch["inputs"])
+            pos = torch.arange(x.shape[1], device=x.device)[None, :]
+            x = x + sinusoidal_embedding(pos, cfg.d_model).to(dt)
+            h, extras = forward_decoder(params, cfg, x, batch["frames"],
+                                        collect_cache=collect_cache)
+            return self._final_norm(params, h), extras
         if cfg.embeds_input and "embeds" in batch:
-            raise NotImplementedError(f"embeds_input is not ported yet: {_NOT_PORTED}")
-        x = self.embed(params, batch["inputs"])
-        B, S = batch["inputs"].shape
+            x = batch["embeds"].to(dt)
+        else:
+            x = self.embed(params, batch["inputs"])
+        B, S = x.shape[:2]
         positions = batch.get("positions")
         if positions is None:
             positions = torch.arange(S, device=x.device)[None, :].expand(B, S)
+            if cfg.rope == "mrope":
+                positions = positions[None].expand(3, B, S)
         forward = forward_hybrid if cfg.family == "hybrid" else forward_stack
         h, extras = forward(params, cfg, x, positions, collect_cache=collect_cache)
         return self._final_norm(params, h), extras
@@ -347,6 +387,10 @@ class Model:
                 k = torch.roll(k[:, :, -W:], shifts=S % W, dims=2)
                 v = torch.roll(v[:, :, -W:], shifts=S % W, dims=2)
             return {"conv": conv, "rec": rec, "k": k.to(kvdt), "v": v.to(kvdt)}
+        if cfg.family == "encdec":
+            k, v, ck, cv = extras
+            return {"k": k.to(kvdt), "v": v.to(kvdt),
+                    "cross_k": ck.to(kvdt), "cross_v": cv.to(kvdt)}
         k, v = extras
         return {"k": k.to(kvdt), "v": v.to(kvdt)}
 
@@ -357,6 +401,9 @@ class Model:
         replay).  Writes the new k/v (and recurrent states) into ``cache``
         in place and returns (logits [B, 1, vocab], cache)."""
         x = self.embed(params, tokens)
+        if self.cfg.family == "encdec":  # absolute positions (whisper)
+            pos11 = step_positions(pos, (1, 1), x.device)
+            x = x + sinusoidal_embedding(pos11, self.cfg.d_model).to(x.dtype)
         h, cache = decode_layers(params, self.cfg, x, cache, pos)
         h = self._final_norm(params, h)
         return self.logits(params, h)[..., : self.cfg.vocab_size], cache
@@ -370,7 +417,9 @@ class Model:
     def abstract_cache(self, batch_size: int, seq_len: int) -> dict:
         """The decode cache on the ``meta`` device: no allocation.  k/v in
         the KV-cache dtype, conv tails in the compute dtype, recurrent
-        states in f32; the hybrid's ring holds min(window, seq_len) slots."""
+        states in f32; the hybrid's ring holds min(window, seq_len) slots;
+        encdec adds the cross-attention's k/v over the encoder's
+        ``enc_positions`` frames."""
         cfg = self.cfg
         kvdt, cdt = self.kv_dtype(), cfg_dtype(cfg)
         KV, hd = cfg.n_kv_heads, cfg.head_dim
@@ -391,7 +440,11 @@ class Model:
                     "k": meta((n_attn, batch_size, W, KV, hd), kvdt),
                     "v": meta((n_attn, batch_size, W, KV, hd), kvdt)}
         shp = (cfg.n_layers, batch_size, seq_len, KV, hd)
-        return {"k": meta(shp, kvdt), "v": meta(shp, kvdt)}
+        cache = {"k": meta(shp, kvdt), "v": meta(shp, kvdt)}
+        if cfg.family == "encdec":
+            cshp = (cfg.n_layers, batch_size, cfg.enc_positions, KV, hd)
+            cache.update(cross_k=meta(cshp, kvdt), cross_v=meta(cshp, kvdt))
+        return cache
 
 
 class _HeadMatmul(torch.autograd.Function):

@@ -1,11 +1,12 @@
-"""Transformer assembly for the dense, moe, ssm and hybrid families: blocks,
-the layer stacks and the decode paths.  Counterpart of those parts of
+"""Transformer assembly for every family (dense, moe, ssm, hybrid, encdec):
+blocks, the layer stacks and the decode paths.  Counterpart of
 ``repro.models.transformer``.
 
 Layer parameters are stacked on a leading ``layers`` dim as in the JAX
-package; the stack is a Python loop and layer ``l`` is the view
-``params["layers"][...][l]``, or, where the train step hands the layers over
-as a list of per-layer trees, ``params["layers"][l]``.  The hybrid's
+package; a stack (``layers``, or encdec's ``enc_layers`` and
+``dec_layers``) is one Python loop (``_walk``) and layer ``l`` is the view
+``params[group][...][l]``, or, where the train step hands the layers over
+as a list of per-layer trees, ``params[group][l]``.  The hybrid's
 interleaved (rec, rec, attn) pattern takes its layers from
 ``rec_layers`` and ``attn_layers`` by static slices (``static_layer_params``),
 as JAX's Python loop does.  Under autograd each layer is recomputed in the
@@ -31,6 +32,7 @@ from .layers import (
     mlp_apply,
     qkv_project,
     rope_angles,
+    sinusoidal_embedding,
 )
 from .moe import moe_apply
 from .rglru import recurrent_block
@@ -152,16 +154,61 @@ def rec_layer(x, lp, cfg, dt, collect_cache=False):
     return x, ((conv_state, rec_state) if collect_cache else None)
 
 
+def cross_kv(enc_out, lp, cfg, dt):
+    """encdec: the cross-attention's k, v [B, F, KV, hd] projected from the
+    encoder output [B, F, d] (no bias)."""
+    B = enc_out.shape[0]
+    cp = lp["cross"]
+    k = (enc_out @ cp["wk"].to(dt)).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    v = (enc_out @ cp["wv"].to(dt)).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    return k, v
+
+
+def cross_attn(x, lp, cfg, dt, k, v, impl):
+    """encdec: the pre-norm (``lnc``) cross-attention sub-block, the
+    decoder's queries against the encoder's ``k``, ``v``, unmasked."""
+    h = apply_norm(cfg.norm, x, lp["lnc"], lp.get("lnc_b"))
+    B = h.shape[0]
+    cp = lp["cross"]
+    q = (h @ cp["wq"].to(dt)).reshape(B, -1, cfg.n_heads, cfg.head_dim)
+    o = gqa_attention(q, k, v, causal=False, impl=impl, chunk=cfg.attn_chunk)
+    return x + o.reshape(B, -1, cfg.q_dim) @ cp["wo"].to(dt)
+
+
 def _stack_pairs(pairs):
-    """[(a_l, b_l)] per layer -> (stacked a, stacked b)."""
+    """[(a_l, b_l, ...)] per layer -> (stacked a, stacked b, ...)."""
     return tuple(torch.stack(xs) for xs in zip(*pairs))
 
 
-def forward_stack(params, cfg, x, positions, *, causal=True, collect_cache=False):
-    """The homogeneous stacks (dense, moe, ssm); with ``collect_cache`` also
-    returns the per-layer caches stacked on a leading layer dim: (k, v)
-    [L, B, S, KV, hd] each (dense, moe), (conv [L, B, K-1, d_inner], ssm
-    [L, B, d_inner, N]) (ssm)."""
+def _n_stacked(layers) -> int:
+    """The number of layers in stacked ``[L, ...]`` layer parameters or a
+    list of per-layer trees."""
+    if isinstance(layers, list):
+        return len(layers)
+    return next(iter(tree_items(layers)))[1].shape[0]
+
+
+def _walk(layers, cfg, x, body, collect_cache):
+    """``body(x, lp) -> (x, cache)`` over every layer of ``layers`` under
+    the config's remat policy; with ``collect_cache`` also the per-layer
+    caches stacked on a leading layer dim."""
+    layer = _remat(body, cfg)
+    caches = []
+    for l in range(_n_stacked(layers)):
+        x, cache = layer(x, layer_params(layers, l))
+        caches.append(cache)
+    if not collect_cache:
+        return x, None
+    return x, _stack_pairs(caches)
+
+
+def forward_stack(params, cfg, x, positions, *, group="layers", causal=True,
+                  collect_cache=False):
+    """A homogeneous stack: ``params[group]`` of the dense, moe and ssm
+    families, or encdec's encoder (``enc_layers``, not causal); with
+    ``collect_cache`` also returns the per-layer caches stacked on a leading
+    layer dim: (k, v) [L, B, S, KV, hd] each (dense, moe), (conv [L, B,
+    K-1, d_inner], ssm [L, B, d_inner, N]) (ssm)."""
     dt = cfg_dtype(cfg)
     if cfg.family == "ssm":
         body = lambda x, lp: mamba_layer(x, lp, cfg, dt, collect_cache)  # noqa: E731
@@ -169,14 +216,35 @@ def forward_stack(params, cfg, x, positions, *, causal=True, collect_cache=False
         angles = rope_angles(cfg.rope, positions, cfg.head_dim, cfg.rope_theta)
         body = lambda x, lp: dense_layer(x, lp, cfg, dt, angles, causal=causal,  # noqa: E731
                                          collect_cache=collect_cache)
-    layer = _remat(body, cfg)
-    caches = []
-    for l in range(cfg.n_layers):
-        x, cache = layer(x, layer_params(params["layers"], l))
-        caches.append(cache)
-    if not collect_cache:
-        return x, None
-    return x, _stack_pairs(caches)
+    return _walk(params[group], cfg, x, body, collect_cache)
+
+
+def forward_encoder(params, cfg, frames):
+    """whisper's encoder over precomputed (stub) frame embeddings [B, F, d]:
+    the sinusoidal embedding added, the non-causal ``enc_layers`` stack,
+    then ``enc_norm``."""
+    dt = cfg_dtype(cfg)
+    pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
+    x = frames.to(dt) + sinusoidal_embedding(pos, cfg.d_model).to(dt)
+    x, _ = forward_stack(params, cfg, x, pos, group="enc_layers", causal=False)
+    return apply_norm(cfg.norm, x, params["enc_norm"], params.get("enc_norm_b"))
+
+
+def forward_decoder(params, cfg, x, frames, *, collect_cache=False):
+    """whisper's decoder over the embedded tokens ``x`` (absolute positions
+    added): per layer causal self-attention, cross-attention to the
+    encoder's output over ``frames``, then the MLP.  With ``collect_cache``
+    also returns (k, v, cross k, cross v), each stacked over the layers."""
+    dt = cfg_dtype(cfg)
+    enc_out = forward_encoder(params, cfg, frames)
+
+    def body(h, lp):
+        h, self_kv = attn_block(h, lp, cfg, dt, None, collect_cache=collect_cache)
+        kc, vc = cross_kv(enc_out, lp, cfg, dt)
+        h = cross_attn(h, lp, cfg, dt, kc, vc, cfg.attn_impl)
+        return ffn_block(h, lp, cfg, dt), ((*self_kv, kc, vc) if collect_cache else None)
+
+    return _walk(params["dec_layers"], cfg, x, body, collect_cache)
 
 
 def forward_hybrid(params, cfg, x, positions, *, collect_cache=False):
@@ -285,26 +353,42 @@ def _kv_len(pos):
     return pos + 1
 
 
-def _step_angles(cfg, pos, B: int, device):
-    """``rope_angles`` of the decode position ``pos`` for a batch of ``B``: a
-    device ``pos`` expanded to [B, 1], an int filled in."""
+def step_positions(pos, shape: tuple, device):
+    """The decode position ``pos`` as an int tensor of ``shape``: a 0-d
+    device ``pos`` expanded (so that a captured step reads it at replay),
+    an int filled in."""
     if isinstance(pos, torch.Tensor):
-        positions = pos.reshape(1, 1).expand(B, 1)
-    else:
-        positions = torch.full((B, 1), pos, dtype=torch.int32, device=device)
-    return rope_angles(cfg.rope, positions, cfg.head_dim, cfg.rope_theta)
+        return pos.reshape((1,) * len(shape)).expand(shape)
+    return torch.full(shape, pos, dtype=torch.int32, device=device)
+
+
+def _step_angles(cfg, pos, B: int, device):
+    """``rope_angles`` of the decode position ``pos`` for a batch of ``B``
+    ([B, 1]); mrope turns all three streams by ``pos`` ([3, B, 1]), as
+    JAX's decode does."""
+    shape = (3, B, 1) if cfg.rope == "mrope" else (B, 1)
+    return rope_angles(cfg.rope, step_positions(pos, shape, device), cfg.head_dim,
+                       cfg.rope_theta)
 
 
 def decode_stack(params, cfg, x, cache, pos):
-    """Dense and moe decode over all layers at ``pos`` (an int, or a 0-d int tensor
-    on x's device); updates ``cache`` in place and returns (x, cache)."""
+    """Dense, moe and encdec decode over all layers at ``pos`` (an int, or a
+    0-d int tensor on x's device); updates ``cache`` in place and returns
+    (x, cache).  encdec's layers (``dec_layers``) attend to the prefilled
+    cross k/v after the self cache, on the plain path as in JAX (its
+    ``impl="naive"``)."""
     dt = cfg_dtype(cfg)
+    encdec = cfg.family == "encdec"
+    layers = params["dec_layers" if encdec else "layers"]
     angles = _step_angles(cfg, pos, x.shape[0], x.device)
     kv_len = _kv_len(pos)  # once per step, not per layer
     for l in range(cfg.n_layers):
-        lp = layer_params(params["layers"], l)
+        lp = layer_params(layers, l)
         x = _decode_attn(x, lp, cfg, dt, cache["k"][l], cache["v"][l], pos, angles,
                          kv_len=kv_len)
+        if encdec:
+            x = cross_attn(x, lp, cfg, dt, cache["cross_k"][l].to(dt),
+                           cache["cross_v"][l].to(dt), "naive")
         x = ffn_block(x, lp, cfg, dt)
     return x, cache
 

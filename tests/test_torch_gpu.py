@@ -109,6 +109,28 @@ def test_decode_attention_kernel_other_shapes(cuda, B, S, H, KV, D, kv_len):
 DECODE_LENS = (1, 15, 16, 17, 63, 64, 65, 528, 1024)
 
 
+@pytest.mark.parametrize("B,S,H,KV,D,kv_len", [
+    (4, 1024, 12, 2, 128, 528),  # qwen2-vl-2b decode: G = 6
+    (4, 256, 20, 20, 64, 144),   # whisper-large-v3 decoder: G = 1, D 64
+])
+def test_decode_tensor_core_variant_serving_shapes(cuda, B, S, H, KV, D, kv_len):
+    """Flash-decode at the two new models' serving shapes, bf16 query and
+    cache: the tensor-core variant, within the tolerance of the plain
+    version at the serving length, at 1 and at S."""
+    from repro_torch.kernels import decode_attention as dec
+
+    assert dec.variant(torch.bfloat16, torch.bfloat16, D) == "mma"
+    gen = torch.Generator(device=cuda).manual_seed(14)
+    q = _randn(gen, (B, H, D), torch.bfloat16, cuda)
+    k = _randn(gen, (B, S, KV, D), torch.bfloat16, cuda)
+    v = _randn(gen, (B, S, KV, D), torch.bfloat16, cuda)
+    n = decode_attention_fwd.launches_mma
+    for length in (1, kv_len, S):
+        _close(decode_attention_fwd(q, k, v, length), ref.decode_attention_ref(q, k, v, length),
+               **TOL[torch.bfloat16])
+    assert decode_attention_fwd.launches_mma == n + 3
+
+
 @pytest.mark.parametrize("kv_dtype", [torch.bfloat16, torch.float8_e4m3fn])
 @pytest.mark.parametrize("D", [64, 128])
 @pytest.mark.parametrize("G", [1, 4, 7, 16, 32])
@@ -257,6 +279,12 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
     (2, 300, 300, 32, 2, 64, True, 0),      # G = 16, D = 64
     (1, 100, 356, 32, 2, 128, True, 256),
     (2, 2048, 2048, 32, 2, 128, True, 0),   # chatglm3-6b training shape
+    (4, 512, 512, 12, 2, 128, True, 0),     # qwen2-vl-2b prefill: G = 6
+    (4, 128, 128, 20, 20, 64, True, 0),     # whisper-large-v3 decoder prefill: G = 1
+    # whisper's encoder and cross-attention, which the JAX guard keeps off
+    # the kernel (lengths not multiples of 128)
+    (4, 1500, 1500, 20, 20, 64, False, 0),
+    (4, 128, 1500, 20, 20, 64, False, 0),
 ])
 def test_flash_attention_wgmma_kernel_matches_ref(cuda, B, Sq, Sk, H, KV, D, causal, q_offset):
     """The bf16 forward (TMA, wgmma, warp-specialised, persistent) for each
@@ -450,12 +478,13 @@ def test_bwd_kernels_refuse_what_they_cannot_take(cuda):
         flash_attention_bwd_dkdv(q, q[:, :, :2], q[:, :, :2], q.float(), lse, lse)
 
 
-@pytest.mark.parametrize("arch", ["chatglm3_6b", "yi_34b"])
+@pytest.mark.parametrize("arch", ["chatglm3_6b", "yi_34b", "qwen2_vl_2b"])
 def test_smoke_configs_train_through_the_flash_kernels(cuda, arch):
-    """The smoke configs, unmodified (head_dim 16 and 8), train through both
-    backward kernels: one step's gradients in f32 against the plain chunked
-    path, each leaf within 1e-4 of its largest magnitude (the key bias,
-    whose gradient is zero in exact arithmetic, of the whole tree's)."""
+    """The smoke configs, unmodified (head_dim 16, 8 and 16), train through
+    both backward kernels: one step's gradients in f32 against the plain
+    chunked path, each leaf within 1e-4 of its largest magnitude (the key
+    bias, whose gradient is zero in exact arithmetic, of the whole tree's);
+    qwen2-vl from precomputed embeddings at 3-stream positions."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.steps import concrete_batch, loss_and_grads
     from repro_torch.models.common import tree_items
@@ -841,6 +870,46 @@ def test_moe_kernel_path_matches_plain_path(cuda, arch):
     assert float((out["pallas"] - out["chunked"]).abs().max()) <= 1e-5 * scale
 
 
+@pytest.mark.parametrize("arch", ["whisper_large_v3", "qwen2_vl_2b"])
+def test_encdec_and_mrope_kernel_path_matches_plain_path(cuda, arch):
+    """whisper-smoke (at 256 frames, so that its encoder and cross-attention
+    take the flash kernel too) and qwen2vl-smoke (prompt as embeddings at
+    3-stream positions) in f32 on the card: prefill and three decode steps
+    through the flash kernels against the plain chunked path, within 1e-5
+    of the largest logit; flash forwards: one per attention of the prefill
+    (whisper: encoder, decoder and cross-attention per layer), flash-decode
+    one per layer per step."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+
+    base = get_smoke_config(arch).replace(compute_dtype="float32")
+    if base.family == "encdec":
+        base = base.replace(enc_positions=256)
+        n_flash = base.enc_layers + 2 * base.n_layers
+    else:
+        n_flash = base.n_layers
+    params = Server(base, device="cuda").model.init_params(seed=0)
+    batch = concrete_batch(base, 2, 128, device="cuda")
+    targets = batch.pop("targets")
+    out = {}
+    for impl in ("pallas", "chunked"):
+        server = Server(base.replace(attn_impl=impl), device="cuda", max_len=256)
+        f0, d0 = flash_attention_fwd.launches, decode_attention_fwd.launches
+        logits, cache = server.prefill_fn(params, batch)
+        cache = server._pad_cache(cache)
+        steps = [logits]
+        for i in range(3):
+            logits, cache = server.decode_fn(params, cache, targets[:, i : i + 1], 128 + i)
+            steps.append(logits)
+        out[impl] = torch.cat(steps, dim=1)
+        on_path = impl == "pallas"
+        assert flash_attention_fwd.launches - f0 == (n_flash if on_path else 0)
+        assert decode_attention_fwd.launches - d0 == (3 * base.n_layers if on_path else 0)
+    scale = float(out["chunked"].abs().max())
+    assert float((out["pallas"] - out["chunked"]).abs().max()) <= 1e-5 * scale
+
+
 # ---------------------------------------------------------------------------
 # flash-decode's kv_len in device memory, and the captured decode step
 # ---------------------------------------------------------------------------
@@ -913,14 +982,16 @@ def test_decode_capture_replays_at_every_kv_len(cuda, q_dtype):
 GRAPH_CASES = [("chatglm3_6b", "bfloat16"), ("chatglm3_6b", "float32"),
                ("qwen3_moe_30b_a3b", "bfloat16"), ("granite_moe_1b_a400m", "float32"),
                ("falcon_mamba_7b", "bfloat16"), ("recurrentgemma_2b", "bfloat16"),
-               ("recurrentgemma_2b", "float32")]
+               ("recurrentgemma_2b", "float32"), ("whisper_large_v3", "bfloat16"),
+               ("qwen2_vl_2b", "bfloat16")]
 
 
 @pytest.mark.parametrize("arch,dtype", GRAPH_CASES)
 def test_captured_generate_is_bitwise_the_eager_loop(cuda, arch, dtype):
     """``Server.generate`` on the card replays one captured step: its tokens
     and the logits of every step equal the eager loop's bit for bit (the
-    same kernels at the same grids), with the hybrid's ring wrapping."""
+    same kernels at the same grids), with the hybrid's ring wrapping, and
+    with whisper's cross k/v and qwen2-vl's embedded prompt."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.launch.serve import Server
     from repro_torch.launch.steps import concrete_batch
@@ -928,7 +999,8 @@ def test_captured_generate_is_bitwise_the_eager_loop(cuda, arch, dtype):
     cfg = get_smoke_config(arch).replace(compute_dtype=dtype, attn_impl="pallas")
     server = Server(cfg, device="cuda", max_len=256)
     params = server.model.compute_params(server.model.init_params(seed=0))
-    batch = {"inputs": concrete_batch(cfg, 2, 16, device="cuda")["inputs"]}
+    batch = concrete_batch(cfg, 2, 16, device="cuda")
+    batch.pop("targets")
     for _ in range(2):  # the first call captures, the second reuses
         tokens, logits = server.generate(params, batch, 12, with_logits=True)
         want_tokens, want_logits = server.generate_eager(params, batch, 12, with_logits=True)

@@ -113,9 +113,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                "repro_torch.models.rglru", "repro_torch.configs.falcon_mamba_7b",
                "repro_torch.configs.recurrentgemma_2b", "repro_torch.models.moe",
                "repro_torch.configs.qwen3_moe_30b_a3b",
-               "repro_torch.configs.granite_moe_1b_a400m"}
+               "repro_torch.configs.granite_moe_1b_a400m",
+               "repro_torch.configs.whisper_large_v3", "repro_torch.configs.qwen2_vl_2b"}
         assert new <= set(names), sorted(new - set(names))
-        assert len(names) >= 39, names
+        assert len(names) >= 41, names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
