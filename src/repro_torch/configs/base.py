@@ -97,7 +97,7 @@ class ModelConfig:
     attn_impl: str = "chunked"
     attn_chunk: int = 1024
 
-    # remat policy for the layer scan: none | full | dots
+    # remat policy for the layer scan: none | full | dots | save_collectives
     remat: str = "full"
 
     # logits/loss chunking over sequence (0 = no chunking)

@@ -30,39 +30,47 @@ def make_optimizer(total_steps: int = 10_000) -> AdamW:
     return AdamW(learning_rate=warmup_cosine(3e-4, warmup, total_steps))
 
 
+# the stacked ``[L, ...]`` layer trees of every family: ``layers`` (dense,
+# moe, ssm), the hybrid's ``rec_layers`` and ``attn_layers``, encdec's
+# ``enc_layers`` and ``dec_layers``
+LAYER_STACKS = ("layers", "rec_layers", "attn_layers", "enc_layers", "dec_layers")
+
+
+def _layer_views(stack: dict, grads: dict) -> list:
+    """One autograd leaf per layer of a stacked tree: the view ``a[l]`` of
+    each leaf, detached, whose ``.grad`` is row ``l`` of ``grads``."""
+    n = next(iter(tree_items(stack)))[1].shape[0]
+    views = []
+    for l in range(n):
+        lp = tree_map(lambda a: a[l].detach().requires_grad_(), stack)
+        for (_, leaf), (_, g) in zip(tree_items(lp), tree_items(grads)):
+            leaf.grad = g[l]
+        views.append(lp)
+    return views
+
+
 def loss_and_grads(model: Model, params: dict, batch: dict):
     """(loss, gradient tree) of ``model.loss_fn`` at ``params``: the
     counterpart of ``jax.value_and_grad(Model.loss_fn)``, with the same tree.
 
-    The autograd leaves are the top-level parameters and, for the stacked
-    ``[L, ...]`` layer parameters, one view per layer, handed to the model
-    as a list of per-layer trees.  Each view's gradient accumulates in place
-    into row ``l`` of a stacked f32 gradient tensor.  With the stacked tensor
-    itself as the leaf, autograd would build a zero tensor the size of the
-    whole stack for every layer's view and add them all up: O(L^2) bytes
-    per step.  A parameter the loss does not read (the token embedding of
-    an ``embeds_input`` batch with an untied head) gets a zero gradient, as
-    under ``jax.grad``.
-
-    The encdec family's stacks (``enc_layers``, ``dec_layers``) are not
-    walked yet: it raises."""
-    if model.cfg.family == "encdec":
-        raise NotImplementedError(
-            "training the encdec family is not ported yet: ROADMAP.md, section 1, item 5.7")
+    The autograd leaves are the top-level parameters and, for each stacked
+    ``[L, ...]`` layer tree of the family (``LAYER_STACKS``), one view per
+    layer, handed to the model as a list of per-layer trees.  Each view's
+    gradient accumulates in place into row ``l`` of a stacked f32 gradient
+    tensor.  With the stacked tensor itself as the leaf, autograd would
+    build a zero tensor the size of the whole stack for every layer's view
+    and add them all up: O(L^2) bytes per step.  A parameter the loss does
+    not read (the token embedding of an ``embeds_input`` batch with an
+    untied head) gets a zero gradient, as under ``jax.grad``."""
     top = tree_map(lambda p: p.detach().requires_grad_(),
-                   {k: v for k, v in params.items() if k != "layers"})
-    stacked = tree_map(torch.zeros_like, params["layers"])
-    layers = []
-    for l in range(model.cfg.n_layers):
-        lp = tree_map(lambda a: a[l].detach().requires_grad_(), params["layers"])
-        for (_, leaf), (_, g) in zip(tree_items(lp), tree_items(stacked)):
-            leaf.grad = g[l]
-        layers.append(lp)
+                   {k: v for k, v in params.items() if k not in LAYER_STACKS})
+    stacked = {k: tree_map(torch.zeros_like, v) for k, v in params.items() if k in LAYER_STACKS}
+    views = {k: _layer_views(params[k], g) for k, g in stacked.items()}
     with torch.enable_grad():
-        loss = model.loss_fn({**top, "layers": layers}, batch)
+        loss = model.loss_fn({**top, **views}, batch)
         loss.backward()
     grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, top)
-    grads["layers"] = stacked
+    grads.update(stacked)
     return loss.detach(), grads
 
 

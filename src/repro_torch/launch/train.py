@@ -3,14 +3,29 @@ device -> synthetic data pipeline -> train step -> checkpointed loop with
 a straggler detector.  Counterpart of ``repro.launch.train`` on one device
 (the mesh is ROADMAP.md, section 1, item 6).
 
-With ``attn_impl="pallas"`` on a CUDA device every step runs the CUDA
-flash-attention forward kernel twice per layer (the forward and its
-recomputation under ``remat="full"``) and the dK/dV and dQ kernels once.
+Every family trains.  With ``attn_impl="pallas"`` on a CUDA device an
+attention whose query and key lengths are multiples of 128 and which has no
+window runs the CUDA flash-attention forward kernel twice (the forward and
+its recomputation under ``remat="full"``) and the dK/dV and dQ kernels once
+per step, as the JAX package sends the same attentions to its Pallas
+kernels:
+
+- dense, moe and qwen2-vl: every layer's attention;
+- encdec (whisper): the decoder's self-attention; the encoder's and the
+  cross-attention's only where the frames are a multiple of 128 (not at
+  whisper's 1500), else the plain chunked path;
+- hybrid (recurrentgemma): none, its attention is windowed;
+- ssm (falcon-mamba): none.
+
+The scans take their plain loop over time under autograd (the scan kernels
+have no backward, as the TPU kernels have none).
 
 Usage (on the card; ``--device cpu`` runs the plain path on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3_6b \
       --layers 16 --steps 3 --batch 2 --seq 2048 --attn-impl pallas
-  PYTHONPATH=src python -m repro_torch.launch.train --arch chatglm3_6b --smoke \
+  PYTHONPATH=src python -m repro_torch.launch.train --arch whisper_large_v3 \
+      --steps 3 --batch 4 --seq 384 --attn-impl pallas
+  PYTHONPATH=src python -m repro_torch.launch.train --arch falcon_mamba_7b --smoke \
       --device cpu --steps 20 --batch 4 --seq 128
 """
 
@@ -30,6 +45,32 @@ from repro_torch.data import DataPipeline, SyntheticLMSource
 from repro_torch.runtime.fault import StragglerDetector
 
 from .steps import make_optimizer, make_train_step
+
+_FLOAT_INPUTS = {"embeds": torch.float32, "frames": torch.float32}
+
+
+def synthetic_source(cfg, global_batch: int, seq_len: int, seed: int = 0) -> SyntheticLMSource:
+    """The synthetic batches JAX's ``Trainer.train`` draws: ``embeds`` (and
+    mrope's 3-stream ``positions``) for an ``embeds_input`` config, the
+    audio ``frames`` for encdec.  encdec sets ``embeds_dim`` after
+    construction, as JAX does: each batch then draws an ``embeds`` array the
+    model does not read before its ``d_model``-wide frames."""
+    source = SyntheticLMSource(
+        cfg.vocab_size, global_batch, seq_len, seed=seed,
+        embeds_dim=cfg.d_model if cfg.embeds_input else 0,
+        frames=cfg.enc_positions if cfg.family == "encdec" else 0,
+        mrope=cfg.rope == "mrope",
+    )
+    if cfg.family == "encdec":
+        source.embeds_dim = cfg.d_model
+    return source
+
+
+def batch_to_device(batch: dict, device) -> dict:
+    """A numpy batch on ``device``: tokens and positions as int64,
+    ``embeds`` and ``frames`` as f32."""
+    return {k: torch.from_numpy(v).to(device, _FLOAT_INPUTS.get(k, torch.int64))
+            for k, v in batch.items()}
 
 
 class Trainer:
@@ -69,17 +110,10 @@ class Trainer:
 
     # -- loop ---------------------------------------------------------------
 
-    def _to_device(self, batch: dict) -> dict:
-        return {k: torch.from_numpy(v).to(self.device, torch.int64)
-                for k, v in batch.items()}
-
     def train(self, total_steps: int, seed: int = 0, save_every: int = 100):
-        cfg = self.cfg
         params, opt_state = self.init_state(seed)
         start, params, opt_state = self.maybe_restore(params, opt_state)
-        source = SyntheticLMSource(
-            cfg.vocab_size, self.shape.global_batch, self.shape.seq_len, seed=seed
-        )
+        source = synthetic_source(self.cfg, self.shape.global_batch, self.shape.seq_len, seed)
         pipeline = DataPipeline(source, start_step=start, prefetch=2)
 
         losses = []
@@ -87,7 +121,7 @@ class Trainer:
             for step, batch in pipeline:
                 if step >= total_steps:
                     break
-                batch = self._to_device(batch)
+                batch = batch_to_device(batch, self.device)
                 t0 = time.perf_counter()
                 params, opt_state, metrics = self.step_fn(params, opt_state, batch)
                 loss = float(metrics["loss"])  # waits for the device

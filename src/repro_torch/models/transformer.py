@@ -9,8 +9,9 @@ package; a stack (``layers``, or encdec's ``enc_layers`` and
 as a list of per-layer trees, ``params[group][l]``.  The hybrid's
 interleaved (rec, rec, attn) pattern takes its layers from
 ``rec_layers`` and ``attn_layers`` by static slices (``static_layer_params``),
-as JAX's Python loop does.  Under autograd each layer is recomputed in the
-backward pass as the config's ``remat`` says.
+as JAX's Python loop does, or from the train step's lists.  Under autograd
+each layer is recomputed in the backward pass as the config's ``remat``
+says.
 """
 
 from __future__ import annotations
@@ -18,7 +19,11 @@ from __future__ import annotations
 import functools
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from repro_torch.kernels import ops
 
@@ -64,10 +69,13 @@ def layer_params(layers, l: int) -> dict:
 def static_layer_params(layers, l: int) -> dict:
     """Layer ``l`` of stacked ``[L, ...]`` layer parameters, each leaf taken
     as the static slice ``a[l : l + 1]`` squeezed, in JAX's leaf order (keys
-    sorted).  This is how the JAX hybrid's Python loop indexes its layers
+    sorted), or entry ``l`` of a list of per-layer subtrees (the train
+    step's).  This is how the JAX hybrid's Python loop indexes its layers
     (``jax.tree.map(lambda a: a[i], ...)`` with a static ``i``), so the
     access plan sees one slice per leaf, as in JAX's jaxpr: no loop entry
     and no collection (``layer_params`` opens a loop entry)."""
+    if isinstance(layers, list):
+        return layers[l]
     out: dict = {}
     for path, a in tree_items(layers):
         node = out
@@ -84,18 +92,45 @@ def block_kinds(cfg) -> list[str]:
     return [pattern[i % len(pattern)] for i in range(cfg.n_layers)]
 
 
+# the matrix products whose outputs ``remat="dots"`` keeps (JAX's
+# ``checkpoint_dots`` keeps every ``dot_general``); ``x @ w`` and ``einsum``
+# reach the dispatcher as these
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    if op in _DOTS:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(fn, cfg):
-    """``fn`` under the config's remat policy (JAX ``transformer._remat``):
-    ``"full"`` keeps only the layer's inputs and recomputes the rest in the
-    backward pass (non-reentrant ``torch.utils.checkpoint``), ``"none"``
-    keeps every activation.  With autograd not recording there is nothing
-    to keep, and ``fn`` runs as it is."""
-    if cfg.remat not in ("full", "none"):
-        raise NotImplementedError(
-            f"remat={cfg.remat!r} is not ported yet: ROADMAP.md, section 1, item 2"
-        )
+    """``fn`` under the config's remat policy (JAX ``transformer._remat``),
+    with non-reentrant ``torch.utils.checkpoint``:
+
+    - ``"full"`` keeps only the layer's inputs and recomputes the rest in
+      the backward pass;
+    - ``"dots"`` (JAX's ``checkpoint_dots``) keeps the outputs of the matrix
+      products (``aten.mm``, ``bmm``, ``addmm``, ``baddbmm``) and recomputes
+      everything else, the flash kernels' ``autograd.Function`` included, as
+      JAX's policy recomputes the Pallas call;
+    - ``"save_collectives"`` keeps only outputs named ``moe_out``, which only
+      the expert-parallel MoE path names (a collective's result): on one
+      device it is therefore ``"full"`` (the naming comes with the
+      multi-device slice, ROADMAP.md, section 1, item 6);
+    - ``"none"`` keeps every activation.
+
+    With autograd not recording there is nothing to keep, and ``fn`` runs as
+    it is."""
+    if cfg.remat not in ("full", "dots", "save_collectives", "none"):
+        raise ValueError(f"unknown remat policy {cfg.remat!r}")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, fn, use_reentrant=False,
+            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 

@@ -242,11 +242,28 @@ def test_decode_plan_matches_jax(full):
 
 
 def test_training_refuses_encdec():
-    model = Model(get_smoke_config(ARCH), device="cpu")
-    params = model.init_params(seed=0)
-    batch = concrete_batch(model.cfg, 2, 8, device="cpu")
-    with pytest.raises(NotImplementedError, match="section 1, item 5.7"):
-        loss_and_grads(model, params, batch)
+    """whisper-smoke trains: ``loss_and_grads`` at 256 frames with
+    ``attn_impl="pallas"`` (the encoder, the decoder's self-attention and
+    the cross-attention on the flash branch, forward and backward: JAX's
+    Pallas kernels in interpret mode, the port's plain trainable path)
+    against ``jax.value_and_grad`` in f32; the key biases, whose gradient is
+    zero in exact arithmetic, against the tree's largest gradient."""
+    jcfg, cfg = _configs(compute_dtype="float32", attn_impl="pallas", enc_positions=256)
+    jparams, params = _params(jcfg)
+    batch = _batch(cfg)
+    batch["targets"] = np.roll(batch["inputs"], -1, axis=1)
+    jloss, jgrads = jax.jit(jax.value_and_grad(JModel(jcfg).loss_fn))(
+        jparams, {k: jnp.asarray(v) for k, v in batch.items()})
+    loss, grads = loss_and_grads(Model(cfg, device="cpu"), params, _torch_batch(batch))
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=1e-5)
+    want = {p: np.asarray(g, np.float32) for p, g in tree_items(jax.tree.map(np.asarray, jgrads))}
+    got = dict(tree_items(grads))
+    assert got.keys() == want.keys()
+    tree_max = max(np.abs(w).max() for w in want.values())
+    for path, w in want.items():
+        scale = tree_max if path.endswith("attn.bk") else np.abs(w).max()
+        err = np.abs(got[path].numpy() - w).max()
+        assert err <= 1e-4 * scale, (path, err, scale)
 
 
 def test_stream_decode_refuses_encdec():

@@ -505,6 +505,38 @@ def test_smoke_configs_train_through_the_flash_kernels(cuda, arch):
         assert float((got[path] - w).abs().max()) <= GRAD_TOL[torch.float32] * scale, path
 
 
+@pytest.mark.parametrize("policy", ["full", "dots", "save_collectives"])
+def test_remat_policies_on_the_kernel_path(cuda, policy):
+    """Each remat policy gives ``none``'s gradients on the kernel path
+    (chatglm3-smoke, f32), bit for bit but for the order of sums; each
+    recomputes the flash forward (``dots`` keeps only the products' outputs,
+    and the kernel's ``autograd.Function`` is no product), so it launches
+    twice per layer where ``none`` launches once, and the backward kernels
+    once per layer under every policy."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import concrete_batch, loss_and_grads
+    from repro_torch.models.common import tree_items
+    from repro_torch.models.model import Model
+
+    cfg = get_smoke_config("chatglm3_6b").replace(compute_dtype="float32", attn_impl="pallas")
+    params = Model(cfg, "cuda").init_params(seed=0)
+    batch = concrete_batch(cfg, 2, 128, device="cuda")
+    grads, launches = {}, {}
+    for p in ("none", policy):
+        before = (flash_attention_fwd.launches, flash_attention_bwd_dkdv.launches,
+                  flash_attention_bwd_dq.launches)
+        _, g = loss_and_grads(Model(cfg.replace(remat=p), "cuda"), params, batch)
+        grads[p] = dict(tree_items(g))
+        launches[p] = tuple(n - b for n, b in zip(
+            (flash_attention_fwd.launches, flash_attention_bwd_dkdv.launches,
+             flash_attention_bwd_dq.launches), before))
+    L = cfg.n_layers
+    assert launches["none"] == (L, L, L)
+    assert launches[policy] == (2 * L, L, L)
+    for path, w in grads["none"].items():
+        torch.testing.assert_close(grads[policy][path], w, rtol=1e-6, atol=1e-9, msg=path)
+
+
 # ---------------------------------------------------------------------------
 # the row gather, the pinned host store and a streamed decode
 # ---------------------------------------------------------------------------
