@@ -31,16 +31,18 @@
 //   * (batch, KV head) alone gives too few blocks for 132 SMs (4 x 2 = 8 at
 //     the serving shape), so the cache length is split across blocks and
 //     the splits' (m, l, acc) are merged per head;
-//   * kv_len is read from device memory (one int32; the TPU kernel's
-//     scalar-prefetch operand), so one launch, and one captured CUDA
-//     graph, serves every position.  The splits are planned from the
-//     cache's capacity S, so the grid is the same for every kv_len, as the
-//     Pallas grid over S / bk is; a split that starts at or past kv_len is
-//     empty and its block returns at once, and only the live splits,
+//   * kv_len is read from device memory (one int32, the TPU kernel's
+//     scalar-prefetch operand; or one per batch row, kv_len[b * kv_stride],
+//     as a continuous batcher's slots sit at their own positions), so one
+//     launch, and one captured CUDA graph, serves every position and every
+//     mix of lengths.  The splits are planned from the cache's capacity S,
+//     so the grid is the same for every kv_len, as the Pallas grid over
+//     S / bk is; a split that starts at or past its row's kv_len is empty
+//     and its block returns at once, and only the row's live splits,
 //     ceil(kv_len / split_len) of them (at least one), are merged.  Only
-//     the first kv_len rows are read.  kv_len is clamped to [0, S] (the
-//     host cannot check a device value); 0 gives zeros, as in the TPU
-//     kernel;
+//     the first kv_len rows of each batch row are read.  kv_len is clamped
+//     to [0, S] (the host cannot check a device value); 0 gives zeros, as
+//     in the TPU kernel;
 //   * p is kept in f32 (the TPU kernel casts p to V's upcast f32), masked
 //     slots use NEG_INF = -1e30, l is clamped at 1e-30 and the output is in
 //     q's dtype.
@@ -78,9 +80,10 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
   return __float2bfloat16_rn(x);
 }
 
-// the live length: *kv_len_p clamped to [0, S]
-__device__ __forceinline__ int live_len(const int* kv_len_p, int S) {
-  return min(max(__ldg(kv_len_p), 0), S);
+// the live length of batch row b: kv_len_p[b * kv_stride] clamped to [0, S]
+// (kv_stride 0: one length for every row)
+__device__ __forceinline__ int live_len(const int* kv_len_p, int b, int kv_stride, int S) {
+  return min(max(__ldg(kv_len_p + (int64_t)b * kv_stride), 0), S);
 }
 
 // the splits that hold keys (split 0 always counts, so kv_len 0 writes zeros)
@@ -96,12 +99,12 @@ template <typename QT, typename KT>
 __global__ void __launch_bounds__(NT) decode_split_kernel(
     const QT* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
     float* __restrict__ part_acc, float* __restrict__ part_ml, const int* __restrict__ kv_len_p,
-    int H, int KV, int D, int S, int split_len, int n_split,
+    int kv_stride, int H, int KV, int D, int S, int split_len, int n_split,
     int64_t q_sb, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale) {
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
-  const int kv_len = live_len(kv_len_p, S);
+  const int kv_len = live_len(kv_len_p, b, kv_stride, S);
   if (split >= live_splits(kv_len, split_len)) return;
   const int G = H / KV;
   const int DP = D + 1;
@@ -201,11 +204,11 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
 template <typename QT>
 __global__ void decode_merge_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    const int* __restrict__ kv_len_p, QT* __restrict__ o, int H, int KV, int D, int S,
-    int split_len, int n_split) {
+    const int* __restrict__ kv_len_p, int kv_stride, QT* __restrict__ o, int H, int KV, int D,
+    int S, int split_len, int n_split) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int G = H / KV, kvh = h / G, g = h % G;
-  const int n_live = live_splits(live_len(kv_len_p, S), split_len);
+  const int n_live = live_splits(live_len(kv_len_p, b, kv_stride, S), split_len);
   const int64_t row0 = ((int64_t)(b * KV + kvh) * n_split) * G + g;  // split 0
   float m = NEG_INF;
   for (int s = 0; s < n_live; ++s) m = fmaxf(m, part_ml[(row0 + (int64_t)s * G) * 2]);
@@ -221,7 +224,7 @@ __global__ void decode_merge_kernel(
 
 template <typename QT, typename KT>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
-                   void* part_acc, void* part_ml, const int* kv_len,
+                   void* part_acc, void* part_ml, const int* kv_len, int kv_stride,
                    int B, int H, int KV, int D, int S, int split_len, int n_split,
                    int64_t q_sb, int64_t q_sh,
                    int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -235,13 +238,13 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (err != cudaSuccess) return err;
   decode_split_kernel<QT, KT><<<dim3(n_split, KV, B), NT, smem, stream>>>(
       (const QT*)q, (const KT*)k, (const KT*)v, (float*)part_acc, (float*)part_ml, kv_len,
-      H, KV, D, S, split_len, n_split,
+      kv_stride, H, KV, D, S, split_len, n_split,
       q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_merge_kernel<QT><<<dim3(H, B), D, 0, stream>>>(
-      (const float*)part_acc, (const float*)part_ml, kv_len, (QT*)o, H, KV, D, S, split_len,
-      n_split);
+      (const float*)part_acc, (const float*)part_ml, kv_len, kv_stride, (QT*)o, H, KV, D, S,
+      split_len, n_split);
   return cudaGetLastError();
 }
 
@@ -275,8 +278,10 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // writes o and resets the counter to 0, so the counters stay zero between
 // launches (CUDA-graph replays included).  The blocks of empty splits
 // return before they touch the counter, so a tile's tickets count its
-// live blocks only.  Launches that share a counter buffer must be ordered (one
-// stream), as the serving loop's are.
+// live blocks only; a tile lies in one batch row, so with a length per row
+// each tile's ticket target is its own row's live splits.  Launches that
+// share a counter buffer must be ordered (one stream), as the serving
+// loop's are.
 
 constexpr int MW = 4;            // warps per block
 constexpr int MNT = 32 * MW;     // threads per block
@@ -312,8 +317,8 @@ template <typename KT, int D>
 __global__ void __launch_bounds__(MNT) decode_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
     __nv_bfloat16* __restrict__ o, float* __restrict__ part, int* __restrict__ counters,
-    const int* __restrict__ kv_len_p, int H, int KV, int S, int split_len, int n_split,
-    int64_t q_sb, int64_t q_sh,
+    const int* __restrict__ kv_len_p, int kv_stride, int H, int KV, int S, int split_len,
+    int n_split, int64_t q_sb, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh, float scale) {
   using L = MmaLayout<KT, D>;
@@ -326,7 +331,7 @@ __global__ void __launch_bounds__(MNT) decode_mma_kernel(
   const int n_mt = (G + 15) / 16;
   const int split = blockIdx.x, kvh = blockIdx.y / n_mt, mt = blockIdx.y % n_mt;
   const int b = blockIdx.z;
-  const int kv_len = live_len(kv_len_p, S);
+  const int kv_len = live_len(kv_len_p, b, kv_stride, S);
   const int n_live = live_splits(kv_len, split_len);
   if (split >= n_live) return;  // no key of this split is live: no work, no ticket
   const int rows = min(16, G - mt * 16);          // live query heads in this tile
@@ -629,8 +634,8 @@ __global__ void __launch_bounds__(MNT) decode_mma_kernel(
 
 template <typename KT, int D>
 cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, void* part,
-                       int* counters, const int* kv_len, int B, int H, int KV, int S,
-                       int split_len,
+                       int* counters, const int* kv_len, int kv_stride, int B, int H, int KV,
+                       int S, int split_len,
                        int n_split, int64_t q_sb, int64_t q_sh,
                        int64_t k_sb, int64_t k_ss, int64_t k_sh,
                        int64_t v_sb, int64_t v_ss, int64_t v_sh,
@@ -644,7 +649,7 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, voi
   const int n_mt = (H / KV + 15) / 16;
   decode_mma_kernel<KT, D><<<dim3(n_split, KV * n_mt, B), MNT, smem, stream>>>(
       (const __nv_bfloat16*)q, (const KT*)k, (const KT*)v, (__nv_bfloat16*)o, (float*)part,
-      counters, kv_len, H, KV, S, split_len, n_split,
+      counters, kv_len, kv_stride, H, KV, S, split_len, n_split,
       q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
   return cudaGetLastError();
 }
@@ -654,20 +659,21 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, voi
 // q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: 0 = float32, 1 = bfloat16,
 // 2 = float8_e4m3fn.  o is a contiguous [B, H, D] in q's dtype; part_acc is
 // f32 [B, KV, n_split, G, D] and part_ml f32 [B, KV, n_split, G, 2] scratch.
-// kv_len points to one int32 in device memory; S is the cache's capacity,
-// which split_len * n_split covers.  Strides are in elements; the last dim
-// of q, k and v is contiguous.
+// kv_len points to int32s in device memory, row b's length at kv_len[b *
+// kv_stride] (kv_stride 0: one length for every row); S is the cache's
+// capacity, which split_len * n_split covers.  Strides are in elements; the
+// last dim of q, k and v is contiguous.
 extern "C" int decode_attention_fwd(
     int q_dtype, int kv_dtype, const void* q, const void* k, const void* v, void* o,
     void* part_acc, void* part_ml, const void* kv_len,
-    int B, int H, int KV, int D, int S, int split_len, int n_split,
+    int B, int H, int KV, int D, int S, int split_len, int n_split, int kv_stride,
     int64_t q_sb, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define DA_ARGS q, k, v, o, part_acc, part_ml, (const int*)kv_len, B, H, KV, D, S, split_len, \
-                n_split, \
+#define DA_ARGS q, k, v, o, part_acc, part_ml, (const int*)kv_len, kv_stride, B, H, KV, D, S, \
+                split_len, n_split, \
                 q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st
   if (q_dtype == 0 && kv_dtype == 0) return (int)launch<float, float>(DA_ARGS);
   if (q_dtype == 0 && kv_dtype == 1) return (int)launch<float, __nv_bfloat16>(DA_ARGS);
@@ -684,21 +690,22 @@ extern "C" int decode_attention_fwd(
 // scratch of B * KV * n_mt * n_split * 16 * (D + 2) words (the partial
 // accumulators, then M and L; unused when n_split is 1) and counters int32
 // [B * KV * n_mt], zero before the launch and zero after it (n_mt =
-// ceil(G / 16)).  kv_len points to one int32 in device memory; S is the
+// ceil(G / 16)).  kv_len points to int32s in device memory, row b's length at
+// kv_len[b * kv_stride] (kv_stride 0: one length for every row); S is the
 // cache's capacity, which split_len * n_split covers, split_len a multiple of
 // 16.  The cache rows (k, v data and strides) are 16-byte aligned.  Strides
 // are in elements.
 extern "C" int decode_attention_mma_fwd(
     int kv_dtype, const void* q, const void* k, const void* v, void* o, void* part,
     void* counters, const void* kv_len, int B, int H, int KV, int D, int S, int split_len,
-    int n_split,
+    int n_split, int kv_stride,
     int64_t q_sb, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define DM_ARGS q, k, v, o, part, (int*)counters, (const int*)kv_len, B, H, KV, S, split_len, \
-                n_split, \
+#define DM_ARGS q, k, v, o, part, (int*)counters, (const int*)kv_len, kv_stride, B, H, KV, S, \
+                split_len, n_split, \
                 q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st
   if (kv_dtype == 1 && D == 64) return (int)launch_mma<__nv_bfloat16, 64>(DM_ARGS);
   if (kv_dtype == 1 && D == 128) return (int)launch_mma<__nv_bfloat16, 128>(DM_ARGS);

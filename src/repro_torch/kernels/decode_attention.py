@@ -11,10 +11,12 @@ model layouts, chosen by ``variant`` from the dtypes and the head dim alone:
 * ``"simt"``: everything else (an f32 query or cache, other head dims): the
   CUDA-core split pass and its merge pass.
 
-Both read ``kv_len`` from one int32 in device memory, as the TPU kernel
-takes it as a scalar-prefetch operand, and plan their splits from the
-cache's capacity S, so the grid is the same at every length and a captured
-decode step replays at any position (``launch.steps.CapturedDecode``).
+Both read ``kv_len`` from device memory: one int32, as the TPU kernel
+takes it as a scalar-prefetch operand, or one int32 per batch row (a
+``[B]`` tensor: the continuous batcher's slots, each at its own position,
+``runtime.scheduler``).  They plan their splits from the cache's capacity
+S, so the grid is the same at every length and every mix of lengths, and a
+captured decode step replays at any position (``launch.steps.CapturedDecode``).
 
 Launches are counted in ``decode_attention_fwd.launches`` (both) and in
 ``launches_mma`` and ``launches_simt``.  The plain version is
@@ -58,7 +60,8 @@ def _lib(name: str):
         # the device kv_len
         head = [ctypes.c_int] * (2 if name == "decode_attention_fwd" else 1)
         head += [ctypes.c_void_p] * 7
-        fn.argtypes = (head + [ctypes.c_int] * 7 + [ctypes.c_int64] * 8
+        # B, H, KV, D, S, split_len, n_split and kv_len's element stride
+        fn.argtypes = (head + [ctypes.c_int] * 8 + [ctypes.c_int64] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
         fn.restype = ctypes.c_int
     return fn
@@ -134,16 +137,18 @@ def _check(q, k, v):
                                  "time: k and v rows must start on 16-byte boundaries")
 
 
-def device_kv_len(kv_len, S: int, device: torch.device) -> torch.Tensor:
-    """``kv_len`` as the one int32 in device memory that the kernels read.
-    A Python int is checked against [1, S] here and written by a fill
-    kernel (no blocking host-to-device copy); a tensor, which the host
-    cannot read without waiting for the device, is checked for its
-    shape, dtype and device only (the kernels clamp it to [0, S])."""
+def device_kv_len(kv_len, S: int, device: torch.device, B: int = 1) -> torch.Tensor:
+    """``kv_len`` as the int32s in device memory that the kernels read: one
+    for every row, or one per batch row (a ``[B]`` int32 tensor).  A Python
+    int is checked against [1, S] here and written by a fill kernel (no
+    blocking host-to-device copy); a tensor, which the host cannot read
+    without waiting for the device, is checked for its shape, dtype and
+    device only (the kernels clamp it to [0, S])."""
     if isinstance(kv_len, torch.Tensor):
-        if kv_len.numel() != 1 or kv_len.dtype != torch.int32:
-            raise ValueError(f"a tensor kv_len is one int32; got {kv_len.dtype} "
-                             f"{tuple(kv_len.shape)}")
+        per_row = kv_len.dim() == 1 and kv_len.numel() == B
+        if (kv_len.numel() != 1 and not per_row) or kv_len.dtype != torch.int32:
+            raise ValueError(f"a tensor kv_len is one int32, or one per batch row ([{B}] "
+                             f"int32); got {kv_len.dtype} {tuple(kv_len.shape)}")
         if kv_len.device != device:
             raise ValueError(f"kv_len lies on {kv_len.device}, the cache on {device}")
         return kv_len
@@ -157,13 +162,16 @@ def decode_attention_fwd(q, k, v, kv_len):
     """q [B, H, D]; k, v [B, S, KV, D] (CUDA; q f32 or bf16, the cache f32,
     bf16 or fp8 e4m3; any strides with a contiguous last dim, the tensor-core
     variant's cache rows 16-byte aligned); attends to the first ``kv_len``
-    cache rows -> [B, H, D] in q's dtype.  ``kv_len`` is a Python int or a
-    one-element int32 tensor on q's device (``device_kv_len``); the grid
-    depends on S alone, so one launch and its replays serve every length."""
+    cache rows -> [B, H, D] in q's dtype.  ``kv_len`` is a Python int, a
+    one-element int32 tensor on q's device, or a ``[B]`` int32 tensor there
+    (row b attends to its first ``kv_len[b]`` rows; ``device_kv_len``); the
+    grid depends on S alone, so one launch and its replays serve every
+    length and every mix of lengths."""
     _check(q, k, v)
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
-    kv = device_kv_len(kv_len, S, q.device)
+    kv = device_kv_len(kv_len, S, q.device, B)
+    kv_stride = 0 if kv.numel() == 1 else kv.stride(0)  # 0: one length for every row
     dev = q.device.index
     kind = variant(q.dtype, k.dtype, D)
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
@@ -186,7 +194,7 @@ def decode_attention_fwd(q, k, v, kv_len):
                 _KV_DTYPES[k.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
                 0 if part is None else part.data_ptr(),
                 _counters(q.device, B * KV * n_mt).data_ptr(), kv.data_ptr(),
-                B, H, KV, D, S, split_len, n_split, *strides, 1.0 / (D**0.5), stream,
+                B, H, KV, D, S, split_len, n_split, kv_stride, *strides, 1.0 / (D**0.5), stream,
             )
         else:
             split_len, n_split = split_plan(B, KV, S, _sm_count(dev))
@@ -198,7 +206,7 @@ def decode_attention_fwd(q, k, v, kv_len):
             err = _lib("decode_attention_fwd")(
                 _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), o.data_ptr(), part_acc, part_acc + 4 * rows * D, kv.data_ptr(),
-                B, H, KV, D, S, split_len, n_split, *strides, 1.0 / (D**0.5), stream,
+                B, H, KV, D, S, split_len, n_split, kv_stride, *strides, 1.0 / (D**0.5), stream,
             )
     if err != 0:
         raise RuntimeError(f"decode_attention_fwd ({kind}) launch failed: cudaError_t {err}")

@@ -71,10 +71,12 @@ def flash_attention_trainable(q, k, v, causal=True, q_offset=0):
 
 
 def decode_attention(q, k, v, kv_len):
-    """q [B, H, D]; k, v [B, S, KV, D]; kv_len a Python int or a one-element
-    int32 tensor on q's device (the TPU kernel's scalar-prefetch operand) ->
-    [B, H, D].  A tensor goes to the kernel as it is, never read on the
-    host, so a captured decode step replays at any length.
+    """q [B, H, D]; k, v [B, S, KV, D]; kv_len a Python int, a one-element
+    int32 tensor on q's device (the TPU kernel's scalar-prefetch operand) or
+    a ``[B]`` int32 tensor there (one length per batch row: the continuous
+    batcher's slots) -> [B, H, D].  A tensor goes to the kernel as it is,
+    never read on the host, so a captured decode step replays at any
+    length.
 
     The cache is read in place (no head-major copy).  The kernel fixes its
     own tiles, so any S is taken: the JAX wrapper's

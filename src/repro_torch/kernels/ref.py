@@ -88,12 +88,14 @@ def flash_attention_bwd_ref(q, k, v, do, lse, delta, *, causal: bool = True,
 
 
 def decode_attention_ref(q, k, v, kv_len):
-    """q [B, H, D]; k, v [B, S, KV, D]; kv_len a Python int or a 0-d or
-    one-element int tensor -> [B, H, D]: one query row per head against the
-    first ``kv_len`` cache slots."""
-    if isinstance(kv_len, torch.Tensor):
-        kv_len = kv_len.reshape(())
+    """q [B, H, D]; k, v [B, S, KV, D]; kv_len a Python int, a 0-d or
+    one-element int tensor, or a ``[B]`` int tensor (one length per batch
+    row) -> [B, H, D]: one query row per head against the first ``kv_len``
+    cache slots (of its row)."""
     B, H, D = q.shape
+    if isinstance(kv_len, torch.Tensor):
+        # a length per row broadcasts as [B, 1, 1, 1], as JAX's oracle takes it
+        kv_len = kv_len.reshape(()) if kv_len.numel() == 1 else kv_len.reshape(B, 1, 1, 1)
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
     q5 = q.reshape(B, KV, G, D)

@@ -7,8 +7,10 @@ under ``torch.inference_mode``).  The JAX server's compiled decode step
 (``jax.jit(decode_fn, donate_argnums=(1,))``, replayed with ``pos`` as a
 traced int32) has its counterpart in ``CapturedDecode``: the eager step
 captured once in a CUDA graph over static buffers, the position among them
-on the device, and replayed for every token.  The train and prefill steps
-stay eager (they are bound by the device, not by the host).
+on the device, and replayed for every token; the continuous batcher's
+per-slot step (``runtime.scheduler``, JAX's ``jax.jit(self._decode_step)``)
+is captured by the same class, with one position per slot.  The train and
+prefill steps stay eager (they are bound by the device, not by the host).
 """
 
 from __future__ import annotations
@@ -119,9 +121,11 @@ class CapturedDecode:
     the JAX server's ``jax.jit(decode_fn, donate_argnums=(1,))``.
 
     The graph reads and writes static buffers on the card: ``tokens``
-    [B, 1] int64 (the token at ``pos``), ``pos`` (0-d int64), ``cache`` (zeros
-    shaped as ``cache_like``: the padded layout ``Server._pad_cache``
-    gives) and ``logits`` [B, 1, vocab] f32.  One ``replay()`` runs
+    [B, 1] int64 (the token at ``pos``), ``pos`` (int64 of ``pos_shape``:
+    0-d, one position for every row, or ``(B,)``, one per row, as the
+    continuous batcher's slots take it), ``cache`` (zeros shaped as
+    ``cache_like``: the padded layout ``Server._pad_cache`` gives) and
+    ``logits`` [B, 1, vocab] f32.  One ``replay()`` runs
     ``decode_fn`` at the device ``pos`` (the cache written in place), writes
     the logits, the greedy next token into ``tokens`` and ``pos + 1`` into
     ``pos``: no host work beyond the launch of the graph.
@@ -135,12 +139,13 @@ class CapturedDecode:
     shape, stride, dtype) leaf by leaf, which a caller checks before it
     replays (``Server.captured_decode``).  A capture that fails raises."""
 
-    def __init__(self, decode_fn, params: dict, cache_like: dict, device):
+    def __init__(self, decode_fn, params: dict, cache_like: dict, device,
+                 pos_shape: tuple = ()):
         self.decode_fn = decode_fn
         self.key = params_key(params)
         B = next(iter(cache_like.values())).shape[1]
         self.tokens = torch.zeros((B, 1), dtype=torch.int64, device=device)
-        self.pos = torch.zeros((), dtype=torch.int64, device=device)
+        self.pos = torch.zeros(pos_shape, dtype=torch.int64, device=device)
         self.cache = {k: torch.zeros(c.shape, dtype=c.dtype, device=device)
                       for k, c in cache_like.items()}
         side = torch.cuda.Stream(device)

@@ -367,7 +367,8 @@ def _decode_attn(x, lp, cfg, dt, k_cache, v_cache, pos, angles, *, window: int =
 
 def _masked_decode_attention(q, k_cache, v_cache, valid, cfg):
     """q [B, 1, H, hd] against every slot of k/v [B, S, KV, hd] where
-    ``valid`` [S]; the cache upcast to q's dtype, scores in f32."""
+    ``valid`` ([S], or [B, 1, 1, 1, S]: a mask per row); the cache upcast to
+    q's dtype, scores in f32."""
     B, S, KV, hd = k_cache.shape
     H = cfg.n_heads
     G = H // KV

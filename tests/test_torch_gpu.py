@@ -1062,3 +1062,157 @@ def test_captured_generate_counts_the_eager_launches(cuda, arch):
         counted[run.__name__] = counters.since(before)
     assert counted["generate"] == counted["generate_eager"]
     assert counted["generate"][(counters.prefetch_gather_fwd, "launches")] == 9
+
+
+# ---------------------------------------------------------------------------
+# flash-decode with a length per row, and the continuous batcher's captured step
+# ---------------------------------------------------------------------------
+
+ROW_CASES = [
+    (torch.bfloat16, torch.bfloat16, 128),      # tensor cores
+    (torch.bfloat16, torch.float8_e4m3fn, 128),  # tensor cores, fp8 cache
+    (torch.bfloat16, torch.bfloat16, 96),       # CUDA cores (a head dim the mma builds lack)
+    (torch.float32, torch.float32, 128),        # CUDA cores
+    (torch.float32, torch.float8_e4m3fn, 64),   # CUDA cores, fp8 cache
+]
+
+
+def _row_lens(B, S, split_len, device):
+    """Mixed lengths per row: 1, S, around a split edge and a 16-key step."""
+    lens = [1, S, split_len, split_len + 1, 17, 528, S - 1, 16][:B]
+    return torch.tensor(lens, dtype=torch.int32, device=device)
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,D", ROW_CASES)
+def test_decode_per_row_kv_len_matches_ref(cuda, q_dtype, kv_dtype, D):
+    """A [B] int32 kv_len, each row at its own length (1 and S among them),
+    against the plain version with the same lengths, on both variants; the
+    tickets are zero afterwards."""
+    from repro_torch.kernels import decode_attention as dec
+
+    B, S, H, KV = 8, 1024, 32, 2
+    gen = torch.Generator(device=cuda).manual_seed(21)
+    q = _randn(gen, (B, H, D), q_dtype, cuda)
+    k = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    v = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    n_sm = dec._sm_count(cuda.index or 0)
+    if dec.variant(q_dtype, kv_dtype, D) == "mma":
+        split_len = dec.mma_split_plan(B, KV, dec.n_head_tiles(H, KV), S, n_sm)[0]
+    else:
+        split_len = dec.split_plan(B, KV, S, n_sm)[0]
+    lens = _row_lens(B, S, split_len, cuda)
+    got = decode_attention_fwd(q, k, v, lens)
+    torch.cuda.synchronize()
+    _close(got, ref.decode_attention_ref(q, k, v, lens), **TOL[q_dtype])
+    for b in range(B):  # row b is the scalar form at its own length
+        alone = decode_attention_fwd(q[b : b + 1], k[b : b + 1], v[b : b + 1], int(lens[b]))
+        _close(got[b : b + 1], alone, **TOL[q_dtype])
+    assert int(dec._COUNTERS[cuda.index or 0].abs().sum()) == 0
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,D", ROW_CASES)
+def test_decode_per_row_kv_len_at_one_length_is_bitwise_the_scalar_form(cuda, q_dtype, kv_dtype,
+                                                                        D):
+    """Every row at one length: the [B] form gives the scalar form's output
+    bit for bit, and counts its launch the same way."""
+    B, S, H, KV = 8, 1024, 32, 2
+    gen = torch.Generator(device=cuda).manual_seed(22)
+    q = _randn(gen, (B, H, D), q_dtype, cuda)
+    k = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    v = _randn(gen, (B, S, KV, D), kv_dtype, cuda)
+    for L in (1, 17, 528, S):
+        want = decode_attention_fwd(q, k, v, _kv(L, cuda))
+        n = (decode_attention_fwd.launches, decode_attention_fwd.launches_mma,
+             decode_attention_fwd.launches_simt)
+        got = decode_attention_fwd(q, k, v, torch.full((B,), L, dtype=torch.int32, device=cuda))
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), L
+        moved = (decode_attention_fwd.launches - n[0], decode_attention_fwd.launches_mma - n[1],
+                 decode_attention_fwd.launches_simt - n[2])
+        assert moved[0] == 1 and moved[1] + moved[2] == 1
+
+
+def test_decode_per_row_capture_replays_at_every_mix_of_lengths(cuda):
+    """One captured flash-decode with a [B] kv_len, rewritten between
+    replays, equals a fresh call at each mix."""
+    gen = torch.Generator(device=cuda).manual_seed(23)
+    q = _randn(gen, (4, 32, 128), torch.bfloat16, cuda)
+    k = _randn(gen, (4, 1024, 2, 128), torch.bfloat16, cuda)
+    lens = torch.ones((4,), dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        decode_attention_fwd(q, k, k, lens)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = decode_attention_fwd(q, k, k, lens)
+    for mix in ((1, 1024, 17, 528), (64, 2, 1024, 1), (528, 528, 528, 528)):
+        lens.copy_(torch.tensor(mix, dtype=torch.int32))
+        graph.replay()
+        want = decode_attention_fwd(q, k, k, lens.clone())
+        torch.cuda.synchronize()
+        assert torch.equal(out, want), mix
+
+
+@pytest.mark.parametrize("arch,dtype", [("chatglm3_6b", "bfloat16"), ("chatglm3_6b", "float32"),
+                                        ("qwen3_moe_30b_a3b", "bfloat16")])
+def test_captured_batcher_is_bitwise_the_eager_batcher(cuda, arch, dtype):
+    """The continuous batcher's captured per-slot step against its eager
+    step over the same request stream: every tick's logits bit for bit and
+    every request's tokens; the captured run counts the eager run's
+    launches; flash-decode once per layer and tick, the gather once per
+    admission and tick."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.kernels import counters
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.scheduler import ContinuousBatcher, Request
+
+    cfg = get_smoke_config(arch).replace(compute_dtype=dtype, attn_impl="pallas")
+    model = Model(cfg, device="cuda")
+    params = model.compute_params(model.init_params(seed=0))
+    rng = np.random.RandomState(0)
+    spec = [(rng.randint(0, cfg.vocab_size, size=s), n)
+            for s, n in ((128, 9), (40, 5), (256, 12), (7, 3), (128, 6), (99, 8))]
+    runs = {}
+    for captured in (True, False):
+        b = ContinuousBatcher(model, params, batch_size=4, max_len=512, captured=captured)
+        for i, (p, n) in enumerate(spec):
+            b.submit(Request(rid=i, prompt=p, max_new_tokens=n))
+        before = counters.snapshot()
+        ticks = []
+        while b.queue or any(s.busy for s in b.slots):
+            b.step()
+            ticks.append(b.logits.clone())
+        runs[captured] = ({r.rid: r.output for r in b.finished}, torch.stack(ticks),
+                          counters.since(before), b.steps)
+    (tok_g, log_g, n_g, steps), (tok_e, log_e, n_e, _) = runs[True], runs[False]
+    assert tok_g == tok_e
+    assert torch.equal(log_g, log_e)
+    assert n_g == n_e
+    assert n_g[(counters.decode_attention_fwd, "launches")] == steps * cfg.n_layers
+    assert n_g[(counters.prefetch_gather_fwd, "launches")] == steps + len(spec)
+    assert n_g[(counters.flash_attention_fwd, "launches")] == 3 * cfg.n_layers  # S % 128 == 0
+
+
+def test_captured_batcher_tick_has_no_host_sync(cuda):
+    """One captured tick's copies in and replay under
+    ``torch.cuda.set_sync_debug_mode("error")``: only the read of the next
+    tokens waits for the device."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.runtime.scheduler import ContinuousBatcher
+
+    cfg = get_smoke_config("chatglm3_6b").replace(compute_dtype="bfloat16", attn_impl="pallas")
+    model = Model(cfg, device="cuda")
+    params = model.compute_params(model.init_params(seed=0))
+    b = ContinuousBatcher(model, params, batch_size=4, max_len=256)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.inference_mode():
+            b._replay(np.full((4, 1), 3, np.int64), np.array([5, 0, 9, 100], np.int64))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(b._graph.logits).all())

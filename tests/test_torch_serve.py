@@ -114,9 +114,10 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                "repro_torch.configs.recurrentgemma_2b", "repro_torch.models.moe",
                "repro_torch.configs.qwen3_moe_30b_a3b",
                "repro_torch.configs.granite_moe_1b_a400m",
-               "repro_torch.configs.whisper_large_v3", "repro_torch.configs.qwen2_vl_2b"}
+               "repro_torch.configs.whisper_large_v3", "repro_torch.configs.qwen2_vl_2b",
+               "repro_torch.runtime.scheduler"}
         assert new <= set(names), sorted(new - set(names))
-        assert len(names) >= 41, names
+        assert len(names) >= 42, names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
