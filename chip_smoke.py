@@ -129,6 +129,25 @@ Phases, each printing its lines; any failure exits non-zero:
      recurrentgemma-2b (26 layers) and falcon-mamba-7b (depth 4 of 64,
      ``reduced``), B=2, S=2048: no kernel launch (windowed or no attention,
      the scans' plain loop under autograd).
+  mesh (right after (b)): the multi-device layer.  (a) A 1x1 ("data",
+     "model") NCCL mesh: chatglm3-6b at full width, the train phase's
+     depth 16, B=2, S=2048, bf16: one step's loss and every gradient leaf
+     on DTensors under ``activate_sharding`` bitwise the unsharded step's,
+     with equal flash launches; then two ``Trainer(mesh=)`` steps beside
+     two unsharded ones (losses bitwise, launches per step, ms per step).
+     (b) Four processes sharing the card over gloo
+     (``launch.spawn.run_ranks``), a 2x2 mesh with CUDA tensors:
+     chatglm3-6b at full width, depth 2 (``reduced``: four ranks' f32
+     state on one card), B=4, S=512: one step's loss and five gradient
+     leaves against the unsharded step's (1e-4, 2e-2), three
+     ``Trainer(mesh=)`` steps' losses against the unsharded Trainer's
+     (1e-4), per rank its flash launches (> 0), peak memory, step ms and
+     the collectives' share of a profiled third step; then
+     qwen3-moe-30b-a3b's one layer (128 experts, 64 a rank) through
+     ``moe_apply_ep`` and ``moe_apply_ep_a2a`` against ``moe_apply_dense``
+     (f32 1e-5, bf16 2e-2 of the largest value; the routes equal in f32).
+     A rank that fails or hangs past 240 s kills the others and fails the
+     script;
   smoke: the chatglm3 and yi smoke configs (head_dim 16 and 8), unmodified,
      and chatglm3's with head_dim 256, 20 and 320 (which the flash kernels
      run on the CUDA cores, 320 in two pieces of the D = 256 build), the
@@ -490,7 +509,7 @@ def phase_flash(torch, ref, flash_fwd):
           f"{flops} FLOP)")
 
     for shape in FLASH_SHAPES:
-        time_flash_shape(torch, flash_fwd, gen, *shape)
+        time_flash_shape(torch, flash_fwd, gen, *shape, ref=ref)
     return rec
 
 
@@ -509,9 +528,11 @@ FLASH_SHAPES = (
 
 
 def time_flash_shape(torch, flash_fwd, gen, label: str, B: int, Sq: int, Sk: int, H: int,
-                     KV: int, D: int, causal: bool) -> None:
+                     KV: int, D: int, causal: bool, ref=None) -> None:
     """The bf16 flash forward at one shape beside SDPA (device times, CUDA
-    graph of 10 calls) and its bound."""
+    graph of 10 calls) and its bound; at the training shape also its plain
+    version (mean of 3 calls between CUDA events: it materialises the
+    scores)."""
     dev = torch.device("cuda")
     q = torch.randn((B, Sq, H, D), generator=gen, device=dev).to(torch.bfloat16)
     k = torch.randn((B, Sk, KV, D), generator=gen, device=dev).to(torch.bfloat16)
@@ -525,8 +546,15 @@ def time_flash_shape(torch, flash_fwd, gen, label: str, B: int, Sq: int, Sk: int
     pairs = Sq * (Sq + 1) // 2 if causal else Sq * Sk  # (query, key) pairs per head
     flops = 4 * B * H * D * pairs
     t_bytes, t_ops = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    plain = ""
+    if label == "training shape":
+        plain_ms = cuda_ms(torch, lambda: ref.flash_attention_ref(q, k, v, causal=causal),
+                           iters=3, warmup=1)
+        plain = f", plain {plain_ms:.5f} ms (CUDA events)"
+        gc.collect()
+        torch.cuda.empty_cache()
     print(f"[flash] {label}: B={B} Sq={Sq} Sk={Sk} H={H} KV={KV} D={D} bf16 causal={causal}: "
-          f"kernel {ms:.5f} ms, sdpa {lib_ms:.5f} ms (device times, CUDA graph); bound "
+          f"kernel {ms:.5f} ms, sdpa {lib_ms:.5f} ms (device times, CUDA graph){plain}; bound "
           f"{max(t_bytes, t_ops) * 1e3:.2f} us by {'bytes' if t_bytes >= t_ops else 'operations'} "
           f"({nbytes} B, {flops} FLOP); {flops / ms / 1e9:.1f} TFLOP/s, sdpa "
           f"{flops / lib_ms / 1e9:.1f}")
@@ -2823,6 +2851,374 @@ def phase_enc_vlm(torch, arch: str, tag: str, counters: dict, B: int, prompt: in
     return launched
 
 
+# ---------------------------------------------------------------------------
+# [mesh]: the multi-device layer (launch/mesh.py, shardings.py, the
+# DTensor train step, the MoE mesh paths) on the one card
+# ---------------------------------------------------------------------------
+
+# (a) the one-rank NCCL mesh runs chatglm3-6b at the train phase's depth,
+# TRAIN_DEPTH.  One rank runs the same kernels on the same tensors in the
+# same order as the unsharded step (the vocab-parallel loss gives
+# logsumexp's gradient), so its loss and gradients are held bitwise
+MESH_ONE_RANK_TOL = 0.0
+# (b) four ranks sharing the card over gloo, a 2x2 ("data", "model") mesh:
+# chatglm3-6b cut 28 -> 2 (four ranks' f32 state and activations on one
+# card), B x S, Trainer steps (the last one profiled for the collectives'
+# share); qwen3-moe-30b-a3b's one layer at B x S tokens
+MESH_SHARED_DEPTH = 2
+MESH_B, MESH_S, MESH_STEPS = 4, 512, 3
+MESH_RANKS = 4
+MESH_TIMEOUT = 240.0
+# (b)'s Trainer losses against the unsharded Trainer's on the same weights
+# and batches, relative: bf16 TP partial sums rounded and added in another
+# order (read: 2.1e-05, 3.5e-05, 2.6e-05 over the three steps on the H100)
+MESH_LOSS_TOL = 1e-4
+# (b)'s gradient leaves held against the unsharded step's (bf16, relative to
+# each leaf's largest value, the train phase's bound GRAD_REL_TOL; read:
+# 8.1e-03 to 1.6e-02, bq's the largest, a sum over every token): the query
+# heads' and kv heads' biases (a wrong head slice) and the norms' scales (a
+# missing reduction over "model")
+MESH_GRAD_LEAVES = ("layers.attn.bq", "layers.attn.bv", "layers.ln1", "layers.ln2",
+                    "final_norm")
+# the EP and a2a MoE paths against the dense path, relative to the largest
+# value: f32 sums in another order; bf16 rounding of the expert products in
+# another grouping
+MESH_MOE_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+def _flash_counters():
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq,
+    )
+
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv,
+            "flash_attention_bwd_dq": flash_attention_bwd_dq}
+
+
+def _timed_trainer(torch, trainer, counters: dict, n_steps: int, profile_last: bool = False):
+    """``trainer.train(n_steps)`` with each step timed (host clock, the card synced
+    before and after) and its launches counted; with ``profile_last`` the
+    last step runs under torch.profiler (CPU) and the time the host spent
+    in collectives (the ``c10d`` and ``gloo`` events' self time) is summed.
+    Returns (losses, [(ms, launches)], the profiled step's (collective ms,
+    wall ms) or None, peak bytes)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.train import full
+
+    inner, steps, coll = trainer.step_fn, [], []
+
+    def step_fn(params, opt_state, batch):
+        before = {n: c.launches for n, c in counters.items()}
+        last = profile_last and len(steps) == n_steps - 1
+        torch.cuda.synchronize()
+        ctx = profile(activities=[ProfilerActivity.CPU]) if last else contextlib.nullcontext()
+        t = time.perf_counter()
+        with ctx as prof:
+            out = inner(params, opt_state, batch)
+            float(full(out[2]["loss"]))
+            torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        steps.append((ms, {n: c.launches - before[n] for n, c in counters.items()}))
+        if last:
+            us = sum(ev.self_cpu_time_total for ev in prof.key_averages()
+                     if "c10d" in ev.key or "gloo" in ev.key)
+            coll.append((us / 1e3, ms))
+        return out
+
+    trainer.step_fn = step_fn
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    _, _, losses = trainer.train(n_steps, seed=0)
+    return losses, steps, (coll[0] if coll else None), torch.cuda.max_memory_allocated()
+
+
+def _rel_err(got, want, scale=None) -> float:
+    """max |got - want| over ``scale`` (default: max |want|)."""
+    scale = float(want.abs().max()) if scale is None else scale
+    return float((got.float() - want.float()).abs().max()) / max(scale, 1e-30)
+
+
+def mesh_one_rank(torch, counters: dict) -> dict:
+    """(a) A 1x1 ("data", "model") mesh over NCCL: chatglm3-6b at full width
+    (depth TRAIN_DEPTH), bf16, B=2, S=2048.  One step's loss and every
+    gradient leaf on the mesh (DTensor parameters and batch, under
+    ``activate_sharding``) against the unsharded step on the same
+    parameters and batch, within MESH_ONE_RANK_TOL, with equal flash
+    launches; then two ``Trainer(mesh=)`` steps beside two unsharded
+    ``Trainer`` steps: losses (MESH_ONE_RANK_TOL), launches per step, ms per
+    step (the difference is DTensor's host cost).  Returns the mesh run's
+    launches."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import batch_pspecs, logical_rules, named
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import Trainer, full
+    from repro_torch.models.common import activate_sharding, tree_items
+    from repro_torch.models.model import Model
+
+    B, S, L = 2, 2048, TRAIN_DEPTH
+    cfg = get_config("chatglm3_6b").replace(n_layers=L, attn_impl="pallas")
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cuda", backend="nccl")
+            shape = ShapeConfig("train", "train", S, B)
+            model = Model(cfg, "cuda")
+            params = model.init_params(seed=0)
+            batch = _device_batch(torch, cfg, B, S)
+
+            def grads(mesh_on: bool):
+                for c in counters.values():
+                    c.launches = 0
+                if not mesh_on:
+                    loss, g = loss_and_grads(model, params, batch)
+                else:
+                    rules = logical_rules(cfg, shape, mesh)
+                    ps = named(mesh, model.param_pspecs(rules), params)
+                    bs = named(mesh, batch_pspecs(cfg, shape, mesh), batch)
+                    with activate_sharding(mesh, rules):
+                        loss, g = loss_and_grads(model, ps, bs)
+                    g = {p: full(t) for p, t in tree_items(g)}
+                    loss = full(loss)
+                torch.cuda.synchronize()
+                return float(loss), dict(tree_items(g)), {n: c.launches
+                                                          for n, c in counters.items()}
+
+            uloss, ug, ucount = grads(False)
+            mloss, mg, mcount = grads(True)
+            tree_max = max(float(g.abs().max()) for g in ug.values())
+            worst, worst_path = 0.0, ""
+            for path, want in ug.items():
+                rel = _rel_err(mg[path], want, tree_max if path in ZERO_GRAD_LEAVES else None)
+                if rel > worst:
+                    worst, worst_path = rel, path
+            loss_rel = abs(mloss - uloss) / abs(uloss)
+            tol = MESH_ONE_RANK_TOL
+            print(f"[mesh] (a) 1x1 NCCL mesh, chatglm3-6b depth {L} (full width), B={B} S={S}, "
+                  f"bf16: loss {mloss:.6f} on the mesh, {uloss:.6f} unsharded (relative "
+                  f"{loss_rel:.3e}, tol {tol}); worst gradient leaf {worst_path or '(none)'} at "
+                  f"{worst:.3e} (tol {tol}); launches mesh {mcount}, unsharded {ucount}")
+            check(loss_rel <= tol, "[mesh] (a) the mesh loss disagrees")
+            check(worst <= tol, "[mesh] (a) the mesh gradients disagree")
+            check(mcount == ucount and mcount["flash_attention_fwd"] > 0,
+                  "[mesh] (a) the mesh step's flash launches are not the unsharded step's")
+            del params, batch, ug, mg
+            gc.collect()
+            torch.cuda.empty_cache()
+
+            runs = {}
+            for name, kw in (("unsharded", {}), ("mesh", {"mesh": mesh})):
+                trainer = Trainer(cfg, device="cuda", global_batch=B, seq_len=S, total_steps=2,
+                                  log_every=10**9, **kw)
+                runs[name] = _timed_trainer(torch, trainer, counters, 2)
+                del trainer
+                gc.collect()
+                torch.cuda.empty_cache()
+            (ul, us, _, upeak), (ml, ms, _, mpeak) = runs["unsharded"], runs["mesh"]
+            print(f"[mesh] (a) Trainer 2 steps: losses mesh {ml}, unsharded {ul}; ms per step "
+                  f"mesh {[round(t, 3) for t, _ in ms]}, unsharded "
+                  f"{[round(t, 3) for t, _ in us]}; launches per step mesh {ms[-1][1]}, "
+                  f"unsharded {us[-1][1]}; peak B mesh {mpeak}, unsharded {upeak}")
+            check(len(ml) == len(ul) == 2
+                  and all(abs(a - b) / abs(b) <= tol for a, b in zip(ml, ul)),
+                  "[mesh] (a) Trainer(mesh=) losses disagree with the unsharded Trainer's")
+            check(all(m[1] == u[1] for m, u in zip(ms, us)),
+                  "[mesh] (a) Trainer(mesh=) launches differ from the unsharded Trainer's")
+            return {n: sum(c[n] for _, c in ms) for n in counters}
+        finally:
+            dist.destroy_process_group()
+
+
+def _mesh_grad_leaves(torch, cfg, mesh=None) -> tuple:
+    """One step's loss and the MESH_GRAD_LEAVES of its gradient (full, as
+    numpy arrays, which a rank can send back) at chatglm3-6b's seed-0
+    weights on the Trainer's first batch: unsharded, or on ``mesh``
+    (parameters and batch placed by the rules)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.shardings import batch_pspecs, logical_rules, named
+    from repro_torch.launch.steps import loss_and_grads
+    from repro_torch.launch.train import full
+    from repro_torch.models.common import activate_sharding, tree_items
+    from repro_torch.models.model import Model
+
+    model = Model(cfg, "cuda")
+    params = model.init_params(seed=0)
+    batch = _device_batch(torch, cfg, MESH_B, MESH_S)
+    if mesh is None:
+        loss, g = loss_and_grads(model, params, batch)
+    else:
+        shape = ShapeConfig("train", "train", MESH_S, MESH_B)
+        rules = logical_rules(cfg, shape, mesh)
+        params = named(mesh, model.param_pspecs(rules), params)
+        batch = named(mesh, batch_pspecs(cfg, shape, mesh), batch)
+        with activate_sharding(mesh, rules):
+            loss, g = loss_and_grads(model, params, batch)
+    g = dict(tree_items(g))
+    return float(full(loss)), {k: full(g[k]).float().cpu().numpy() for k in MESH_GRAD_LEAVES}
+
+
+def mesh_rank(rank: int, world: int) -> dict:
+    """(b) One of four ranks sharing the card, a 2x2 mesh over gloo:
+    chatglm3-6b at full width, depth MESH_SHARED_DEPTH, one step's loss
+    and gradient leaves (``_mesh_grad_leaves``), then ``Trainer(mesh=)``
+    for MESH_STEPS steps; then qwen3-moe-30b-a3b's one layer (128 experts,
+    64 a rank) through ``moe_apply_ep`` and ``moe_apply_ep_a2a`` against
+    ``moe_apply_dense``, f32 and bf16, the routes compared in f32.  Returns
+    what the parent prints and checks."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.shardings import PSpec, named
+    from repro_torch.launch.train import Trainer, full
+    from repro_torch.models.common import init_from_template
+    from repro_torch.models.model import _moe_tmpl
+    from repro_torch.models.moe import moe_apply_dense, moe_apply_ep, moe_apply_ep_a2a
+
+    counters = _flash_counters()
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda", backend="gloo")
+    out = {"rank": rank}
+    cfg = get_config("chatglm3_6b").replace(n_layers=MESH_SHARED_DEPTH, attn_impl="pallas")
+    out["grad_loss"], out["grads"] = _mesh_grad_leaves(torch, cfg, mesh)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(cfg, mesh=mesh, global_batch=MESH_B, seq_len=MESH_S,
+                      total_steps=MESH_STEPS, log_every=10**9)
+    losses, steps, coll, peak = _timed_trainer(torch, trainer, counters, MESH_STEPS,
+                                               profile_last=True)
+    out.update(losses=losses, step_ms=[ms for ms, _ in steps], launches=steps[0][1],
+               coll=coll, peak=peak)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mcfg = get_config("qwen3_moe_30b_a3b")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    layer = init_from_template(_moe_tmpl(mcfg), gen, torch.float32, "cuda")
+    x = 0.1 * torch.randn((MESH_B, MESH_S, mcfg.d_model), generator=gen, device="cuda")
+    bank = PSpec("model", None, None)
+    lp = named(mesh, {"router": PSpec(None, None), "we_gate": bank, "we_up": bank,
+                      "we_down": bank}, layer)
+    every = ("data", "model")
+    row = mesh.get_coordinate()[0] * 2 + mesh.get_coordinate()[1]  # this rank's a2a row
+    for dtype in (torch.float32, torch.bfloat16):
+        tag = str(dtype).split(".")[-1]
+        xd = x.to(dtype)
+        with routing(torch) as ep_routes:
+            ep = full(moe_apply_ep(named(mesh, PSpec("data", None, None), xd), lp, mcfg,
+                                   dtype, mesh, "data", "model"))
+        with routing(torch) as a2a_routes:
+            a2a = full(moe_apply_ep_a2a(named(mesh, PSpec(every, None, None), xd), lp, mcfg,
+                                        dtype, mesh, every, "model"))
+        with routing(torch) as dense_routes:
+            dense = moe_apply_dense(xd, layer, mcfg, dtype)
+        with routing(torch) as row_routes:
+            dense_rows = torch.cat([moe_apply_dense(xd[r:r + 1], layer, mcfg, dtype)
+                                    for r in range(MESH_B)])
+        scale = float(dense.float().abs().max())
+        out[f"moe_ep_{tag}"] = float((ep.float() - dense.float()).abs().max()) / scale
+        out[f"moe_a2a_{tag}"] = float((a2a.float() - dense_rows.float()).abs().max()) / scale
+        if dtype == torch.float32:
+            data = mesh.get_coordinate()[0]
+            n_chunks = len(dense_routes) // 2  # the dense path's chunks of each data shard
+            out["routes_equal"] = (
+                all(torch.equal(a, b) for a, b in
+                    zip(ep_routes, dense_routes[data * n_chunks:(data + 1) * n_chunks]))
+                and len(a2a_routes) == 1 and torch.equal(a2a_routes[0], row_routes[row]))
+    return out
+
+
+def mesh_shared_card(torch) -> dict:
+    """(b) in MESH_RANKS processes (``launch.spawn.run_ranks``, gloo, CUDA
+    tensors): the parent runs the unsharded step's gradient leaves and the
+    unsharded ``Trainer`` for MESH_STEPS steps on the same weights (seed 0)
+    and batches, starts the ranks, and holds what they return to those; a
+    rank that fails or hangs kills the others and fails the phase."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.spawn import run_ranks
+    from repro_torch.launch.train import Trainer
+
+    cfg = get_config("chatglm3_6b").replace(n_layers=MESH_SHARED_DEPTH, attn_impl="pallas")
+    ref_grad_loss, ref_grads = _mesh_grad_leaves(torch, cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    trainer = Trainer(cfg, device="cuda", global_batch=MESH_B, seq_len=MESH_S,
+                      total_steps=MESH_STEPS, log_every=10**9)
+    _, _, ref = trainer.train(MESH_STEPS, seed=0)
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    t = time.perf_counter()
+    try:
+        outs = run_ranks(mesh_rank, MESH_RANKS, backend="gloo", timeout=MESH_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"[mesh] (b) the four-rank run failed: {e}")
+    print(f"[mesh] (b) 2x2 mesh, 4 ranks on one card over gloo, chatglm3-6b depth "
+          f"{MESH_SHARED_DEPTH} (full width), B={MESH_B} S={MESH_S}, bf16, "
+          f"{MESH_STEPS} Trainer steps; qwen3-moe-30b-a3b one layer, 128 experts, 64 a rank, "
+          f"{MESH_B * MESH_S} tokens: {time.perf_counter() - t:.1f} s; unsharded Trainer "
+          f"losses {ref}, step loss {ref_grad_loss}")
+    gtol = GRAD_REL_TOL["bfloat16"]
+    for o in outs:
+        rels = [abs(a - b) / abs(b) for a, b in zip(o["losses"], ref)]
+        grel = {k: _rel_err(torch.from_numpy(o["grads"][k]), torch.from_numpy(ref_grads[k]))
+                for k in MESH_GRAD_LEAVES}
+        coll_ms, wall_ms = o["coll"]
+        print(f"[mesh] (b) rank {o['rank']}: losses {o['losses']} (vs unsharded "
+              f"{[float(f'{r:.3e}') for r in rels]}, tol {MESH_LOSS_TOL}); step loss vs "
+              f"unsharded {abs(o['grad_loss'] - ref_grad_loss) / abs(ref_grad_loss):.3e}, "
+              f"gradient leaves vs unsharded "
+              f"{ {k: float(f'{v:.3e}') for k, v in grel.items()} } (tol {gtol}); step ms "
+              f"{[round(x, 3) for x in o['step_ms']]}; profiled step {wall_ms:.3f} ms, "
+              f"collectives {coll_ms:.3f} ms (share {coll_ms / wall_ms:.4f}); flash launches "
+              f"per step {o['launches']}; peak {o['peak']} B; moe ep vs dense f32 "
+              f"{o['moe_ep_float32']:.3e} bf16 {o['moe_ep_bfloat16']:.3e}, a2a vs dense per "
+              f"row f32 {o['moe_a2a_float32']:.3e} bf16 {o['moe_a2a_bfloat16']:.3e}, routes "
+              f"equal in f32 {o['routes_equal']}")
+        check(len(rels) == MESH_STEPS and all(r <= MESH_LOSS_TOL for r in rels),
+              f"[mesh] (b) rank {o['rank']}: the Trainer's losses disagree with the unsharded "
+              f"Trainer's")
+        check(abs(o["grad_loss"] - ref_grad_loss) <= MESH_LOSS_TOL * abs(ref_grad_loss)
+              and all(v <= gtol for v in grel.values()),
+              f"[mesh] (b) rank {o['rank']}: the step's loss or gradients disagree with the "
+              f"unsharded step's")
+        check(all(o["launches"][n] > 0 for n in o["launches"]),
+              f"[mesh] (b) rank {o['rank']}: a flash kernel was not launched")
+        for key, tol in (("moe_ep", MESH_MOE_TOL), ("moe_a2a", MESH_MOE_TOL)):
+            for tag in ("float32", "bfloat16"):
+                check(o[f"{key}_{tag}"] <= tol[tag], f"[mesh] (b) rank {o['rank']}: {key} "
+                                                     f"{tag} disagrees with the dense path")
+        check(o["routes_equal"], f"[mesh] (b) rank {o['rank']}: an f32 route differs")
+    return {n: sum(o["launches"][n] for o in outs) for n in outs[0]["launches"]}
+
+
+def phase_mesh(torch) -> dict:
+    """(a) then (b); returns the flash launches of (a)'s Trainer(mesh=) run."""
+    t = time.perf_counter()
+    counters = _flash_counters()
+    launches = mesh_one_rank(torch, counters)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shared = mesh_shared_card(torch)
+    print(f"[mesh] launches: (a) Trainer(mesh=) {launches}; (b) the ranks' first steps "
+          f"{shared}; phase {time.perf_counter() - t:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
@@ -2884,6 +3280,11 @@ def main() -> int:
     train = phase_train(torch, {"flash_attention_fwd": flash_attention_fwd,
                                 "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv,
                                 "flash_attention_bwd_dq": flash_attention_bwd_dq})
+    gc.collect()
+    torch.cuda.empty_cache()
+    # the multi-device layer: the Trainer on a one-rank NCCL mesh, four ranks
+    # on the card over gloo; its flash launches are counted on their own
+    phase_mesh(torch)
     gc.collect()
     torch.cuda.empty_cache()
     # the other families' training: every kernel counted, for the path's

@@ -32,6 +32,7 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, with_lse=False):
     There are no block-size options: the CUDA kernel fixes its own tiles and
     masks ragged edges, so it takes any Sq and Sk."""
     if q.is_cuda:
+        q, k, v = (_waited(t) for t in (q, k, v))
         o, lse = flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
         return (o, lse) if with_lse else o
     return ref.flash_attention_ref(q, k, v, causal=causal, q_offset=q_offset,
@@ -53,6 +54,7 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
+        do = _waited(do)
         kw = dict(causal=ctx.causal, q_offset=ctx.q_offset)
         if q.is_cuda:
             dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, **kw)
@@ -60,6 +62,24 @@ class _FlashAttention(torch.autograd.Function):
             dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, do, lse, attention_delta(o, do),
                                                      **kw)
         return dq, dk, dv, None, None
+
+
+def _waited(t):
+    """``t`` as a plain tensor, for a kernel that takes raw pointers.  Under
+    a mesh a cotangent can arrive as an ``AsyncCollectiveTensor`` (the
+    result of a collective not yet waited on), which is waited on; a
+    DTensor (a whole sharded tensor) raises: the kernels take each rank's
+    local shard (``launch.compat.shard_map``)."""
+    if type(t) is not torch.Tensor and torch.distributed.is_available():
+        from torch.distributed._functional_collectives import AsyncCollectiveTensor
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(t, AsyncCollectiveTensor):
+            return t.wait()
+        if isinstance(t, DTensor):
+            raise TypeError("a DTensor reached a kernel wrapper; the kernels take local "
+                            "shards (run the model under models.common.activate_sharding)")
+    return t
 
 
 def flash_attention_trainable(q, k, v, causal=True, q_offset=0):

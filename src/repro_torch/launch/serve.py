@@ -52,7 +52,14 @@ from repro_torch.models.transformer import decode_layers
 
 
 class Server:
-    def __init__(self, cfg, device="cuda", max_len: int = 256):
+    def __init__(self, cfg, device="cuda", max_len: int = 256, mesh=None):
+        """``mesh``: sharded serving is not ported (ROADMAP.md, section 1,
+        item 6.1), so a mesh of more than one rank raises; it is never
+        served unsharded in silence.  A one-rank mesh serves as no mesh."""
+        if mesh is not None and mesh.size() > 1:
+            raise NotImplementedError(
+                f"Server on a mesh of {mesh.size()} ranks: sharded serving is ROADMAP.md, "
+                "section 1, item 6.1; serve on one device")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_len = max_len

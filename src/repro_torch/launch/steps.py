@@ -1,6 +1,14 @@
-"""Step functions (train / prefill / decode) and a concrete batch for tests
-and examples.  Counterpart of ``repro.launch.steps`` on one device (the
-mesh-info and abstract-input parts wait for the multi-device slice).
+"""Step functions (train / prefill / decode), the MoE path a mesh selects
+(``mesh_info_for``) and a concrete batch for tests and examples.
+Counterpart of ``repro.launch.steps`` (its abstract input specs belong to
+the dry-run, ROADMAP.md, section 1, item 7).
+
+Under a mesh the steps run on DTensors placed by the logical rules, inside
+``models.common.activate_sharding(mesh, rules)``, which the caller enters
+(as JAX's callers do).  The gradients of the train step are reduced as
+GSPMD reduces them: each is brought to its parameter's placements, a sum
+over the data axes of the ranks' parts of the global mean (an all-reduce),
+a reduce-scatter where fsdp shards the parameter.
 
 PyTorch runs eagerly, so a step is a plain function (the serving steps
 under ``torch.inference_mode``).  The JAX server's compiled decode step
@@ -22,9 +30,41 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.kernels import counters
-from repro_torch.models.common import tree_items, tree_map
+from repro_torch.models.common import current_mesh_rules, tree_items, tree_map
 from repro_torch.models.model import Model
 from repro_torch.optim import AdamW, warmup_cosine
+
+from .mesh import data_axes
+
+
+def mesh_info_for(cfg: ModelConfig, mesh) -> Optional[tuple]:
+    """(mesh, data_axes, model_axis[, mode]) for the MoE paths.
+
+    Under FSDP the expert banks are gathered per layer like every other
+    weight and routing runs rank-local (model_axis=None selects the
+    fsdp-local path in ``moe_apply``)."""
+    if mesh is None or cfg.family != "moe":
+        return None
+    dp = data_axes(mesh)
+    if cfg.parallelism == "fsdp":
+        return (mesh, dp + ("model",), None)
+    if cfg.parallelism == "ep_a2a":
+        return (mesh, dp + ("model",), "model", "ep_a2a")
+    # "tp" and "fsdp_ep": expert parallelism over `model`, batch over data
+    return (mesh, dp if len(dp) > 1 else dp[0], "model")
+
+
+def _no_grad(mesh):
+    """The serving steps' autograd context: ``inference_mode``, or under a
+    mesh ``no_grad`` (DTensor cannot take views of its parameters in
+    inference mode: an inference tensor has no version counter)."""
+    return torch.no_grad() if mesh is not None else torch.inference_mode()
+
+
+def _require_context(mesh) -> None:
+    if mesh is not None and current_mesh_rules() is None:
+        raise RuntimeError("a step built for a mesh runs inside "
+                           "models.common.activate_sharding(mesh, rules)")
 
 
 def make_optimizer(total_steps: int = 10_000) -> AdamW:
@@ -51,7 +91,7 @@ def _layer_views(stack: dict, grads: dict) -> list:
     return views
 
 
-def loss_and_grads(model: Model, params: dict, batch: dict):
+def loss_and_grads(model: Model, params: dict, batch: dict, mesh_info=None):
     """(loss, gradient tree) of ``model.loss_fn`` at ``params``: the
     counterpart of ``jax.value_and_grad(Model.loss_fn)``, with the same tree.
 
@@ -69,22 +109,30 @@ def loss_and_grads(model: Model, params: dict, batch: dict):
     stacked = {k: tree_map(torch.zeros_like, v) for k, v in params.items() if k in LAYER_STACKS}
     views = {k: _layer_views(params[k], g) for k, g in stacked.items()}
     with torch.enable_grad():
-        loss = model.loss_fn({**top, **views}, batch)
+        loss = model.loss_fn({**top, **views}, batch, mesh_info)
         loss.backward()
     grads = tree_map(lambda p: torch.zeros_like(p) if p.grad is None else p.grad, top)
     grads.update(stacked)
     return loss.detach(), grads
 
 
-def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None, device="cuda"):
+def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None, device="cuda",
+                    mesh=None):
     """(model, optimizer, train_step(params, opt_state, batch) -> (params,
     opt_state, metrics)); the step updates ``params`` and ``opt_state`` in
-    place and returns them, with ``metrics = {"loss", "grad_norm", "lr"}``."""
+    place and returns them, with ``metrics = {"loss", "grad_norm", "lr"}``.
+    With a ``mesh``: DTensor parameters, state and batch, the step run
+    inside ``activate_sharding``."""
     model = Model(cfg, device=device)
     opt = optimizer or make_optimizer()
+    minfo = mesh_info_for(cfg, mesh)
 
     def train_step(params, opt_state, batch):
-        loss, grads = loss_and_grads(model, params, batch)
+        _require_context(mesh)
+        loss, grads = loss_and_grads(model, params, batch, minfo)
+        if mesh is not None:
+            grads = tree_map(lambda g, p: g.redistribute(p.device_mesh, p.placements),
+                             grads, params)
         params, opt_state, metrics = opt.update(grads, opt_state, params)
         metrics["loss"] = loss
         return params, opt_state, metrics
@@ -92,26 +140,30 @@ def make_train_step(cfg: ModelConfig, optimizer: Optional[AdamW] = None, device=
     return model, opt, train_step
 
 
-def make_prefill_step(cfg: ModelConfig, device="cuda"):
+def make_prefill_step(cfg: ModelConfig, device="cuda", mesh=None):
     """(model, prefill_step(params, batch) -> (logits, cache))."""
     model = Model(cfg, device=device)
+    minfo = mesh_info_for(cfg, mesh)
 
-    @torch.inference_mode()
+    @_no_grad(mesh)
     def prefill_step(params, batch):
-        return model.prefill(params, batch)
+        _require_context(mesh)
+        return model.prefill(params, batch, minfo)
 
     return model, prefill_step
 
 
-def make_decode_step(cfg: ModelConfig, device="cuda"):
+def make_decode_step(cfg: ModelConfig, device="cuda", mesh=None):
     """(model, decode_step(params, cache, tokens, pos) -> (logits, cache));
     the step writes into ``cache`` in place.  ``pos`` is a Python int or a
     0-d int tensor on the model's device."""
     model = Model(cfg, device=device)
+    minfo = mesh_info_for(cfg, mesh)
 
-    @torch.inference_mode()
+    @_no_grad(mesh)
     def decode_step(params, cache, tokens, pos):
-        return model.decode_step(params, cache, tokens, pos)
+        _require_context(mesh)
+        return model.decode_step(params, cache, tokens, pos, minfo)
 
     return model, decode_step
 

@@ -24,7 +24,13 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops
 
-from .common import constrain
+from .common import (
+    constrain,
+    current_mesh_rules,
+    logical_to_pspec,
+    replicated_like,
+    split_last,
+)
 
 NEG_INF = -1e30
 
@@ -121,7 +127,7 @@ def apply_rope(x, angles):
     """x: [B, S, H, hd]; angles: ``rope_angles`` of its positions."""
     if angles is None:
         return x
-    cos, sin = angles
+    cos, sin = (replicated_like(x, a) for a in angles)
     rot = 2 * cos.shape[-1]
     if rot == x.shape[-1]:
         return _rotate(x, cos, sin)
@@ -164,8 +170,7 @@ def mlp_apply(kind: str, x, p, compute_dtype):
 
 
 def _split_heads(x, n_heads: int, head_dim: int):
-    b, s, _ = x.shape
-    return x.reshape(b, s, n_heads, head_dim)
+    return split_last(x, n_heads, head_dim)
 
 
 def gqa_attention(
@@ -182,7 +187,54 @@ def gqa_attention(
 ):
     """Grouped-query attention.  ``q_offset`` positions the queries within
     the kv sequence (prefill chunking / decode).  ``local_window`` > 0 adds a
-    sliding-window constraint.  ``kv_len`` masks cache slots >= kv_len."""
+    sliding-window constraint.  ``kv_len`` masks cache slots >= kv_len.
+    Under a mesh it runs on each rank's local rows and heads
+    (``_sharded_attention``)."""
+    kw = dict(causal=causal, impl=impl, chunk=chunk, q_offset=q_offset,
+              local_window=local_window, kv_len=kv_len)
+    ctx = current_mesh_rules()
+    if ctx is not None:
+        return _sharded_attention(ctx, q, k, v, kw)
+    return local_attention(q, k, v, **kw)
+
+
+def _sharded_attention(ctx, q, k, v, kw):
+    """``gqa_attention`` under a mesh, as a ``shard_map`` over q (batch,
+    inner_seq, act_heads) and k, v (batch, inner_seq, act_kv): the flash
+    kernels (or the plain paths) see only this rank's rows and heads.  Where
+    q's heads are split over ``model`` and k's are not (fewer kv heads than
+    ranks), each rank takes the kv heads its query heads read."""
+    from repro_torch.launch.compat import shard_map
+
+    mesh, rules = ctx
+    qs = logical_to_pspec(("batch", "inner_seq", "act_heads", None), rules)
+    ks = logical_to_pspec(("batch", "inner_seq", "act_kv", None), rules)
+    G = q.shape[2] // k.shape[2]
+
+    def body(ql, kl, vl):
+        kl, vl = local_kv(mesh, qs[2], ks[2], ql, kl, vl, G)
+        return local_attention(ql, kl, vl, **kw)
+
+    return shard_map(body, mesh, (qs, ks, ks), qs)(q, k, v)
+
+
+def local_kv(mesh, q_axis, kv_axis, ql, kl, vl, G: int):
+    """Inside a ``shard_map`` body over [B, S, heads, hd] q and k/v: the kv
+    heads this rank's query heads read.  Where q's heads are split over
+    ``q_axis`` and k/v's are not (``kv_axis`` None: fewer kv heads than
+    ranks), that is a slice of k/v's heads; otherwise k/v as given.  Local
+    query heads that split a group of ``G`` raise."""
+    if q_axis is None or kv_axis is not None:
+        return kl, vl
+    Hl = ql.shape[2]
+    if G % Hl and Hl % G:
+        raise ValueError(f"{Hl} local query heads split a group of {G}")
+    h0 = mesh.get_local_rank(q_axis) * Hl
+    kv0, kv1 = h0 // G, (h0 + Hl - 1) // G + 1
+    return kl[:, :, kv0:kv1], vl[:, :, kv0:kv1]
+
+
+def local_attention(q, k, v, *, causal, impl, chunk, q_offset, local_window, kv_len):
     B, Sq, H, hd = q.shape
     KV = k.shape[2]
     G = H // KV

@@ -17,12 +17,17 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.compat import shard_map
 
 from .common import (
     ParamSpec,
     abstract_from_template,
+    constrain,
+    current_mesh_rules,
     init_from_template,
+    logical_to_pspec,
     param_count,
+    pspecs_from_template,
     tree_map,
 )
 from .layers import apply_norm, sinusoidal_embedding
@@ -235,6 +240,11 @@ class Model:
         """The parameter tree on the ``meta`` device: no allocation."""
         return abstract_from_template(self.template, torch_dtype(self.cfg.param_dtype))
 
+    def param_pspecs(self, rules: dict) -> dict:
+        """The ``PSpec`` of every parameter under ``rules`` (its template
+        axes mapped through the rules)."""
+        return pspecs_from_template(self.template, rules)
+
     def compute_params(self, params: dict) -> dict:
         """``params`` with every leaf that the model casts to the compute
         dtype on use (matmul weights, biases, embedding, head) cast once;
@@ -268,14 +278,31 @@ class Model:
         forward without grad), the rows come from ``ops.prefetch_gather``:
         the CUDA gather kernel on the card, its plain version elsewhere.
         Under autograd the lookup stays ``table[tokens]``: the gather kernel,
-        like the TPU kernel it replaces, has no backward."""
-        table = params["embed"]
-        if torch.is_grad_enabled() and table.requires_grad:
-            x = table[tokens]
-        else:
-            x = ops.prefetch_gather(table, tokens.reshape(-1))
-            x = x.reshape(*tokens.shape, table.shape[1])
-        return x.to(cfg_dtype(self.cfg))
+        like the TPU kernel it replaces, has no backward.  Under a mesh the
+        table is split over ``act_vocab``'s axis: each rank looks up the
+        tokens its rows hold, zeros the rest, and the sum over that axis
+        (the constraint to (batch, seq, embed)) completes every row."""
+        ctx = current_mesh_rules()
+        if ctx is None:
+            return _lookup(params["embed"], tokens).to(cfg_dtype(self.cfg))
+        mesh, rules = ctx
+        vocab = rules.get("act_vocab")
+
+        def body(table, tok):
+            if vocab is None:
+                return _lookup(table, tok)
+            n = table.shape[0]
+            local = tok - mesh.get_local_rank(vocab) * n
+            held = (local >= 0) & (local < n)
+            rows = _lookup(table, torch.where(held, local, 0))
+            return torch.where(held[..., None], rows, 0)
+
+        x = shard_map(body, mesh,
+                      (logical_to_pspec(("act_vocab", "embed"), rules),
+                       logical_to_pspec(("batch", "inner_seq"), rules)),
+                      logical_to_pspec(("batch", "inner_seq", "embed"), rules),
+                      out_partial=(vocab,) if vocab else ())(params["embed"], tokens)
+        return constrain(x, "batch", "seq", "embed").to(cfg_dtype(self.cfg))
 
     def logits(self, params, h):
         """bf16-rounded operands, f32 products and sums (the JAX code's
@@ -286,22 +313,29 @@ class Model:
         f32, so only the order of the sums differs from widening both
         operands, and no f32 copy of the head (1 GB at chatglm3-6b width) is
         made.  The CPU has no such GEMM, so there both operands are widened.
-        Both are differentiable (``_HeadMatmul`` on the card)."""
+        Both are differentiable (``_HeadMatmul`` on the card).  Under a mesh
+        the GEMM runs on each rank's rows and vocab columns (a
+        ``shard_map``), and the logits stay split over ``act_vocab``."""
         cfg = self.cfg
         dt = cfg_dtype(cfg)
         w = (params["embed"].T if cfg.tie_embeddings else params["lm_head"]).to(dt)
-        h = h.to(dt)
-        if h.is_cuda and dt != torch.float32:
-            out = _HeadMatmul.apply(h.reshape(-1, h.shape[-1]), w)
-            return out.reshape(*h.shape[:-1], w.shape[-1])
-        return h.float() @ w.float()
+        h = constrain(h.to(dt), "batch", "seq", "embed")
+        ctx = current_mesh_rules()
+        if ctx is None:
+            return _head_matmul(h, w)
+        mesh, rules = ctx
+        out = shard_map(_head_matmul, mesh,
+                        (logical_to_pspec(("batch", "inner_seq", "embed"), rules),
+                         logical_to_pspec(("embed", "act_vocab"), rules)),
+                        logical_to_pspec(("batch", "inner_seq", "act_vocab"), rules))(h, w)
+        return constrain(out, "batch", "inner_seq", "act_vocab")
 
     def _final_norm(self, params, h):
         return apply_norm(self.cfg.norm, h, params["final_norm"], params.get("final_norm_b"))
 
     # -- full-sequence forward -------------------------------------------------
 
-    def hidden_states(self, params, batch, collect_cache=False):
+    def hidden_states(self, params, batch, mesh_info=None, collect_cache=False):
         """The final-normed hidden states [B, S, d] and, with
         ``collect_cache``, what the family's cache is assembled from.
         encdec: the encoder over ``batch["frames"]``, then the decoder over
@@ -315,7 +349,7 @@ class Model:
             x = self.embed(params, batch["inputs"])
             pos = torch.arange(x.shape[1], device=x.device)[None, :]
             x = x + sinusoidal_embedding(pos, cfg.d_model).to(dt)
-            h, extras = forward_decoder(params, cfg, x, batch["frames"],
+            h, extras = forward_decoder(params, cfg, x, batch["frames"], mesh_info,
                                         collect_cache=collect_cache)
             return self._final_norm(params, h), extras
         if cfg.embeds_input and "embeds" in batch:
@@ -329,17 +363,17 @@ class Model:
             if cfg.rope == "mrope":
                 positions = positions[None].expand(3, B, S)
         forward = forward_hybrid if cfg.family == "hybrid" else forward_stack
-        h, extras = forward(params, cfg, x, positions, collect_cache=collect_cache)
+        h, extras = forward(params, cfg, x, positions, mesh_info, collect_cache=collect_cache)
         return self._final_norm(params, h), extras
 
     # -- training loss -----------------------------------------------------------
 
-    def loss_fn(self, params, batch):
+    def loss_fn(self, params, batch, mesh_info=None):
         """Mean next-token cross-entropy of ``batch["targets"]`` (JAX
         ``Model.loss_fn``).  The logits cover the padded vocab, unsliced, as
         in JAX: the padding columns take part in the softmax."""
         cfg = self.cfg
-        h, _ = self.hidden_states(params, batch)
+        h, _ = self.hidden_states(params, batch, mesh_info)
         targets = batch["targets"]
         if cfg.loss_chunk and cfg.loss_chunk < h.shape[1]:
             return self._chunked_loss(params, h, targets)
@@ -362,11 +396,11 @@ class Model:
 
     # -- serving -------------------------------------------------------------------
 
-    def prefill(self, params, batch):
+    def prefill(self, params, batch, mesh_info=None):
         """Full forward; returns (last-token logits [B, 1, vocab], decode
         cache)."""
         cfg = self.cfg
-        h, extras = self.hidden_states(params, batch, collect_cache=True)
+        h, extras = self.hidden_states(params, batch, mesh_info, collect_cache=True)
         logits = self.logits(params, h[:, -1:, :])[..., : cfg.vocab_size]
         return logits, self._assemble_cache(extras)
 
@@ -394,7 +428,7 @@ class Model:
         k, v = extras
         return {"k": k.to(kvdt), "v": v.to(kvdt)}
 
-    def decode_step(self, params, cache, tokens, pos):
+    def decode_step(self, params, cache, tokens, pos, mesh_info=None):
         """One decode step. tokens [B, 1] int; ``pos``: the position of the
         new token, a Python int or a 0-d int tensor on the model's device
         (the JAX step's traced int32, which a captured CUDA graph reads at
@@ -404,7 +438,7 @@ class Model:
         if self.cfg.family == "encdec":  # absolute positions (whisper)
             pos11 = step_positions(pos, (1, 1), x.device)
             x = x + sinusoidal_embedding(pos11, self.cfg.d_model).to(x.dtype)
-        h, cache = decode_layers(params, self.cfg, x, cache, pos)
+        h, cache = decode_layers(params, self.cfg, x, cache, pos, mesh_info)
         h = self._final_norm(params, h)
         return self.logits(params, h)[..., : self.cfg.vocab_size], cache
 
@@ -470,9 +504,68 @@ class _HeadMatmul(torch.autograd.Function):
         return dh, dw
 
 
+def _lookup(table, tokens):
+    """``table[tokens]``: the gather kernel where autograd needs no
+    gradient of the table, else indexing."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return table[tokens]
+    return ops.prefetch_gather(table, tokens.reshape(-1)).reshape(*tokens.shape, table.shape[1])
+
+
+def _head_matmul(h, w):
+    """h [..., d] @ w [d, V] -> f32 logits: ``_HeadMatmul`` for bf16 on the
+    card, both operands widened to f32 elsewhere."""
+    if h.is_cuda and h.dtype != torch.float32:
+        out = _HeadMatmul.apply(h.reshape(-1, h.shape[-1]), w)
+        return out.reshape(*h.shape[:-1], w.shape[-1])
+    return h.float() @ w.float()
+
+
 def _ce_loss(logits, targets):
-    """Mean of logsumexp(logits) - logits[target] in f32."""
+    """Mean of logsumexp(logits) - logits[target] in f32; under a mesh,
+    over logits split on the vocab (``_vocab_parallel_ce``)."""
+    ctx = current_mesh_rules()
+    if ctx is not None:
+        return _vocab_parallel_ce(ctx, logits, targets)
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, targets[..., None].long())[..., 0]
     return torch.mean(logz - gold)
+
+
+def _vocab_parallel_ce(ctx, logits, targets):
+    """The cross-entropy of logits split over ``act_vocab``'s axis
+    (Megatron's vocab-parallel loss), in two passes.  First, with no
+    gradient, logz = max + log(sum exp(logits - max)): the max a DTensor
+    reduction (MAX over the axis), each rank's sum of exp ``Partial`` over
+    it.  Then on each rank the sum ``s`` of exp(logits - logz) and its part
+    of the target logit (zero where another rank holds the target), both
+    ``Partial``; their reduction, differentiable, is DTensor's.
+    loss = mean(logz + (s - s.detach()) - gold): ``s - s.detach()`` is 0 and
+    carries the gradient exp(logits - logz), the one ``torch.logsumexp``
+    gives, so on one rank the loss and its gradient are ``_ce_loss``'s
+    bitwise."""
+    mesh, rules = ctx
+    vocab = rules.get("act_vocab")
+    lspec = logical_to_pspec(("batch", "inner_seq", "act_vocab"), rules)
+    tspec = logical_to_pspec(("batch", "inner_seq"), rules)
+    partial = (vocab,) if vocab else ()
+    logits = constrain(logits.float(), "batch", "inner_seq", "act_vocab")
+    with torch.no_grad():
+        m = constrain(logits.amax(dim=-1), "batch", "inner_seq")
+        sumexp = shard_map(lambda lg, mx: torch.exp(lg - mx[..., None]).sum(-1), mesh,
+                           (lspec, tspec), tspec, out_partial=partial)(logits, m)
+        logz = m + torch.log(constrain(sumexp, "batch", "inner_seq"))
+
+    def body(lg, tg, lz):
+        off = mesh.get_local_rank(vocab) * lg.shape[-1] if vocab else 0
+        s = torch.exp(lg - lz[..., None]).sum(-1)
+        local = tg.long() - off
+        held = (local >= 0) & (local < lg.shape[-1])
+        gold = torch.gather(lg, -1, torch.where(held, local, 0)[..., None])[..., 0]
+        return s, torch.where(held, gold, 0.0)
+
+    s, gold = shard_map(body, mesh, (lspec, tspec, tspec), (tspec, tspec),
+                        out_partial=partial)(logits, targets, logz)
+    s, gold = (constrain(t, "batch", "inner_seq") for t in (s, gold))
+    return torch.mean(logz + (s - s.detach()) - gold)

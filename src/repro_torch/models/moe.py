@@ -24,8 +24,18 @@ Ties in top-k: ``jax.lax.top_k`` returns equal values in index order;
 of f32 softmax probabilities need equal router logits, which random inputs
 do not give.
 
-The expert-parallel, fsdp and all-to-all paths (``moe_apply_ep``,
-``moe_apply_fsdp``, ``moe_apply_ep_a2a``) wait for the multi-device slice.
+Under a mesh (``mesh_info``), three more paths, each a ``shard_map`` on
+the ranks' local shards, as in JAX:
+
+  * ``moe_apply_ep``: activations replicated over ``model``; each rank
+    routes all of its data shard's tokens but dispatches only to its local
+    experts (E / n_model); the combine is a sum over ``model``;
+  * ``moe_apply_fsdp``: tokens never leave their rank; the expert banks are
+    gathered (the FSDP weight all-gather) and each rank runs the dense path
+    on its tokens;
+  * ``moe_apply_ep_a2a``: tokens sharded over every axis; each rank routes
+    its own tokens (scatter dispatch) and exchanges capacity buffers with
+    the expert shards by a pair of all-to-alls over ``model``.
 """
 
 from __future__ import annotations
@@ -33,7 +43,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-_MULTI_DEVICE = "ROADMAP.md, section 1, item 6 (multi-device)"
+from repro_torch.launch.compat import shard_map
+from repro_torch.launch.shardings import PSpec, placements
 
 
 def _one_hot(idx, n: int):
@@ -118,12 +129,16 @@ def _dispatch_scatter(x2, local_i, top_p, n_local: int, cap: int, compute_dtype)
     return buf[:-1], slot, valid, rank
 
 
-def _route_dispatch_ffn(x2, router_w, we_gate, we_up, we_down, cfg, compute_dtype):
+def _route_dispatch_ffn(x2, router_w, we_gate, we_up, we_down, cfg, compute_dtype,
+                        expert_offset=0, n_local: int = 0):
     """Route the tokens x2 [T, d] in chunks of up to ``cfg.moe_chunk``
-    (halved until it divides T), dispatch each chunk to the experts, run
-    the expert FFN and combine: [T, d].  The chunks run one after another,
-    as JAX's ``lax.map`` runs them."""
+    (halved until it divides T), dispatch each chunk to the expert slice
+    [expert_offset, expert_offset + n_local) (all E experts by default; a
+    choice outside the slice is dropped), run the expert FFN and combine:
+    the (partial) output [T, d].  The chunks run one after another, as
+    JAX's ``lax.map`` runs them."""
     E, k = cfg.n_experts, cfg.experts_per_token
+    n_local = n_local or E
     T, d = x2.shape
     chunk = min(cfg.moe_chunk, T)
     while T % chunk:
@@ -132,17 +147,20 @@ def _route_dispatch_ffn(x2, router_w, we_gate, we_up, we_down, cfg, compute_dtyp
 
     def one_chunk(xc):
         top_p, top_i = router_topk(xc, router_w, E, k)
+        local_i = top_i - expert_offset  # out of the slice -> out of range -> dropped
         if cfg.moe_dispatch == "scatter":
-            xe_flat, slot, valid, _ = _dispatch_scatter(xc, top_i, top_p, E, cap, compute_dtype)
-            ye = _expert_ffn(xe_flat.reshape(E, cap, d), we_gate, we_up, we_down, compute_dtype)
-            gathered = ye.reshape(E * cap, d)[torch.where(valid, slot, 0).long()]  # [T, k, d]
+            xe_flat, slot, valid, _ = _dispatch_scatter(xc, local_i, top_p, n_local, cap,
+                                                        compute_dtype)
+            ye = _expert_ffn(xe_flat.reshape(n_local, cap, d), we_gate, we_up, we_down,
+                             compute_dtype)
+            gathered = ye.reshape(n_local * cap, d)[torch.where(valid, slot, 0).long()]
             w = torch.where(valid, top_p, 0.0).to(compute_dtype)
             return torch.einsum("tkd,tk->td", gathered, w)
-        disp, comb = _dispatch_onehot(top_i, top_p, E, cap)
+        disp, comb = _dispatch_onehot(local_i, top_p, n_local, cap)
         n = xc.shape[0]
-        xe = disp.to(compute_dtype).reshape(n, E * cap).T @ xc
-        ye = _expert_ffn(xe.reshape(E, cap, d), we_gate, we_up, we_down, compute_dtype)
-        return comb.to(compute_dtype).reshape(n, E * cap) @ ye.reshape(E * cap, d)
+        xe = disp.to(compute_dtype).reshape(n, n_local * cap).T @ xc
+        ye = _expert_ffn(xe.reshape(n_local, cap, d), we_gate, we_up, we_down, compute_dtype)
+        return comb.to(compute_dtype).reshape(n, n_local * cap) @ ye.reshape(n_local * cap, d)
 
     if chunk == T:
         return one_chunk(x2)
@@ -157,9 +175,103 @@ def moe_apply_dense(x, p, cfg, compute_dtype):
     return y.reshape(B, S, d)
 
 
+def _banks(p):
+    return p["router"], p["we_gate"], p["we_up"], p["we_down"]
+
+
+def moe_apply_ep(x, p, cfg, compute_dtype, mesh, data_axes, model_axis: str):
+    """Expert-parallel path (see the module docstring).  Each rank's output
+    is the part of its local experts, ``Partial`` over ``model``; the sum
+    (JAX's ``psum``) is DTensor's differentiable all-reduce."""
+    E_local = cfg.n_experts // mesh.size(mesh.mesh_dim_names.index(model_axis))
+
+    def body(xl, router_w, wg, wu, wd):
+        Bl, S, d = xl.shape
+        offset = mesh.get_local_rank(model_axis) * E_local
+        y = _route_dispatch_ffn(xl.reshape(Bl * S, d), router_w, wg, wu, wd, cfg,
+                                compute_dtype, expert_offset=offset, n_local=E_local)
+        return y.reshape(Bl, S, d)
+
+    dspec = PSpec(data_axes, None, None)
+    bank = PSpec(model_axis, None, None)
+    y = shard_map(body, mesh, (dspec, PSpec(None, None), bank, bank, bank), dspec,
+                  out_partial=(model_axis,))(x, *_banks(p))
+    return y.redistribute(mesh, placements(mesh, dspec))
+
+
+def moe_apply_fsdp(x, p, cfg, compute_dtype, mesh, batch_axes):
+    """FSDP-local path: tokens never leave their rank; the expert banks
+    arrive gathered (the per-layer FSDP weight all-gather) and every rank
+    runs the dense dispatch on its local tokens, with no collective."""
+
+    def body(xl, router_w, wg, wu, wd):
+        Bl, S, d = xl.shape
+        y = _route_dispatch_ffn(xl.reshape(Bl * S, d), router_w, wg, wu, wd, cfg,
+                                compute_dtype)
+        return y.reshape(Bl, S, d)
+
+    bspec = PSpec(batch_axes, None, None)
+    rep2, rep3 = PSpec(None, None), PSpec(None, None, None)
+    return shard_map(body, mesh, (bspec, rep2, rep3, rep3, rep3), bspec)(x, *_banks(p))
+
+
+def moe_apply_ep_a2a(x, p, cfg, compute_dtype, mesh, batch_axes, model_axis):
+    """Switch/DeepSpeed-style expert parallelism: tokens sharded over every
+    mesh axis; each rank routes its own tokens (scatter dispatch) and
+    exchanges its [E, C, d] capacity buffers with the expert shards over
+    ``model``: a tiled all-to-all (expert blocks scatter, capacity gathers),
+    the local experts' FFN on [E_local, n * C, d], and the all-to-all back.
+    Both exchanges are ``all_to_all_single`` with autograd (the backward is
+    the reverse exchange)."""
+    import torch.distributed._functional_collectives as funcol
+
+    E, k = cfg.n_experts, cfg.experts_per_token
+    n = mesh.size(mesh.mesh_dim_names.index(model_axis))
+    E_local = E // n
+    group = mesh.get_group(model_axis)
+
+    def a2a(t):
+        return funcol.wait_tensor(funcol.all_to_all_single_autograd(t, None, None, group))
+
+    def body(xl, router_w, wg, wu, wd):
+        Bl, S, d = xl.shape
+        x2 = xl.reshape(Bl * S, d)
+        T = x2.shape[0]
+        cap = max(1, int(cfg.capacity_factor * T * k / E))
+        top_p, top_i = router_topk(x2, router_w, E, k)
+        buf, slot, valid, _ = _dispatch_scatter(x2, top_i, top_p, E, cap, compute_dtype)
+        # [E, cap, d] = [n shards, E_local, cap, d]: block j to shard j; what
+        # comes back is [n origins, E_local, cap, d], the origins along capacity
+        xe = a2a(buf.reshape(E, cap, d))
+        xe = xe.reshape(n, E_local, cap, d).transpose(0, 1).reshape(E_local, n * cap, d)
+        ye = _expert_ffn(xe, wg, wu, wd, compute_dtype)
+        ye = ye.reshape(E_local, n, cap, d).transpose(0, 1).contiguous()
+        ye = a2a(ye.reshape(E, cap, d)).reshape(E * cap, d)
+        ye_flat = torch.cat([ye, ye.new_zeros(1, d)])
+        gathered = ye_flat[torch.where(valid, slot, E * cap).long()]  # [T, k, d]
+        w = torch.where(valid, top_p, 0.0).to(compute_dtype)
+        return torch.einsum("tkd,tk->td", gathered, w).reshape(Bl, S, d)
+
+    bspec = PSpec(batch_axes, None, None)
+    bank = PSpec(model_axis, None, None)
+    return shard_map(body, mesh, (bspec, PSpec(None, None), bank, bank, bank), bspec)(
+        x, *_banks(p))
+
+
 def moe_apply(x, p, cfg, compute_dtype, mesh_info=None):
-    """The MoE layer: the dense path on one device.  A ``mesh_info`` (the
-    JAX package's expert-parallel, fsdp and all-to-all paths) raises."""
+    """Dispatch to the dense / EP-sum / fsdp-local / EP-a2a path, as JAX's
+    ``moe_apply`` does: ``mesh_info`` is (mesh, data axes, model axis[,
+    "ep_a2a"]) from ``launch.steps.mesh_info_for``; a model axis of None
+    selects the fsdp-local path, an axis that does not divide the experts
+    the dense one."""
     if mesh_info is not None:
-        raise NotImplementedError(f"the multi-device MoE paths are not ported yet: {_MULTI_DEVICE}")
+        mesh, data_axes, model_axis = mesh_info[:3]
+        mode = mesh_info[3] if len(mesh_info) > 3 else "ep_psum"
+        if model_axis is None:
+            return moe_apply_fsdp(x, p, cfg, compute_dtype, mesh, data_axes)
+        n_model = mesh.size(mesh.mesh_dim_names.index(model_axis))
+        if n_model > 1 and cfg.n_experts % n_model == 0:
+            if mode == "ep_a2a":
+                return moe_apply_ep_a2a(x, p, cfg, compute_dtype, mesh, data_axes, model_axis)
+            return moe_apply_ep(x, p, cfg, compute_dtype, mesh, data_axes, model_axis)
     return moe_apply_dense(x, p, cfg, compute_dtype)

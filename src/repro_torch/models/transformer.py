@@ -27,9 +27,11 @@ from torch.utils.checkpoint import (
 
 from repro_torch.kernels import ops
 
-from .common import constrain, tree_items, tree_map
+from .common import constrain, current_mesh_rules, logical_to_pspec, tree_items, tree_map
 from .layers import (
     NEG_INF,
+    local_attention,
+    local_kv,
     apply_norm,
     apply_rope,
     attn_output,
@@ -105,6 +107,15 @@ def _save_dots(ctx, op, *args, **kwargs):
     return CheckpointPolicy.PREFER_RECOMPUTE
 
 
+def _save_collectives(ctx, op, *args, **kwargs):
+    """Keep the MoE all-to-all exchanges' outputs (JAX names the a2a path's
+    output ``moe_out`` and saves it), so that the recomputation does not
+    exchange the tokens again; recompute everything else."""
+    if op is torch.ops._c10d_functional.all_to_all_single.default:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def _remat(fn, cfg):
     """``fn`` under the config's remat policy (JAX ``transformer._remat``),
     with non-reentrant ``torch.utils.checkpoint``:
@@ -115,10 +126,10 @@ def _remat(fn, cfg):
       products (``aten.mm``, ``bmm``, ``addmm``, ``baddbmm``) and recomputes
       everything else, the flash kernels' ``autograd.Function`` included, as
       JAX's policy recomputes the Pallas call;
-    - ``"save_collectives"`` keeps only outputs named ``moe_out``, which only
-      the expert-parallel MoE path names (a collective's result): on one
-      device it is therefore ``"full"`` (the naming comes with the
-      multi-device slice, ROADMAP.md, section 1, item 6);
+    - ``"save_collectives"`` keeps only the collectives' results that JAX
+      names ``moe_out``: the ``ep_a2a`` MoE path's all-to-all exchanges
+      (``models.moe.moe_apply_ep_a2a``); everywhere else (one device, the
+      other mesh paths) it is therefore ``"full"``;
     - ``"none"`` keeps every activation.
 
     With autograd not recording there is nothing to keep, and ``fn`` runs as
@@ -127,10 +138,11 @@ def _remat(fn, cfg):
         raise ValueError(f"unknown remat policy {cfg.remat!r}")
     if cfg.remat == "none" or not torch.is_grad_enabled():
         return fn
-    if cfg.remat == "dots":
+    policy = {"dots": _save_dots, "save_collectives": _save_collectives}.get(cfg.remat)
+    if policy is not None:
         return functools.partial(
             checkpoint, fn, use_reentrant=False,
-            context_fn=functools.partial(create_selective_checkpoint_contexts, _save_dots))
+            context_fn=functools.partial(create_selective_checkpoint_contexts, policy))
     return functools.partial(checkpoint, fn, use_reentrant=False)
 
 
@@ -148,30 +160,36 @@ def attn_block(x, lp, cfg, dt, angles, *, causal=True, local_window=0,
     q, k, v = qkv_project(h, lp["attn"], cfg, dt)
     q = apply_rope(q, angles)
     k = apply_rope(k, angles)
+    q = constrain(q, "batch", "inner_seq", "act_heads", None)
+    k = constrain(k, "batch", "inner_seq", "act_kv", None)
     o = gqa_attention(
         q, k, v, causal=causal, impl=cfg.attn_impl, chunk=cfg.attn_chunk,
         local_window=local_window,
     )
     x = x + attn_output(o, lp["attn"], cfg, dt)
+    x = constrain(x, "batch", "seq", "embed")
     return x, ((k, v) if collect_cache else None)
 
 
-def ffn_block(x, lp, cfg, dt):
+def ffn_block(x, lp, cfg, dt, mesh_info=None):
     """Pre-norm FFN sub-block: the MLP, or for the moe family the routed
-    experts (``moe.moe_apply``)."""
+    experts (``moe.moe_apply``, on the path ``mesh_info`` selects)."""
     h = apply_norm(cfg.norm, x, lp["ln2"], lp.get("ln2_b"))
+    h = constrain(h, "batch", "seq", "embed")
     if cfg.family == "moe":
-        return x + moe_apply(h, lp["mlp"], cfg, dt)
-    return x + mlp_apply(cfg.mlp, h, lp["mlp"], dt)
+        x = x + moe_apply(h, lp["mlp"], cfg, dt, mesh_info)
+    else:
+        x = x + mlp_apply(cfg.mlp, h, lp["mlp"], dt)
+    return constrain(x, "batch", "seq", "embed")
 
 
-def dense_layer(x, lp, cfg, dt, angles, *, causal=True, local_window=0,
+def dense_layer(x, lp, cfg, dt, angles, mesh_info=None, *, causal=True, local_window=0,
                 collect_cache=False):
     x, kv = attn_block(
         x, lp, cfg, dt, angles, causal=causal, local_window=local_window,
         collect_cache=collect_cache,
     )
-    return ffn_block(x, lp, cfg, dt), kv
+    return ffn_block(x, lp, cfg, dt, mesh_info), kv
 
 
 def mamba_layer(x, lp, cfg, dt, collect_cache=False):
@@ -237,7 +255,7 @@ def _walk(layers, cfg, x, body, collect_cache):
     return x, _stack_pairs(caches)
 
 
-def forward_stack(params, cfg, x, positions, *, group="layers", causal=True,
+def forward_stack(params, cfg, x, positions, mesh_info=None, *, group="layers", causal=True,
                   collect_cache=False):
     """A homogeneous stack: ``params[group]`` of the dense, moe and ssm
     families, or encdec's encoder (``enc_layers``, not causal); with
@@ -249,40 +267,41 @@ def forward_stack(params, cfg, x, positions, *, group="layers", causal=True,
         body = lambda x, lp: mamba_layer(x, lp, cfg, dt, collect_cache)  # noqa: E731
     else:
         angles = rope_angles(cfg.rope, positions, cfg.head_dim, cfg.rope_theta)
-        body = lambda x, lp: dense_layer(x, lp, cfg, dt, angles, causal=causal,  # noqa: E731
-                                         collect_cache=collect_cache)
+        body = lambda x, lp: dense_layer(x, lp, cfg, dt, angles, mesh_info,  # noqa: E731
+                                         causal=causal, collect_cache=collect_cache)
     return _walk(params[group], cfg, x, body, collect_cache)
 
 
-def forward_encoder(params, cfg, frames):
+def forward_encoder(params, cfg, frames, mesh_info=None):
     """whisper's encoder over precomputed (stub) frame embeddings [B, F, d]:
     the sinusoidal embedding added, the non-causal ``enc_layers`` stack,
     then ``enc_norm``."""
     dt = cfg_dtype(cfg)
     pos = torch.arange(frames.shape[1], device=frames.device)[None, :]
     x = frames.to(dt) + sinusoidal_embedding(pos, cfg.d_model).to(dt)
-    x, _ = forward_stack(params, cfg, x, pos, group="enc_layers", causal=False)
+    x, _ = forward_stack(params, cfg, x, pos, mesh_info, group="enc_layers", causal=False)
     return apply_norm(cfg.norm, x, params["enc_norm"], params.get("enc_norm_b"))
 
 
-def forward_decoder(params, cfg, x, frames, *, collect_cache=False):
+def forward_decoder(params, cfg, x, frames, mesh_info=None, *, collect_cache=False):
     """whisper's decoder over the embedded tokens ``x`` (absolute positions
     added): per layer causal self-attention, cross-attention to the
     encoder's output over ``frames``, then the MLP.  With ``collect_cache``
     also returns (k, v, cross k, cross v), each stacked over the layers."""
     dt = cfg_dtype(cfg)
-    enc_out = forward_encoder(params, cfg, frames)
+    enc_out = forward_encoder(params, cfg, frames, mesh_info)
 
     def body(h, lp):
         h, self_kv = attn_block(h, lp, cfg, dt, None, collect_cache=collect_cache)
         kc, vc = cross_kv(enc_out, lp, cfg, dt)
         h = cross_attn(h, lp, cfg, dt, kc, vc, cfg.attn_impl)
-        return ffn_block(h, lp, cfg, dt), ((*self_kv, kc, vc) if collect_cache else None)
+        return (ffn_block(h, lp, cfg, dt, mesh_info),
+                (*self_kv, kc, vc) if collect_cache else None)
 
     return _walk(params["dec_layers"], cfg, x, body, collect_cache)
 
 
-def forward_hybrid(params, cfg, x, positions, *, collect_cache=False):
+def forward_hybrid(params, cfg, x, positions, mesh_info=None, *, collect_cache=False):
     """recurrentgemma: a Python loop over the (rec, rec, attn) pattern; the
     attention layers attend within ``cfg.local_window``.  With
     ``collect_cache`` also returns ((conv, rec), (k, v)), each stacked over
@@ -335,6 +354,20 @@ def _decode_attn(x, lp, cfg, dt, k_cache, v_cache, pos, angles, *, window: int =
     q, k, v = qkv_project(h, lp["attn"], cfg, dt)
     q = apply_rope(q, angles)
     k = apply_rope(k, angles)
+    if kv_len is None and not window:
+        kv_len = _kv_len(pos)
+    kw = dict(cfg=cfg, dt=dt, pos=pos, window=window, kv_len=kv_len)
+    ctx = current_mesh_rules()
+    if ctx is None:
+        _write_cache(k, v, k_cache, v_cache, pos, window)
+        o = _attend_cache(q, k_cache, v_cache, **kw)
+    else:
+        o = _sharded_cache_attention(ctx, q, k, v, k_cache, v_cache, kw)
+    return x + attn_output(o, lp["attn"], cfg, dt)
+
+
+def _write_cache(k, v, k_cache, v_cache, pos, window):
+    """The new k/v [B, 1, KV, hd] into slot ``pos`` (``pos % window``)."""
     slot = pos % window if window else pos
     if isinstance(pos, torch.Tensor):
         at = slot.reshape(1).long()
@@ -343,26 +376,48 @@ def _decode_attn(x, lp, cfg, dt, k_cache, v_cache, pos, angles, *, window: int =
     else:
         k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
         v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+
+
+def _attend_cache(q, k_cache, v_cache, *, cfg, dt, pos, window, kv_len):
+    """q [B, 1, H, hd] against the positions the cache holds."""
     if window:
         # ring buffer: mask by the absolute position each slot holds
         S = k_cache.shape[1]
-        idx = torch.arange(S, device=x.device)
+        slot = pos % window
+        idx = torch.arange(S, device=q.device)
         ring_pos = pos - ((slot - idx) % S)
         valid = (ring_pos >= 0) & (ring_pos >= pos - window + 1)
-        o = _masked_decode_attention(q, k_cache, v_cache, valid, cfg)
-        return x + attn_output(o, lp["attn"], cfg, dt)
-    if kv_len is None:
-        kv_len = _kv_len(pos)
+        return _masked_decode_attention(q, k_cache, v_cache, valid, cfg)
     if cfg.attn_impl == "pallas" and k_cache.shape[1] % 128 == 0:
         # the flash-decode kernel reads the cache in its stored dtype (fp8
         # caches halve the traffic) and only the first pos + 1 slots
-        o = ops.decode_attention(q[:, 0], k_cache, v_cache, kv_len).to(dt)[:, None]
-    else:
-        o = gqa_attention(
-            q, k_cache.to(dt), v_cache.to(dt), causal=False,
-            impl="naive", q_offset=pos, kv_len=kv_len,
-        )
-    return x + attn_output(o, lp["attn"], cfg, dt)
+        return ops.decode_attention(q[:, 0], k_cache, v_cache, kv_len).to(dt)[:, None]
+    # the local function: under a mesh this runs inside a shard_map body
+    return local_attention(q, k_cache.to(dt), v_cache.to(dt), causal=False, impl="naive",
+                            chunk=cfg.attn_chunk, q_offset=pos, local_window=0, kv_len=kv_len)
+
+
+def _sharded_cache_attention(ctx, q, k, v, k_cache, v_cache, kw):
+    """The cache write and the attention under a mesh, as a ``shard_map``
+    on each rank's rows and heads: q (batch, act_heads), the new k/v and
+    the cache [B, S, KV, hd] (batch, act_kv), the cache's sequence
+    unsharded (its sequence-sharded layout, ``cache_pspecs``, is sharded
+    serving: ROADMAP.md, section 1, item 6.1).  Where q's heads are split
+    and the cache's are not, each rank writes every kv head and attends
+    with those its query heads read."""
+    from repro_torch.launch.compat import shard_map
+
+    mesh, rules = ctx
+    qs = logical_to_pspec(("batch", None, "act_heads", None), rules)
+    ks = logical_to_pspec(("batch", None, "act_kv", None), rules)
+    G = q.shape[2] // k.shape[2]
+
+    def body(ql, kl, vl, kc, vc):
+        _write_cache(kl, vl, kc, vc, kw["pos"], kw["window"])
+        kc, vc = local_kv(mesh, qs[2], ks[2], ql, kc, vc, G)
+        return _attend_cache(ql, kc, vc, **kw)
+
+    return shard_map(body, mesh, (qs, ks, ks, ks, ks), qs)(q, k, v, k_cache, v_cache)
 
 
 def _masked_decode_attention(q, k_cache, v_cache, valid, cfg):
@@ -370,7 +425,7 @@ def _masked_decode_attention(q, k_cache, v_cache, valid, cfg):
     ``valid`` ([S], or [B, 1, 1, 1, S]: a mask per row); the cache upcast to
     q's dtype, scores in f32."""
     B, S, KV, hd = k_cache.shape
-    H = cfg.n_heads
+    H = q.shape[2]
     G = H // KV
     q5 = q.reshape(B, 1, KV, G, hd)
     s = torch.einsum("bqkgd,bskd->bkgqs", q5.float(), k_cache.to(q.dtype).float()) / (hd**0.5)
@@ -407,7 +462,7 @@ def _step_angles(cfg, pos, B: int, device):
                        cfg.rope_theta)
 
 
-def decode_stack(params, cfg, x, cache, pos):
+def decode_stack(params, cfg, x, cache, pos, mesh_info=None):
     """Dense, moe and encdec decode over all layers at ``pos`` (an int, or a
     0-d int tensor on x's device); updates ``cache`` in place and returns
     (x, cache).  encdec's layers (``dec_layers``) attend to the prefilled
@@ -425,7 +480,7 @@ def decode_stack(params, cfg, x, cache, pos):
         if encdec:
             x = cross_attn(x, lp, cfg, dt, cache["cross_k"][l].to(dt),
                            cache["cross_v"][l].to(dt), "naive")
-        x = ffn_block(x, lp, cfg, dt)
+        x = ffn_block(x, lp, cfg, dt, mesh_info)
     return x, cache
 
 
@@ -472,7 +527,7 @@ def decode_hybrid(params, cfg, x, cache, pos):
     return x, cache
 
 
-def decode_layers(params, cfg, x, cache, pos):
+def decode_layers(params, cfg, x, cache, pos, mesh_info=None):
     """The layer stack of one decode step, for the config's family; ``pos``
     is an int or a 0-d int tensor on x's device (the ssm family reads
     none)."""
@@ -480,4 +535,4 @@ def decode_layers(params, cfg, x, cache, pos):
         return decode_ssm(params, cfg, x, cache)
     if cfg.family == "hybrid":
         return decode_hybrid(params, cfg, x, cache, pos)
-    return decode_stack(params, cfg, x, cache, pos)
+    return decode_stack(params, cfg, x, cache, pos, mesh_info)

@@ -149,9 +149,27 @@ def test_moe_scatter_matches_einsum_dispatch():
 
 
 def test_moe_apply_refuses_a_mesh():
+    """The expert-parallel paths refuse a mesh whose model axis has one rank
+    or does not divide the experts, as JAX's ``moe_apply`` does: the layer
+    takes the dense path there, bitwise (the mesh paths themselves are
+    held to JAX in ``test_torch_distribution.py``)."""
     _, cfg, _, lp = _layer("granite_moe_1b_a400m", "float32")
-    with pytest.raises(NotImplementedError, match="item 6"):
-        moe.moe_apply(torch.zeros((1, 2, cfg.d_model)), lp, cfg, torch.float32, mesh_info=())
+
+    class ShapeOnlyMesh:
+        mesh_dim_names = ("data", "model")
+
+        def __init__(self, model):
+            self.sizes = (1, model)
+
+        def size(self, dim):
+            return self.sizes[dim]
+
+    x = 0.1 * torch.randn((1, 4, cfg.d_model), generator=torch.Generator().manual_seed(0))
+    dense = moe.moe_apply_dense(x, lp, cfg, torch.float32)
+    for n_model in (1, 3):  # granite-smoke has 4 experts
+        got = moe.moe_apply(x, lp, cfg, torch.float32,
+                            mesh_info=(ShapeOnlyMesh(n_model), "data", "model"))
+        assert torch.equal(got, dense)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

@@ -115,13 +115,18 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                "repro_torch.configs.qwen3_moe_30b_a3b",
                "repro_torch.configs.granite_moe_1b_a400m",
                "repro_torch.configs.whisper_large_v3", "repro_torch.configs.qwen2_vl_2b",
-               "repro_torch.runtime.scheduler"}
+               "repro_torch.runtime.scheduler", "repro_torch.launch.mesh",
+               "repro_torch.launch.shardings", "repro_torch.launch.compat",
+               "repro_torch.launch.pipeline", "repro_torch.launch.spawn",
+               "repro_torch.optim.grad_compress"}
         assert new <= set(names), sorted(new - set(names))
-        assert len(names) >= 42, names
+        assert len(names) >= 48, names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
         assert not bad, bad
+        import torch.distributed as dist
+        assert not dist.is_initialized()  # importing starts no process group
         print("OK", len(names))
     """)
     env = dict(os.environ, PYTHONPATH=SRC)

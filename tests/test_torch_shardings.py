@@ -1,0 +1,122 @@
+"""The port's sharding rules against the JAX package's, with no processes:
+``logical_rules``, ``batch_pspecs``, ``cache_pspecs`` and
+``Model.param_pspecs``, entry for entry, for every architecture, every
+shape, both parallelisms (plus ``fsdp_ep`` and ``ep_a2a`` for the MoE
+configs) and the 16x16, 2x16x16 and 2x4 meshes, on a shape-only mesh; the
+port's twin of ``test_property_invariants.py``'s divisibility check; the
+placements a spec maps to."""
+
+import numpy as np
+import pytest
+
+from repro.configs import get_config as jget_config
+from repro.configs.base import SHAPES as JSHAPES
+from repro.launch import shardings as jshard
+from repro.models.model import Model as JModel
+from repro_torch.configs import ARCH_IDS, SHAPES, get_config
+from repro_torch.launch import shardings
+from repro_torch.launch.mesh import data_axes
+from repro_torch.models.common import tree_items
+from repro_torch.models.model import Model
+
+MESHES = {
+    "16x16": {"data": 16, "model": 16},
+    "2x16x16": {"pod": 2, "data": 16, "model": 16},
+    "2x4": {"data": 2, "model": 4},
+}
+MOE = ("qwen3_moe_30b_a3b", "granite_moe_1b_a400m")
+CASES = [(a, p) for a in ARCH_IDS for p in ("tp", "fsdp")] + [
+    (a, p) for a in MOE for p in ("fsdp_ep", "ep_a2a")]
+
+
+class _FakeMesh:
+    """Shape-only stand-in (no devices needed for the rules)."""
+
+    def __init__(self, shape: dict):
+        self.shape = dict(shape)
+        self.axis_names = tuple(shape)
+        self.size = int(np.prod(list(shape.values())))
+
+
+def _shapes(cfg):
+    return [s for s in SHAPES.values()
+            if not (s.name == "long_500k" and cfg.family not in ("ssm", "hybrid"))]
+
+
+def _jspec_items(tree, prefix=""):
+    """(dotted path, spec as a tuple) of a JAX tree of PartitionSpecs, keys
+    sorted (the order of ``tree_items``)."""
+    for k in sorted(tree):
+        path = f"{prefix}.{k}" if prefix else k
+        v = tree[k]
+        if isinstance(v, dict):
+            yield from _jspec_items(v, path)
+        else:
+            yield path, tuple(v)
+
+
+def _same(port_tree, jax_tree, what):
+    got = [(p, tuple(s)) for p, s in tree_items(port_tree)]
+    want = list(_jspec_items(jax_tree))
+    assert got == want, what
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch,parallelism", CASES)
+def test_rules_and_specs_equal_jax(arch, parallelism, mesh_name):
+    mesh = _FakeMesh(MESHES[mesh_name])
+    cfg = get_config(arch).replace(parallelism=parallelism)
+    jcfg = jget_config(arch).replace(parallelism=parallelism)
+    model, jmodel = Model(cfg, device="cpu"), JModel(jcfg)
+    for shape in _shapes(cfg):
+        jshape = JSHAPES[shape.name]
+        what = (arch, parallelism, mesh_name, shape.name)
+        rules = shardings.logical_rules(cfg, shape, mesh)
+        jrules = jshard.logical_rules(jcfg, jshape, mesh)
+        assert rules == jrules, what
+        bs = shardings.batch_pspecs(cfg, shape, mesh)
+        jbs = jshard.batch_pspecs(jcfg, jshape, mesh)
+        assert {k: tuple(v) for k, v in bs.items()} == {k: tuple(v) for k, v in jbs.items()}, what
+        if shape.kind == "decode":
+            cs = shardings.cache_pspecs(cfg, shape, mesh)
+            jcs = jshard.cache_pspecs(jcfg, jshape, mesh)
+            assert {k: tuple(v) for k, v in cs.items()} == {k: tuple(v) for k, v in jcs.items()}, what
+        _same(model.param_pspecs(rules), jmodel.param_pspecs(jrules), what)
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES))
+@pytest.mark.parametrize("arch,parallelism", CASES)
+def test_param_shardings_divide_exactly(arch, parallelism, mesh_name):
+    """Every parameter's spec divides its dims (the port's twin of
+    ``test_property_invariants.py::test_param_shardings_divide_exactly``,
+    over the 2x4 mesh and the MoE layouts too)."""
+    mesh = _FakeMesh(MESHES[mesh_name])
+    cfg = get_config(arch).replace(parallelism=parallelism)
+    model = Model(cfg, device="cpu")
+    abstract = dict(tree_items(model.abstract_params()))
+    for shape in _shapes(cfg):
+        rules = shardings.logical_rules(cfg, shape, mesh)
+        for path, spec in tree_items(model.param_pspecs(rules)):
+            dims = abstract[path].shape
+            assert len(spec) == len(dims), (path, spec)
+            for dim, entry in zip(dims, spec):
+                if entry is None:
+                    continue
+                axes = entry if isinstance(entry, tuple) else (entry,)
+                n = int(np.prod([mesh.shape[a] for a in axes]))
+                assert dim % n == 0, (arch, parallelism, shape.name, path, dim, spec)
+
+
+def test_placements_follow_the_spec():
+    from torch.distributed.tensor import Replicate, Shard
+
+    mesh = _FakeMesh(MESHES["2x16x16"])
+    P = shardings.PSpec
+    assert data_axes(mesh) == ("pod", "data")
+    assert shardings.placements(mesh, P(None, "model")) == (Replicate(), Replicate(), Shard(1))
+    assert shardings.placements(mesh, P(("pod", "data"), None)) == (Shard(0), Shard(0),
+                                                                    Replicate())
+    assert shardings.placements(mesh, P(("pod", "data", "model"),)) == (Shard(0),) * 3
+    with pytest.raises(ValueError, match="mesh order"):
+        shardings.placements(mesh, P(("model", "data"), None))
+    assert repr(P("data", None)) == "PSpec('data', None)"
