@@ -2,6 +2,7 @@
 """Smoke run of the PyTorch port on one CUDA card (an H100).
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --cards   # on four cards: only [serve_mesh] (c)
 
 Phases, each printing its lines; any failure exits non-zero:
 
@@ -29,8 +30,13 @@ Phases, each printing its lines; any failure exits non-zero:
      and bf16 and fp8 caches, at 1, around the steps and splits of its
      capacity-sized grid and at S, and one captured call replayed at
      several lengths; its time with a device kv_len beside the int form's
-     and beside a grid sized by the live length; flash-decode's host cost
-     per call besides; the row gather bitwise at the prefill and decode
+     and beside a grid sized by the live length; flash-decode's
+     log-sum-exp (``with_lse``, what sharded serving merges by) from both
+     variants against the plain version's at the int, device and per-row
+     kv_len, o bitwise without it, kv_len 0 and below giving zero o and an
+     lse of -1e30, two half-caches merged against the whole, and its time
+     with lse beside the time without; flash-decode's host cost per call
+     besides; the row gather bitwise at the prefill and decode
      shapes and at edge cases;
   4. slice: chatglm3-6b at full width (28 layers, d_model 4096, 32 query
      heads over 2 KV heads, vocab 65,024; random weights from seed 0) served
@@ -82,6 +88,33 @@ Phases, each printing its lines; any failure exits non-zero:
      also held, in phase 3, against its plain version at mixed lengths
      (1 and S among them) for both variants and f32, bf16 and fp8 caches,
      and bitwise the scalar form with every row at one length;
+  serve_mesh (right after the batcher): sharded serving,
+     ``Server(mesh=)``.  (a) A 1x1 ("data", "model") NCCL mesh in the
+     script's own process: chatglm3-6b at full width and depth, bf16, B=4,
+     prompt 512, 32 tokens, cache 1024, the captured ``generate`` (the
+     sharded step, its all-gathers inside the graph) against the unsharded
+     captured ``generate``: tokens equal, logits bitwise; the counters
+     zeroed just before the mesh run and read just after (28 flash, 868
+     flash-decode on the tensor cores, 32 gathers); the replayed step's
+     device time on and off the mesh in turns.  (b) Four ranks sharing the
+     card over gloo (``launch/spawn.py:run_ranks``), a 2x2 mesh:
+     chatglm3-6b and qwen3-moe-30b-a3b at depth 2 (``reduced``), full
+     width, bf16, B=4, prompt 128, cache 512 (256 slots a ``model`` rank,
+     so the ``model``-1 shard is empty for the first 128 decode steps and
+     merges with rank 0's after), 160 tokens: each rank serves its data
+     shard's rows unsharded (``generate_eager``), then the mesh's prefill
+     and decode fed those tokens, eager (the moe config fed the
+     reference's experts, its own differing choices counted); logits
+     within LOGITS_REL_TOL_BF16_DEPTH2 of the unsharded ones, flash-decode
+     twice a step on each rank, ms per step and the collectives' share of
+     the last 8 steps.  A rank that fails or hangs past 240 s kills the
+     others and fails the script.  (c), only with ``--cards`` (four cards,
+     nothing else runs): a 2x2 NCCL mesh, one rank a card, chatglm3-6b at
+     full width and depth served as (a), twice (NCCL's own algorithms,
+     then ring and simple fixed): the captured ``generate``'s logits, fed
+     its own tokens, against the mesh's eager steps (bitwise or not,
+     printed) and the unsharded ``Server`` on each rank's rows, both within
+     LOGITS_REL_TOL_BF16; the replayed step beside the unsharded one's;
   stream: chatglm3-6b at full width, all 28 layers, random weights from
      seed 0, decode weights streamed from pinned host memory.  The access
      plan of one decode step (``Server.plan``, traced on the meta device)
@@ -126,8 +159,8 @@ Phases, each printing its lines; any failure exits non-zero:
      32 dK/dV and 32 dQ a step, its encoder and cross-attention on the
      plain chunked path as in JAX; profiled), qwen3-moe-30b-a3b (depth 4
      of 48, ``reduced``; B=2, S=2048: 8, 4, 4; profiled),
-     recurrentgemma-2b (26 layers) and falcon-mamba-7b (depth 4 of 64,
-     ``reduced``), B=2, S=2048: no kernel launch (windowed or no attention,
+     recurrentgemma-2b (depth 6 of 26, ``reduced``) and falcon-mamba-7b
+     (depth 4 of 64, ``reduced``), B=2, S=2048: no kernel launch (windowed or no attention,
      the scans' plain loop under autograd).
   mesh (right after (b)): the multi-device layer.  (a) A 1x1 ("data",
      "model") NCCL mesh: chatglm3-6b at full width, the train phase's
@@ -712,15 +745,83 @@ def check_decode_per_row(torch, ref, decode_fwd) -> None:
               "528, S bitwise the scalar form")
 
 
+# flash-decode's log-sum-exp (``with_lse``): (q dtype, cache dtype, D) for
+# the tensor-core variant and the CUDA-core one in f32 and in bf16
+LSE_CASES = (("bfloat16", "bfloat16", 128), ("bfloat16", "float8_e4m3fn", 64),
+             ("float32", "float32", 128), ("bfloat16", "bfloat16", 96))
+
+
+def check_decode_lse(torch, ref, decode_fwd) -> None:
+    """Flash-decode's lse, which sharded serving merges the ranks' partials
+    by: for both variants, at the int, device and per-row ``kv_len`` (at 1,
+    around a split's edge and at S), lse against the plain version's
+    within TOL and o with lse asked for bitwise o without it; a row of
+    ``kv_len`` 0 or below gives zero o and lse <= -1e29; two half-caches
+    merged (``merge_partials``) against the whole cache within TOL."""
+    from repro_torch.kernels import decode_attention as dec
+    from repro_torch.models.layers import merge_partials
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(31)
+    B, S, H, KV = 4, 1024, 32, 2
+    n_sm = dec._sm_count(0)
+    for q_name, kv_name, D in LSE_CASES:
+        q_dt, kv_dt = getattr(torch, q_name), getattr(torch, kv_name)
+        q = torch.randn((B, H, D), generator=gen, device=dev).to(q_dt)
+        k = torch.randn((B, S, KV, D), generator=gen, device=dev).to(kv_dt)
+        v = torch.randn((B, S, KV, D), generator=gen, device=dev).to(kv_dt)
+        kind = dec.variant(q_dt, kv_dt, D)
+        split_len = (dec.mma_split_plan(B, KV, dec.n_head_tiles(H, KV), S, n_sm)[0]
+                     if kind == "mma" else dec.split_plan(B, KV, S, n_sm)[0])
+        tol = TOL[q_name]
+        worst_o = worst_lse = 0.0
+        for L in (1, 17, split_len, split_len + 1, 528, S):
+            forms = (L, torch.full((1,), L, dtype=torch.int32, device=dev),
+                     torch.tensor([L, 1, S, split_len], dtype=torch.int32, device=dev))
+            for kv in forms:
+                o, lse = decode_fwd(q, k, v, kv, with_lse=True)
+                want_o, want_lse = ref.decode_attention_ref(q, k, v, kv, with_lse=True)
+                check(torch.equal(o, decode_fwd(q, k, v, kv)),
+                      f"flash-decode ({kind}) o with lse is not bitwise o without it (kv_len {L})")
+                ok_o, err_o = allclose(torch, o, want_o, tol)
+                ok_l, err_l = allclose(torch, lse, want_lse, tol)
+                check(ok_o and ok_l, f"flash-decode ({kind}, {q_name}) o or lse disagrees with "
+                                     f"the plain version (kv_len {L})")
+                worst_o, worst_lse = max(worst_o, err_o), max(worst_lse, err_l)
+        lens = torch.tensor([0, -3, 5, S], dtype=torch.int32, device=dev)
+        o, lse = decode_fwd(q, k, v, lens, with_lse=True)
+        torch.cuda.synchronize()
+        empty_ok = (float(o[:2].abs().max()) == 0.0 and float(lse[:2].max()) <= -1e29)
+        check(empty_ok, f"flash-decode ({kind}): kv_len 0 or below gives a nonzero o or an lse "
+                        "above -1e29")
+        h = S // 2
+        worst_merge = 0.0
+        for L in (1, h, h + 1, 700, S):
+            parts = [decode_fwd(q, k[:, s:s + h], v[:, s:s + h],
+                                torch.full((1,), L - s, dtype=torch.int32, device=dev),
+                                with_lse=True) for s in (0, h)]
+            got = merge_partials(torch.stack([p[0] for p in parts]),
+                                 torch.stack([p[1] for p in parts]), q_dt)
+            ok, err = allclose(torch, got, ref.decode_attention_ref(q, k, v, L), tol)
+            check(ok, f"flash-decode ({kind}): two merged half-caches disagree with the whole "
+                      f"cache (kv_len {L})")
+            worst_merge = max(worst_merge, err)
+        print(f"[decode] lse, {kind} q {q_name} cache {kv_name} D={D}: int, device and per-row "
+              f"kv_len: o bitwise without lse, max_abs_err o {worst_o:.3e} lse {worst_lse:.3e} "
+              f"(tol {tol}); kv_len 0 and -3: o zero, lse {float(lse[:2].max()):.3e}; two "
+              f"half-caches merged vs the whole: max_abs_err {worst_merge:.3e}")
+
+
 def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
     """Check flash-decode at the decode shape for every cache dtype and
     several lengths, with kv_len as an int, in device memory and one per
-    row; time it at ``kv_len_main``."""
+    row, and its lse; time it at ``kv_len_main``, with and without lse."""
     from repro_torch.kernels.decode_attention import variant
 
     check_decode_variants(torch, ref, decode_fwd)
     check_device_kv_len(torch, ref, decode_fwd)
     check_decode_per_row(torch, ref, decode_fwd)
+    check_decode_lse(torch, ref, decode_fwd)
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(1)
     B, S, H, KV, D = 4, 1024, 32, 2, 128
@@ -751,6 +852,7 @@ def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
     L = kv_len_main
     kv = torch.full((1,), L, dtype=torch.int32, device=dev)  # as the captured step passes it
     ms = graph_ms(torch, lambda: decode_fwd(q, k, v, kv), iters=50)
+    lse_ms = graph_ms(torch, lambda: decode_fwd(q, k, v, kv, with_lse=True), iters=50)
     # the int form: the wrapper's fill of the device int, then the kernel
     int_ms = graph_ms(torch, lambda: decode_fwd(q, k, v, L), iters=50)
     # a grid sized by the live length, as when the host passed kv_len: the
@@ -779,6 +881,8 @@ def phase_decode(torch, ref, decode_fwd, kv_len_main: int):
           f"{ms:.4f} ms, plain {plain_ms:.4f} ms, sdpa {lib_ms:.4f} ms (device times, CUDA "
           f"graph); bound {rec['bound_ms'] * 1e3:.2f} us by {rec['bound_by']} ({nbytes} B, "
           f"{flops} FLOP)")
+    print(f"[decode] with lse (sharded serving's form): {lse_ms:.4f} ms, without {ms:.4f} ms "
+          "(device times, CUDA graph)")
     print(f"[decode] kv_len {L} of S={S} slots: device kv_len {ms:.4f} ms, int kv_len (fill + "
           f"kernel) {int_ms:.4f} ms, a grid sized by kv_len (the cache cut to {L} slots) "
           f"{live_ms:.4f} ms (device times, CUDA graph)")
@@ -2087,7 +2191,9 @@ TRAIN_FAMILIES = (
     ("whisper_large_v3", 0, "", 4, 384, True),
     ("qwen3_moe_30b_a3b", 4, "the f32 parameters, gradient and AdamW moments of all 48 "
      "layers take ~490 GB", 2, 2048, True),
-    ("recurrentgemma_2b", 0, "", 2, 2048, False),
+    ("recurrentgemma_2b", 6, "the plain time loop under autograd (11-16 s a step at its full "
+     "26 layers, which took this script past half its time limit once sharded serving came "
+     "in); two (rec, rec, attn) patterns keep both kinds of layer", 2, 2048, False),
     ("falcon_mamba_7b", 4, "memory (the f32 state of 64 layers takes ~116 GB) and the plain "
      "time loop under autograd (~50 s a step at depth 16, which took this script past half "
      "its time limit)", 2, 2048, False),
@@ -3219,7 +3325,452 @@ def phase_mesh(torch) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# [serve_mesh]: sharded serving (``launch/serve.py:Server(mesh=)``)
+# ---------------------------------------------------------------------------
+
+# (a) chatglm3-6b at full width and depth on a 1x1 ("data", "model") NCCL
+# mesh, served as the slice is; one rank runs the unsharded step's kernels
+# on the same tensors and the merge of one (o, lse) part is that part, so
+# the captured generate is held bitwise to the unsharded one.  (b) four
+# ranks sharing the card over gloo (a 2x2 mesh): SERVE_MESH_ARCHS cut to
+# depth SERVE_MESH_DEPTH (four ranks' weights and the unsharded reference on
+# one card), full width, bf16 weights made on the card, B x prompt, a cache
+# of SERVE_MESH_LEN slots (256 a model rank: flash-decode's route), the
+# unsharded Server's SERVE_MESH_TOKENS tokens fed back (teacher-forced),
+# eager (gloo's collectives run on the host: no capture)
+SERVE_MESH_ARCHS = ("chatglm3_6b", "qwen3_moe_30b_a3b")
+SERVE_MESH_DEPTH = 2
+SERVE_MESH_B, SERVE_MESH_PROMPT, SERVE_MESH_LEN, SERVE_MESH_TOKENS = 4, 128, 512, 160
+SERVE_MESH_PROFILED = 8  # the last decode steps, under torch.profiler
+
+
+def _serving_counters() -> dict:
+    from repro_torch.kernels.decode_attention import decode_attention_fwd
+    from repro_torch.kernels.flash_attention import flash_attention_fwd
+    from repro_torch.kernels.prefetch_gather import prefetch_gather_fwd
+
+    return {"flash_attention_fwd": flash_attention_fwd,
+            "decode_attention_fwd": decode_attention_fwd,
+            "prefetch_gather_fwd": prefetch_gather_fwd}
+
+
+def _zero_counters(counters: dict) -> None:
+    for c in counters.values():
+        for attr in LAUNCH_COUNTS:
+            if hasattr(c, attr):
+                setattr(c, attr, 0)
+
+
+def _replayed_ms(torch, step, pos: int, n: int) -> float:
+    """Device ms per replay of a captured decode step from ``pos``, ``n``
+    replays back to back between CUDA events."""
+    with torch.inference_mode():  # an unsharded step's buffers are inference tensors
+        step.pos.fill_(pos)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n):
+        step.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def serve_mesh_one_rank(torch, counters: dict, smi: str, B: int, prompt: int, gen_tokens: int,
+                        max_len: int) -> dict:
+    """(a): ``Server(mesh=)`` on a 1x1 NCCL mesh against the unsharded
+    ``Server``, chatglm3-6b at full width and depth, bf16, B x prompt,
+    ``gen_tokens`` tokens, cache ``max_len``.  Both captured (a warm-up
+    ``generate`` of 4 tokens each); the counters zeroed just before the mesh
+    ``generate`` and read just after (flash once per layer, flash-decode once
+    per layer per step on the tensor cores, the gather once per prefill and
+    step); tokens equal and logits bitwise the unsharded ``generate``'s;
+    the replayed step's device time on and off the mesh, in turns."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+    from repro_torch.models.common import tree_items
+
+    cfg = get_config("chatglm3_6b").replace(attn_impl="pallas")
+    decode = counters["decode_attention_fwd"]
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
+                                world_size=1, timeout=datetime.timedelta(seconds=120))
+        try:
+            mesh = make_mesh((1, 1), ("data", "model"), device="cuda", backend="nccl")
+            plain = Server(cfg, device="cuda", max_len=max_len)
+            params = plain.model.compute_params(plain.model.init_params(seed=0))
+            batch = concrete_batch(cfg, B, prompt, device="cuda")
+            batch.pop("targets")
+            server = Server(cfg, device="cuda", max_len=max_len, mesh=mesh)
+            placed = server.place(params)
+            shared = all(a.to_local().data_ptr() == b.data_ptr() for (_, a), (_, b)
+                         in zip(tree_items(placed), tree_items(params)))
+            t = time.perf_counter()
+            server.generate(placed, batch, 4)  # the mesh step's capture
+            torch.cuda.synchronize()
+            capture_s = time.perf_counter() - t
+            plain.generate(params, batch, 4)
+            torch.cuda.synchronize()
+            _zero_counters(counters)
+            t = time.perf_counter()
+            mt, ml = server.generate(placed, batch, gen_tokens, with_logits=True)
+            torch.cuda.synchronize()
+            mesh_s = time.perf_counter() - t
+            launched = {n: c.launches for n, c in counters.items()}
+            n_mma = decode.launches_mma
+            t = time.perf_counter()
+            ut, ul = plain.generate(params, batch, gen_tokens, with_logits=True)
+            torch.cuda.synchronize()
+            plain_s = time.perf_counter() - t
+            mt, ml = mt.full_tensor(), ml.full_tensor()
+            steps = gen_tokens - 1
+            print(f"[serve_mesh] (a) 1x1 NCCL mesh, {cfg.name} full width and depth "
+                  f"({cfg.n_layers} layers), bf16, B={B} prompt={prompt} cache {max_len}, "
+                  f"{gen_tokens} tokens: parameters placed {'in place' if shared else 'by copy'}; "
+                  f"first generate (the capture) {capture_s:.3f} s; generate {mesh_s:.3f} s on the "
+                  f"mesh, {plain_s:.3f} s unsharded (host clock); tokens equal "
+                  f"{torch.equal(mt, ut)}, logits bitwise {torch.equal(ml, ul)}; launches {launched} "
+                  f"(flash-decode on the tensor cores {n_mma})")
+            check(torch.equal(mt, ut), "[serve_mesh] (a) the mesh's tokens differ from the "
+                                       "unsharded Server's")
+            check(torch.equal(ml, ul), "[serve_mesh] (a) the mesh's logits are not bitwise the "
+                                       "unsharded Server's")
+            check(launched["decode_attention_fwd"] == cfg.n_layers * steps == n_mma,
+                  "[serve_mesh] (a) flash-decode did not run once per layer per step on the "
+                  "tensor cores")
+            check(launched["flash_attention_fwd"] == cfg.n_layers,
+                  "[serve_mesh] (a) the prefill did not run the flash forward once per layer")
+            check(launched["prefetch_gather_fwd"] == 1 + steps,
+                  "[serve_mesh] (a) the gather did not run once per prefill and step")
+            del ml, ul
+            ms = {"unsharded": [], "mesh": []}
+            for name in ("unsharded", "mesh", "mesh", "unsharded"):
+                srv, p = (plain, params) if name == "unsharded" else (server, placed)
+                ms[name].append(_replayed_ms(torch, srv.captured_decode(p, B), prompt, steps))
+            print(f"[serve_mesh] (a) captured step replayed back to back, device ms per step "
+                  f"(CUDA events, {steps} replays, in turns unsharded, mesh, mesh, unsharded): "
+                  f"mesh {[round(x, 4) for x in ms['mesh']]}, unsharded "
+                  f"{[round(x, 4) for x in ms['unsharded']]}; {smi}")
+            return launched
+        finally:
+            dist.destroy_process_group()
+
+
+def serve_mesh_rank(rank: int, world: int) -> dict:
+    """(b) One of four ranks sharing the card, a 2x2 gloo mesh: for each of
+    SERVE_MESH_ARCHS at depth SERVE_MESH_DEPTH, the unsharded ``Server`` on
+    this rank's data shard's rows (``generate_eager``: the tokens and the
+    reference logits), then ``Server(mesh=)``'s prefill and decode steps
+    fed those tokens, eager, the counters zeroed just before and read just
+    after; the logits of this rank's rows against the reference's, ms per
+    step (host clock, the card synced), the collectives' share of the last
+    SERVE_MESH_PROFILED steps, whether the model-1 shard of the cache was
+    empty after the prefill and holds keys at the end, and the MoE routes
+    the mesh run would have chosen otherwise (it is fed the reference's,
+    as the ``[moe]`` phase's plain path is)."""
+    import torch
+
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.shardings import PSpec, placements
+    from repro_torch.launch.steps import concrete_batch
+
+    counters = _serving_counters()
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda", backend="gloo")
+    data, model_rank = mesh.get_coordinate()
+    rows2 = placements(mesh, PSpec("data", None))
+    rows3 = placements(mesh, PSpec("data", None, None))
+    B, S, T = SERVE_MESH_B, SERVE_MESH_PROMPT, SERVE_MESH_TOKENS
+    mine = slice(data * B // 2, (data + 1) * B // 2)
+    out = {"rank": rank, "coord": (data, model_rank)}
+    for arch in SERVE_MESH_ARCHS:
+        cfg = get_config(arch).replace(n_layers=SERVE_MESH_DEPTH, attn_impl="pallas",
+                                       param_dtype="bfloat16")
+        plain = Server(cfg, device="cuda", max_len=SERVE_MESH_LEN)
+        params = plain.model.compute_params(plain.model.init_params(seed=0))
+        batch = concrete_batch(cfg, B, S, device="cuda")
+        batch.pop("targets")
+        with routing(torch) as ref_routes:
+            ref_t, ref_l = plain.generate_eager(params, {"inputs": batch["inputs"][mine]}, T,
+                                                with_logits=True)
+        server = Server(cfg, device="cuda", max_len=SERVE_MESH_LEN, mesh=mesh)
+        placed = server.place(params)
+        forced = DTensor.from_local(ref_t, mesh, rows2, run_check=False)
+        scale = float(ref_l.abs().max())
+        worst = [0.0, 0.0]  # prefill, decode
+        step_ms, prof_ms, coll_ms = [], 0.0, 0.0
+        torch.cuda.synchronize()
+        _zero_counters(counters)
+        # the moe family: the mesh run takes the reference's experts (bf16
+        # rounding in another order flips near-tie router choices), and the
+        # choices it would have made are counted against them
+        with routing(torch, force=ref_routes or None) as mesh_routes, torch.no_grad():
+            p, logits, cache, decoding = server._prefill(placed, batch)
+            got = logits.redistribute(mesh, rows3).to_local()
+            worst[0] = float((got - ref_l[:, :1]).abs().max()) / scale
+            empty_after_prefill = float(cache["k"].to_local().abs().max()) == 0.0
+            with decoding:
+                for i in range(T - 1):
+                    last = i == T - 1 - SERVE_MESH_PROFILED
+                    if last:
+                        prof = profile(activities=[ProfilerActivity.CPU])
+                        prof.__enter__()
+                        t_prof = time.perf_counter()
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    logits, cache = server.decode_fn(p, cache, forced[:, i:i + 1], S + i)
+                    got = logits.redistribute(mesh, rows3).to_local()
+                    torch.cuda.synchronize()
+                    step_ms.append((time.perf_counter() - t) * 1e3)
+                    worst[1] = max(worst[1],
+                                   float((got - ref_l[:, i + 1:i + 2]).abs().max()) / scale)
+            prof.__exit__(None, None, None)
+            prof_ms = (time.perf_counter() - t_prof) * 1e3
+            coll_ms = sum(ev.self_cpu_time_total for ev in prof.key_averages()
+                          if "c10d" in ev.key or "gloo" in ev.key) / 1e3
+        launched = {n: c.launches for n, c in counters.items()}
+        launched["decode_attention_fwd.launches_mma"] = counters[
+            "decode_attention_fwd"].launches_mma
+        differ = (sum(choices_differ(cfg, ref_routes, mesh_routes)),
+                  sum(a.numel() for a in ref_routes))
+        out[arch] = {
+            "prefill_rel": worst[0], "decode_rel": worst[1],
+            "step_ms": statistics.median(step_ms[:T - 1 - SERVE_MESH_PROFILED]),
+            "profiled_ms": prof_ms, "coll_ms": coll_ms, "launched": launched,
+            "empty_after_prefill": empty_after_prefill,
+            "filled_at_end": float(cache["k"].to_local().abs().max()) > 0.0,
+            "routes": (len(ref_routes), *differ),
+            "peak": torch.cuda.max_memory_allocated(),
+        }
+        del plain, server, params, placed, cache, p, ref_l
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def serve_mesh_shared_card(torch) -> dict:
+    """(b) in four processes (``launch.spawn.run_ranks``, gloo, CUDA
+    tensors); a rank that fails or hangs kills the others and fails the
+    phase.  Each rank's logits within LOGITS_REL_TOL_BF16_DEPTH2 of the
+    unsharded reference's, flash-decode once per layer per step on each
+    rank, the model-1 shard empty after the prefill (the prompt fills 128
+    of rank 0's 256 slots) and holding keys at the end."""
+    from repro_torch.launch.spawn import run_ranks
+
+    t = time.perf_counter()
+    try:
+        outs = run_ranks(serve_mesh_rank, 4, backend="gloo", timeout=MESH_TIMEOUT)
+    except (RuntimeError, TimeoutError) as e:
+        fail(f"[serve_mesh] (b) the four-rank run failed: {e}")
+    steps = SERVE_MESH_TOKENS - 1
+    tol = LOGITS_REL_TOL_BF16_DEPTH2
+    print(f"[serve_mesh] (b) 2x2 mesh, 4 ranks on one card over gloo, depth "
+          f"{SERVE_MESH_DEPTH} (full width), bf16, B={SERVE_MESH_B} prompt={SERVE_MESH_PROMPT} "
+          f"cache {SERVE_MESH_LEN} ({SERVE_MESH_LEN // 2} a model rank), {SERVE_MESH_TOKENS} "
+          f"tokens teacher-forced, eager: {time.perf_counter() - t:.1f} s")
+    total = {}
+    for o in outs:
+        for arch in SERVE_MESH_ARCHS:
+            r = o[arch]
+            L = r["launched"]
+            print(f"[serve_mesh] (b) rank {o['rank']} (data, model) {o['coord']} {arch}: logits "
+                  f"vs the unsharded Server, max |diff| / max |logit|: prefill "
+                  f"{r['prefill_rel']:.3e}, decode {r['decode_rel']:.3e} (tol {tol}); decode "
+                  f"{r['step_ms']:.3f} ms per step (median, host clock); the last "
+                  f"{SERVE_MESH_PROFILED} steps profiled {r['profiled_ms']:.3f} ms, collectives "
+                  f"{r['coll_ms']:.3f} ms (share {r['coll_ms'] / r['profiled_ms']:.4f}); launches "
+                  f"{L}; model-1 shard empty after the prefill {r['empty_after_prefill']}, "
+                  f"holding keys at the end {r['filled_at_end']}; router calls, the mesh's own "
+                  f"expert choices that the reference it was fed did not take, and all choices "
+                  f"{r['routes']}; peak {r['peak']} B")
+            check(r["prefill_rel"] <= tol and r["decode_rel"] <= tol,
+                  f"[serve_mesh] (b) rank {o['rank']} {arch}: logits disagree with the unsharded "
+                  "Server's")
+            check(L["decode_attention_fwd"] == SERVE_MESH_DEPTH * steps
+                  == L["decode_attention_fwd.launches_mma"],
+                  f"[serve_mesh] (b) rank {o['rank']} {arch}: flash-decode did not run once per "
+                  "layer per step on the tensor cores")
+            check(L["flash_attention_fwd"] == SERVE_MESH_DEPTH,
+                  f"[serve_mesh] (b) rank {o['rank']} {arch}: the prefill did not run the flash "
+                  "forward once per layer")
+            check(r["filled_at_end"] and (r["empty_after_prefill"] == (o["coord"][1] == 1)),
+                  f"[serve_mesh] (b) rank {o['rank']} {arch}: the cache's shards are not filled "
+                  "as the positions say")
+            for n in ("flash_attention_fwd", "decode_attention_fwd", "prefetch_gather_fwd"):
+                total[n] = total.get(n, 0) + L[n]
+    return total
+
+
+# (c), only with ``--cards``: one rank per card over NCCL (the production
+# backend), a 2x2 mesh, chatglm3-6b at full width and depth, served as (a).
+# Two runs: NCCL's own choice of algorithm, then ring and simple fixed for
+# every collective, which tells a difference that the collectives'
+# reduction order makes (NCCL may choose another algorithm for a captured
+# launch than for an eager one) from a difference of the step itself
+SERVE_CARDS = 4
+SERVE_CARDS_NCCL = ({}, {"NCCL_ALGO": "Ring", "NCCL_PROTO": "Simple"})
+
+
+def _forced_mesh_logits(torch, server, params, batch, tokens):
+    """This rank's rows of ``server``'s (a mesh's) logits [b, T, vocab] fed
+    ``tokens`` (a DTensor [B, T] split over the batch): the prefill, then
+    T - 1 eager decode steps, each given the next token of ``tokens``."""
+    from repro_torch.launch.shardings import PSpec, placements
+
+    mesh = server.mesh
+    rows = placements(mesh, PSpec(server._rules("decode", tokens.shape[0],
+                                                 server.max_len)["batch"], None, None))
+    S = server.model.prompt_shape(batch)[1]
+    with server._serving():
+        p, logits, cache, decoding = server._prefill(params, batch)
+        out = [logits.redistribute(mesh, rows).to_local()]
+        with decoding:
+            for i in range(tokens.shape[1] - 1):
+                logits, cache = server.decode_fn(p, cache, tokens[:, i:i + 1], S + i)
+                out.append(logits.redistribute(mesh, rows).to_local())
+    return torch.cat(out, dim=1)
+
+
+def serve_cards_rank(rank: int, world: int, B: int, prompt: int, gen_tokens: int,
+                     max_len: int, nccl_env: dict) -> dict:
+    """(c) One rank of a 2x2 NCCL mesh, one card each, under ``nccl_env``:
+    ``Server(mesh=)``'s captured ``generate`` (the sharded step with its
+    NCCL collectives inside the graph) and its launches; its logits against
+    the mesh's eager steps and against the unsharded ``Server`` on this
+    card over this rank's rows, both fed the captured run's tokens; the
+    replayed step's device time beside the unsharded one's, in turns."""
+    import os
+
+    import torch
+
+    os.environ.update(nccl_env)  # read when the communicators are made
+    torch.cuda.set_device(rank)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+
+    counters = _serving_counters()
+    mesh = make_mesh((2, 2), ("data", "model"), device="cuda", backend="nccl")
+    data = mesh.get_coordinate()[0]
+    mine = slice(data * B // 2, (data + 1) * B // 2)
+    cfg = get_config("chatglm3_6b").replace(attn_impl="pallas")
+    server = Server(cfg, device="cuda", max_len=max_len, mesh=mesh)
+    plain = Server(cfg, device="cuda", max_len=max_len)
+    params = plain.model.compute_params(plain.model.init_params(seed=0))
+    placed = server.place(params)
+    batch = concrete_batch(cfg, B, prompt, device="cuda")
+    batch.pop("targets")
+    rows = {"inputs": batch["inputs"][mine]}
+    t = time.perf_counter()
+    server.generate(placed, batch, 4)  # the capture
+    torch.cuda.synchronize()
+    capture_s = time.perf_counter() - t
+    plain.generate(params, rows, 4)
+    torch.cuda.synchronize()
+    _zero_counters(counters)
+    mt, ml = server.generate(placed, batch, gen_tokens, with_logits=True)
+    torch.cuda.synchronize()
+    launched = {n: c.launches for n, c in counters.items()}
+    launched["decode_attention_fwd.launches_mma"] = counters["decode_attention_fwd"].launches_mma
+    eager = _forced_mesh_logits(torch, server, placed, batch, mt)
+    mt, ml = mt.to_local(), ml.to_local()
+    unsharded = path_logits(torch, cfg, "pallas", params, rows, mt, max_len)
+    ms = {"unsharded": [], "mesh": []}
+    steps = gen_tokens - 1
+    for name in ("unsharded", "mesh", "mesh", "unsharded"):
+        srv, p, b = (plain, params, B // 2) if name == "unsharded" else (server, placed, B)
+        ms[name].append(_replayed_ms(torch, srv.captured_decode(p, b), prompt, steps))
+    return {"rank": rank, "coord": tuple(mesh.get_coordinate()), "capture_s": capture_s,
+            "bitwise": bool(torch.equal(ml, eager)), "eager_rel": rel_err(torch, ml, eager)[0],
+            "plain_rel": rel_err(torch, ml, unsharded)[0], "launched": launched, "ms": ms,
+            "peak": torch.cuda.max_memory_allocated()}
+
+
+def phase_serve_cards(torch, smi: str) -> dict:
+    """(c) in SERVE_CARDS processes, one a card, over NCCL
+    (``launch.spawn.run_ranks``), once per SERVE_CARDS_NCCL; a rank that
+    fails or hangs kills the others and fails the phase.  The captured
+    run's logits, fed its own tokens, within LOGITS_REL_TOL_BF16 of the
+    mesh's eager steps and of the unsharded ``Server`` (full depth); whether
+    the captured and eager steps are bitwise equal is printed."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.spawn import run_ranks
+
+    B, prompt, gen_tokens, max_len = 4, 512, 32, 1024
+    n_layers = get_config("chatglm3_6b").n_layers
+    steps = gen_tokens - 1
+    tol = LOGITS_REL_TOL_BF16
+    total = {}
+    for env in SERVE_CARDS_NCCL:
+        t = time.perf_counter()
+        try:
+            outs = run_ranks(serve_cards_rank, SERVE_CARDS, B, prompt, gen_tokens, max_len, env,
+                             backend="nccl", timeout=MESH_TIMEOUT)
+        except (RuntimeError, TimeoutError) as e:
+            fail(f"[serve_mesh] (c) the {SERVE_CARDS}-card run failed: {e}")
+        print(f"[serve_mesh] (c) 2x2 NCCL mesh, one rank a card ({SERVE_CARDS} cards), NCCL "
+              f"settings {env or 'the library default'}, chatglm3-6b full width and depth, bf16, "
+              f"B={B} prompt={prompt} cache {max_len}, {gen_tokens} tokens: "
+              f"{time.perf_counter() - t:.1f} s; {smi}")
+        for o in outs:
+            L = o["launched"]
+            print(f"[serve_mesh] (c) rank {o['rank']} (data, model) {o['coord']}: captured "
+                  f"generate's logits, fed its own tokens, against the mesh's eager steps: "
+                  f"bitwise {o['bitwise']}, max |diff| / max |logit| {o['eager_rel']:.3e}; "
+                  f"against the unsharded Server on this card over this data shard's rows "
+                  f"{o['plain_rel']:.3e} (tol {tol}); first generate (the capture) "
+                  f"{o['capture_s']:.3f} s; launches {L}; replayed step device ms (in turns "
+                  f"unsharded B={B // 2}, mesh B={B}, mesh, unsharded) mesh "
+                  f"{[round(x, 4) for x in o['ms']['mesh']]}, unsharded "
+                  f"{[round(x, 4) for x in o['ms']['unsharded']]}; peak {o['peak']} B")
+            check(o["eager_rel"] <= tol and o["plain_rel"] <= tol,
+                  f"[serve_mesh] (c) rank {o['rank']}: the captured sharded decode's logits "
+                  "disagree")
+            check(L["decode_attention_fwd"] == n_layers * steps
+                  == L["decode_attention_fwd.launches_mma"],
+                  f"[serve_mesh] (c) rank {o['rank']}: flash-decode did not run once per layer "
+                  "per step on the tensor cores")
+            for n in ("flash_attention_fwd", "decode_attention_fwd", "prefetch_gather_fwd"):
+                total[n] = total.get(n, 0) + L[n]
+    return total
+
+
+def phase_serve_mesh(torch, counters: dict, smi: str, B: int, prompt: int, gen_tokens: int,
+                     max_len: int) -> dict:
+    """(a) then (b); returns the serving kernels' launches of both."""
+    t = time.perf_counter()
+    one = serve_mesh_one_rank(torch, counters, smi, B, prompt, gen_tokens, max_len)
+    gc.collect()
+    torch.cuda.empty_cache()
+    shared = serve_mesh_shared_card(torch)
+    print(f"[serve_mesh] launches: (a) {one}; (b) the four ranks {shared}; phase "
+          f"{time.perf_counter() - t:.1f} s")
+    return {n: one[n] + shared[n] for n in shared}
+
+
 def main() -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--cards", action="store_true",
+                    help=f"run only [serve_mesh] (c), over {SERVE_CARDS} cards")
+    args = ap.parse_args()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: src/repro_torch not found beside this script", file=sys.stderr)
         return 2
@@ -3236,6 +3787,16 @@ def main() -> int:
 
     smi = phase_device(torch)
     phase_build()
+    if args.cards:
+        check(torch.cuda.device_count() >= SERVE_CARDS,
+              f"--cards needs {SERVE_CARDS} cards, {torch.cuda.device_count()} found")
+        launched = phase_serve_cards(torch, smi)
+        print(f"[done] {time.perf_counter() - t_start:.1f} s; launches {launched}")
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     from repro_torch.kernels import ref
     from repro_torch.kernels.decode_attention import decode_attention_fwd
@@ -3270,6 +3831,15 @@ def main() -> int:
                                     "decode_attention_fwd": decode_attention_fwd,
                                     "prefetch_gather_fwd": prefetch_gather_fwd}, smi)
     for k, n in batched.items():
+        launches[k] += n
+    gc.collect()
+    torch.cuda.empty_cache()
+    # sharded serving: a one-rank NCCL mesh, four gloo ranks on the card
+    served = phase_serve_mesh(torch, {"flash_attention_fwd": flash_attention_fwd,
+                                      "decode_attention_fwd": decode_attention_fwd,
+                                      "prefetch_gather_fwd": prefetch_gather_fwd}, smi,
+                              B, prompt, gen_tokens, max_len)
+    for k, n in served.items():
         launches[k] += n
     gc.collect()
     torch.cuda.empty_cache()

@@ -45,7 +45,13 @@
 //     in the TPU kernel;
 //   * p is kept in f32 (the TPU kernel casts p to V's upcast f32), masked
 //     slots use NEG_INF = -1e30, l is clamped at 1e-30 and the output is in
-//     q's dtype.
+//     q's dtype;
+//   * on request (a non-null lse pointer) each head's f32 log-sum-exp of
+//     its scaled scores over the live keys, m + log(l), goes to lse [B, H]:
+//     what a caller needs to merge the outputs of several caches that split
+//     one sequence (sharded serving merges the ranks' partials).  A row with
+//     no live key gets NEG_INF, so its merge weight exp(NEG_INF - lse) is 0.
+//     The output's arithmetic is the same with and without it.
 //
 // CUDA cores: pass 1 upcasts K and V to f32 in 32-row tiles staged in
 // shared memory and writes each split's partial (m, l, acc); a second small
@@ -84,6 +90,12 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float
 // (kv_stride 0: one length for every row)
 __device__ __forceinline__ int live_len(const int* kv_len_p, int b, int kv_stride, int S) {
   return min(max(__ldg(kv_len_p + (int64_t)b * kv_stride), 0), S);
+}
+
+// a head's log-sum-exp from its (max, sum of exp(s - max)); NEG_INF where no
+// key was live (l = 0)
+__device__ __forceinline__ float row_lse(float m, float l) {
+  return l > 0.f ? m + logf(l) : NEG_INF;
 }
 
 // the splits that hold keys (split 0 always counts, so kv_len 0 writes zeros)
@@ -200,12 +212,13 @@ __global__ void __launch_bounds__(NT) decode_split_kernel(
   }
 }
 
-// Pass 2.  grid (H, B), D threads: merge the live splits of one head.
+// Pass 2.  grid (H, B), D threads: merge the live splits of one head (and
+// write its log-sum-exp where lse is not null).
 template <typename QT>
 __global__ void decode_merge_kernel(
     const float* __restrict__ part_acc, const float* __restrict__ part_ml,
-    const int* __restrict__ kv_len_p, int kv_stride, QT* __restrict__ o, int H, int KV, int D,
-    int S, int split_len, int n_split) {
+    const int* __restrict__ kv_len_p, int kv_stride, QT* __restrict__ o,
+    float* __restrict__ lse, int H, int KV, int D, int S, int split_len, int n_split) {
   const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
   const int G = H / KV, kvh = h / G, g = h % G;
   const int n_live = live_splits(live_len(kv_len_p, b, kv_stride, S), split_len);
@@ -220,10 +233,11 @@ __global__ void decode_merge_kernel(
     a = fmaf(part_acc[row * D + d], w, a);
   }
   o[((int64_t)b * H + h) * D + d] = from_f<QT>(a / fmaxf(l, 1e-30f));
+  if (lse != nullptr && d == 0) lse[(int64_t)b * H + h] = row_lse(m, l);
 }
 
 template <typename QT, typename KT>
-cudaError_t launch(const void* q, const void* k, const void* v, void* o,
+cudaError_t launch(const void* q, const void* k, const void* v, void* o, float* lse,
                    void* part_acc, void* part_ml, const int* kv_len, int kv_stride,
                    int B, int H, int KV, int D, int S, int split_len, int n_split,
                    int64_t q_sb, int64_t q_sh,
@@ -243,8 +257,8 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   decode_merge_kernel<QT><<<dim3(H, B), D, 0, stream>>>(
-      (const float*)part_acc, (const float*)part_ml, kv_len, kv_stride, (QT*)o, H, KV, D, S,
-      split_len, n_split);
+      (const float*)part_acc, (const float*)part_ml, kv_len, kv_stride, (QT*)o, lse, H, KV, D,
+      S, split_len, n_split);
   return cudaGetLastError();
 }
 
@@ -271,15 +285,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // bound by bytes, so the second product costs no time).
 //
 // One launch: the warps' (m, l, acc) merge in shared memory; with one
-// live split the block writes o.  Otherwise it writes its f32 partial,
-// fences, and takes a ticket on the (batch, 16-head tile) counter; the last
-// of the tile's live blocks to arrive copies every live split's partial
-// (still in L2) into shared memory with two bulk copies, merges them,
-// writes o and resets the counter to 0, so the counters stay zero between
-// launches (CUDA-graph replays included).  The blocks of empty splits
-// return before they touch the counter, so a tile's tickets count its
-// live blocks only; a tile lies in one batch row, so with a length per row
-// each tile's ticket target is its own row's live splits.  Launches that
+// live split the block writes o (and lse).  Otherwise it writes its f32
+// partial, fences, and takes a ticket on the (batch, 16-head tile) counter;
+// the last of the tile's live blocks to arrive copies every live split's
+// partial (still in L2) into shared memory with two bulk copies, merges
+// them, writes o (and lse) and resets the counter to 0, so the counters
+// stay zero between launches (CUDA-graph replays included).  The blocks of
+// empty splits return before they touch the counter, so a tile's tickets
+// count its live blocks only; a tile lies in one batch row, so with a
+// length per row each tile's ticket target is its own row's live splits.  Launches that
 // share a counter buffer must be ordered (one stream), as the serving
 // loop's are.
 
@@ -316,7 +330,8 @@ __device__ __forceinline__ void cp_async_wait() {
 template <typename KT, int D>
 __global__ void __launch_bounds__(MNT) decode_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const KT* __restrict__ k, const KT* __restrict__ v,
-    __nv_bfloat16* __restrict__ o, float* __restrict__ part, int* __restrict__ counters,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, float* __restrict__ part,
+    int* __restrict__ counters,
     const int* __restrict__ kv_len_p, int kv_stride, int H, int KV, int S, int split_len,
     int n_split, int64_t q_sb, int64_t q_sh,
     int64_t k_sb, int64_t k_ss, int64_t k_sh,
@@ -557,7 +572,11 @@ __global__ void __launch_bounds__(MNT) decode_mma_kernel(
       pacc[(int64_t)split * 16 * D + idx] = aa;
     }
   }
-  if (n_live == 1) return;
+  if (n_live == 1) {
+    if (lse != nullptr && tid < rows)
+      lse[(int64_t)b * H + head0 + tid] = row_lse(bml[2 * tid], bml[2 * tid + 1]);
+    return;
+  }
   if (tid < 32) pml[split * 32 + tid] = bml[tid];
 
   // the last live block of this tile to arrive merges the live splits
@@ -599,6 +618,7 @@ __global__ void __launch_bounds__(MNT) decode_mma_kernel(
       ll = fmaf(sml[sp * 32 + 2 * tid + 1], c, ll);
     }
     lsum[tid] = ll;
+    if (lse != nullptr) lse[(int64_t)b * H + head0 + tid] = row_lse(mm, ll);
   }
   float accv[PER];
 #pragma unroll
@@ -633,7 +653,8 @@ __global__ void __launch_bounds__(MNT) decode_mma_kernel(
 }
 
 template <typename KT, int D>
-cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, void* part,
+cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, float* lse,
+                       void* part,
                        int* counters, const int* kv_len, int kv_stride, int B, int H, int KV,
                        int S, int split_len,
                        int n_split, int64_t q_sb, int64_t q_sh,
@@ -648,8 +669,8 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, voi
   if (err != cudaSuccess) return err;
   const int n_mt = (H / KV + 15) / 16;
   decode_mma_kernel<KT, D><<<dim3(n_split, KV * n_mt, B), MNT, smem, stream>>>(
-      (const __nv_bfloat16*)q, (const KT*)k, (const KT*)v, (__nv_bfloat16*)o, (float*)part,
-      counters, kv_len, kv_stride, H, KV, S, split_len, n_split,
+      (const __nv_bfloat16*)q, (const KT*)k, (const KT*)v, (__nv_bfloat16*)o, lse,
+      (float*)part, counters, kv_len, kv_stride, H, KV, S, split_len, n_split,
       q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale);
   return cudaGetLastError();
 }
@@ -657,14 +678,15 @@ cudaError_t launch_mma(const void* q, const void* k, const void* v, void* o, voi
 }  // namespace
 
 // q_dtype: 0 = float32, 1 = bfloat16; kv_dtype: 0 = float32, 1 = bfloat16,
-// 2 = float8_e4m3fn.  o is a contiguous [B, H, D] in q's dtype; part_acc is
+// 2 = float8_e4m3fn.  o is a contiguous [B, H, D] in q's dtype; lse is null or
+// a contiguous f32 [B, H] (each head's log-sum-exp over its live keys); part_acc is
 // f32 [B, KV, n_split, G, D] and part_ml f32 [B, KV, n_split, G, 2] scratch.
 // kv_len points to int32s in device memory, row b's length at kv_len[b *
 // kv_stride] (kv_stride 0: one length for every row); S is the cache's
 // capacity, which split_len * n_split covers.  Strides are in elements; the
 // last dim of q, k and v is contiguous.
 extern "C" int decode_attention_fwd(
-    int q_dtype, int kv_dtype, const void* q, const void* k, const void* v, void* o,
+    int q_dtype, int kv_dtype, const void* q, const void* k, const void* v, void* o, void* lse,
     void* part_acc, void* part_ml, const void* kv_len,
     int B, int H, int KV, int D, int S, int split_len, int n_split, int kv_stride,
     int64_t q_sb, int64_t q_sh,
@@ -672,8 +694,8 @@ extern "C" int decode_attention_fwd(
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define DA_ARGS q, k, v, o, part_acc, part_ml, (const int*)kv_len, kv_stride, B, H, KV, D, S, \
-                split_len, n_split, \
+#define DA_ARGS q, k, v, o, (float*)lse, part_acc, part_ml, (const int*)kv_len, kv_stride, \
+                B, H, KV, D, S, split_len, n_split, \
                 q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st
   if (q_dtype == 0 && kv_dtype == 0) return (int)launch<float, float>(DA_ARGS);
   if (q_dtype == 0 && kv_dtype == 1) return (int)launch<float, __nv_bfloat16>(DA_ARGS);
@@ -686,7 +708,8 @@ extern "C" int decode_attention_fwd(
 }
 
 // The tensor-core variant.  kv_dtype: 1 = bfloat16, 2 = float8_e4m3fn; q and o
-// are bfloat16, o a contiguous [B, H, D]; D in {64, 128}.  part is f32
+// are bfloat16, o a contiguous [B, H, D]; lse null or a contiguous f32 [B, H];
+// D in {64, 128}.  part is f32
 // scratch of B * KV * n_mt * n_split * 16 * (D + 2) words (the partial
 // accumulators, then M and L; unused when n_split is 1) and counters int32
 // [B * KV * n_mt], zero before the launch and zero after it (n_mt =
@@ -696,7 +719,7 @@ extern "C" int decode_attention_fwd(
 // 16.  The cache rows (k, v data and strides) are 16-byte aligned.  Strides
 // are in elements.
 extern "C" int decode_attention_mma_fwd(
-    int kv_dtype, const void* q, const void* k, const void* v, void* o, void* part,
+    int kv_dtype, const void* q, const void* k, const void* v, void* o, void* lse, void* part,
     void* counters, const void* kv_len, int B, int H, int KV, int D, int S, int split_len,
     int n_split, int kv_stride,
     int64_t q_sb, int64_t q_sh,
@@ -704,8 +727,8 @@ extern "C" int decode_attention_mma_fwd(
     int64_t v_sb, int64_t v_ss, int64_t v_sh,
     float scale, void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
-#define DM_ARGS q, k, v, o, part, (int*)counters, (const int*)kv_len, kv_stride, B, H, KV, S, \
-                split_len, n_split, \
+#define DM_ARGS q, k, v, o, (float*)lse, part, (int*)counters, (const int*)kv_len, kv_stride, \
+                B, H, KV, S, split_len, n_split, \
                 q_sb, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh, scale, st
   if (kv_dtype == 1 && D == 64) return (int)launch_mma<__nv_bfloat16, 64>(DM_ARGS);
   if (kv_dtype == 1 && D == 128) return (int)launch_mma<__nv_bfloat16, 128>(DM_ARGS);

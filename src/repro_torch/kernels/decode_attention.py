@@ -18,6 +18,12 @@ takes it as a scalar-prefetch operand, or one int32 per batch row (a
 S, so the grid is the same at every length and every mix of lengths, and a
 captured decode step replays at any position (``launch.steps.CapturedDecode``).
 
+On request (``with_lse``) both also write each head's f32 log-sum-exp of
+its scaled scores over the live keys ([B, H]; -1e30 for a row with no live
+key), which merges the outputs of caches that split one sequence (sharded
+serving: ``models.layers.merge_partials``); the output is bitwise the same
+with and without it.
+
 Launches are counted in ``decode_attention_fwd.launches`` (both) and in
 ``launches_mma`` and ``launches_simt``.  The plain version is
 ``ref.decode_attention_ref``; ``ops.decode_attention`` chooses between it and
@@ -56,10 +62,10 @@ def _lib(name: str):
     fn = getattr(_build.load("decode_attention"), name)
     if fn.argtypes is None:
         # q and cache dtypes (the mma variant's q is bf16), then q, k, v, o,
-        # the split merge's scratch ((acc, m l) or (partials, tickets)) and
-        # the device kv_len
+        # lse (or null), the split merge's scratch ((acc, m l) or (partials,
+        # tickets)) and the device kv_len
         head = [ctypes.c_int] * (2 if name == "decode_attention_fwd" else 1)
-        head += [ctypes.c_void_p] * 7
+        head += [ctypes.c_void_p] * 8
         # B, H, KV, D, S, split_len, n_split and kv_len's element stride
         fn.argtypes = (head + [ctypes.c_int] * 8 + [ctypes.c_int64] * 8
                        + [ctypes.c_float, ctypes.c_void_p])
@@ -158,15 +164,17 @@ def device_kv_len(kv_len, S: int, device: torch.device, B: int = 1) -> torch.Ten
     return torch.full((1,), kv_len, dtype=torch.int32, device=device)
 
 
-def decode_attention_fwd(q, k, v, kv_len):
+def decode_attention_fwd(q, k, v, kv_len, with_lse: bool = False):
     """q [B, H, D]; k, v [B, S, KV, D] (CUDA; q f32 or bf16, the cache f32,
     bf16 or fp8 e4m3; any strides with a contiguous last dim, the tensor-core
     variant's cache rows 16-byte aligned); attends to the first ``kv_len``
-    cache rows -> [B, H, D] in q's dtype.  ``kv_len`` is a Python int, a
-    one-element int32 tensor on q's device, or a ``[B]`` int32 tensor there
-    (row b attends to its first ``kv_len[b]`` rows; ``device_kv_len``); the
-    grid depends on S alone, so one launch and its replays serve every
-    length and every mix of lengths."""
+    cache rows -> [B, H, D] in q's dtype, and with ``with_lse`` also the f32
+    log-sum-exp [B, H] of each head's scaled scores over those rows (-1e30
+    where there is none).  ``kv_len`` is a Python int, a one-element int32
+    tensor on q's device, or a ``[B]`` int32 tensor there (row b attends to
+    its first ``kv_len[b]`` rows; ``device_kv_len``; the kernels clamp a
+    tensor's values to [0, S]); the grid depends on S alone, so one launch
+    and its replays serve every length and every mix of lengths."""
     _check(q, k, v)
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
@@ -175,6 +183,8 @@ def decode_attention_fwd(q, k, v, kv_len):
     dev = q.device.index
     kind = variant(q.dtype, k.dtype, D)
     o = torch.empty((B, H, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H), dtype=torch.float32, device=q.device) if with_lse else None
+    lse_ptr = 0 if lse is None else lse.data_ptr()
     # the launch needs the tensors' device current; entering a device
     # context costs host time on every decode call, so only when it is not
     on_dev = contextlib.nullcontext() if dev == torch.cuda.current_device() else \
@@ -192,7 +202,7 @@ def decode_attention_fwd(q, k, v, kv_len):
                                 device=q.device) if n_split > 1 else None)
             err = _lib("decode_attention_mma_fwd")(
                 _KV_DTYPES[k.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-                0 if part is None else part.data_ptr(),
+                lse_ptr, 0 if part is None else part.data_ptr(),
                 _counters(q.device, B * KV * n_mt).data_ptr(), kv.data_ptr(),
                 B, H, KV, D, S, split_len, n_split, kv_stride, *strides, 1.0 / (D**0.5), stream,
             )
@@ -205,7 +215,8 @@ def decode_attention_fwd(q, k, v, kv_len):
             part_acc = part.data_ptr()
             err = _lib("decode_attention_fwd")(
                 _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], q.data_ptr(), k.data_ptr(),
-                v.data_ptr(), o.data_ptr(), part_acc, part_acc + 4 * rows * D, kv.data_ptr(),
+                v.data_ptr(), o.data_ptr(), lse_ptr, part_acc, part_acc + 4 * rows * D,
+                kv.data_ptr(),
                 B, H, KV, D, S, split_len, n_split, kv_stride, *strides, 1.0 / (D**0.5), stream,
             )
     if err != 0:
@@ -215,7 +226,7 @@ def decode_attention_fwd(q, k, v, kv_len):
         decode_attention_fwd.launches_mma += 1
     else:
         decode_attention_fwd.launches_simt += 1
-    return o
+    return (o, lse) if with_lse else o
 
 
 decode_attention_fwd.launches = 0

@@ -90,20 +90,22 @@ def flash_attention_trainable(q, k, v, causal=True, q_offset=0):
     return _FlashAttention.apply(q, k, v, causal, q_offset)
 
 
-def decode_attention(q, k, v, kv_len):
+def decode_attention(q, k, v, kv_len, with_lse: bool = False):
     """q [B, H, D]; k, v [B, S, KV, D]; kv_len a Python int, a one-element
     int32 tensor on q's device (the TPU kernel's scalar-prefetch operand) or
     a ``[B]`` int32 tensor there (one length per batch row: the continuous
-    batcher's slots) -> [B, H, D].  A tensor goes to the kernel as it is,
-    never read on the host, so a captured decode step replays at any
-    length.
+    batcher's slots) -> [B, H, D]; with ``with_lse`` also the f32
+    log-sum-exp [B, H] of each head's scaled, masked scores (the kernel's
+    extension past the TPU kernel, for merging caches that split one
+    sequence).  A tensor goes to the kernel as it is, never read on the
+    host, so a captured decode step replays at any length.
 
     The cache is read in place (no head-major copy).  The kernel fixes its
     own tiles, so any S is taken: the JAX wrapper's
     ``S % min(block_k, S) == 0`` assertion has no counterpart here."""
     if q.is_cuda:
-        return decode_attention_fwd(q, k, v, kv_len)
-    return ref.decode_attention_ref(q, k, v, kv_len)
+        return decode_attention_fwd(q, k, v, kv_len, with_lse)
+    return ref.decode_attention_ref(q, k, v, kv_len, with_lse)
 
 
 def prefetch_gather(table, idx):

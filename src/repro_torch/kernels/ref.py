@@ -87,11 +87,13 @@ def flash_attention_bwd_ref(q, k, v, do, lse, delta, *, causal: bool = True,
     return dq, dk.reshape(B, Sk, H, D).to(k.dtype), dv.reshape(B, Sk, H, D).to(v.dtype)
 
 
-def decode_attention_ref(q, k, v, kv_len):
+def decode_attention_ref(q, k, v, kv_len, with_lse: bool = False):
     """q [B, H, D]; k, v [B, S, KV, D]; kv_len a Python int, a 0-d or
     one-element int tensor, or a ``[B]`` int tensor (one length per batch
     row) -> [B, H, D]: one query row per head against the first ``kv_len``
-    cache slots (of its row)."""
+    cache slots (of its row).  With ``with_lse`` also the f32 log-sum-exp
+    [B, H] of the scaled, masked scores (-1e30 where no slot is live: every
+    score is NEG_INF), the plain twin of the kernel's."""
     B, H, D = q.shape
     if isinstance(kv_len, torch.Tensor):
         # a length per row broadcasts as [B, 1, 1, 1], as JAX's oracle takes it
@@ -104,8 +106,10 @@ def decode_attention_ref(q, k, v, kv_len):
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(q.dtype)
     vt = v.to(_promote(q.dtype, v.dtype))
-    o = torch.einsum("bkgs,bskd->bkgd", p.to(vt.dtype), vt)
-    return o.reshape(B, H, D)
+    o = torch.einsum("bkgs,bskd->bkgd", p.to(vt.dtype), vt).reshape(B, H, D)
+    if not with_lse:
+        return o
+    return o, torch.logsumexp(s, dim=-1).reshape(B, H)
 
 
 def prefetch_gather_ref(table, idx):

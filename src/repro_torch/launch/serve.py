@@ -22,63 +22,147 @@ captured decode step (``launch.steps.CapturedDecode``, the counterpart of
 the JAX server's ``_jit_decode``) for every further token; on the CPU it
 runs the eager loop (``generate_eager``).
 
+On a mesh (``Server(cfg, mesh=mesh)``, the dense and moe families) the
+prefill runs under the prefill rules (batch over the data axes, heads over
+``model``) and the decode under the decode rules, on JAX's decode layout:
+the cache's sequence split over ``model`` (``shardings.cache_pspecs``),
+each rank's flash-decode over its slots merged across the ranks
+(``models.transformer._seq_sharded_attention``).  ``generate`` captures the
+sharded step, its collectives inside the graph, on an NCCL mesh; over gloo
+(several ranks sharing a card, or the CPU) the decode runs eagerly
+(``generate_eager``).
+
 Usage (on the card; ``--device cpu`` runs the plain path on the CPU):
   PYTHONPATH=src python -m repro_torch.launch.serve --arch chatglm3_6b \
       --batch 4 --prompt-len 512 --gen 32 --attn-impl pallas
   (also ``--arch qwen3_moe_30b_a3b``, ``granite_moe_1b_a400m``,
   ``falcon_mamba_7b``, ``recurrentgemma_2b``, ``whisper_large_v3`` (random
   audio frames) and ``qwen2_vl_2b`` (random prompt embeddings))
+On a mesh, one rank per card (NCCL; with ``--device cpu``, gloo):
+  PYTHONPATH=src torchrun --nproc-per-node 4 -m repro_torch.launch.serve \
+      --arch chatglm3_6b --mesh 2x2 --batch 4 --prompt-len 512 --gen 32 --attn-impl pallas
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
+import os
 import time
 
 import torch
 
 from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
+from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.access_plan import build_access_plan
+from repro_torch.launch.shardings import (
+    PSpec,
+    batch_pspecs,
+    cache_pspecs,
+    logical_rules,
+    named,
+    placements,
+)
 from repro_torch.launch.steps import (
     CapturedDecode,
     concrete_batch,
     make_decode_step,
     make_prefill_step,
     params_key,
+    serving_mode,
 )
-from repro_torch.models.common import tree_items
+from repro_torch.models.common import activate_sharding, to_dtensor, tree_items
 from repro_torch.models.transformer import decode_layers
+
+# the families served on a mesh of several ranks; the others are item 6.2
+MESH_FAMILIES = ("dense", "moe")
 
 
 class Server:
     def __init__(self, cfg, device="cuda", max_len: int = 256, mesh=None):
-        """``mesh``: sharded serving is not ported (ROADMAP.md, section 1,
-        item 6.1), so a mesh of more than one rank raises; it is never
-        served unsharded in silence.  A one-rank mesh serves as no mesh."""
-        if mesh is not None and mesh.size() > 1:
-            raise NotImplementedError(
-                f"Server on a mesh of {mesh.size()} ranks: sharded serving is ROADMAP.md, "
-                "section 1, item 6.1; serve on one device")
+        """``mesh``: a ``DeviceMesh`` with axes ("data", "model") (or
+        ("pod", "data", "model")) over every rank of the process group, on
+        ``device``'s type.  The dense and moe families serve on it (the
+        parameters placed by ``model.param_pspecs`` under the prefill rules,
+        ``place``); the ssm, hybrid and encdec families on a mesh of several
+        ranks raise (ROADMAP.md, section 1, item 6.2), and on a one-rank
+        mesh serve as on no mesh.  ``max_len`` must divide by the size of
+        the axis the decode splits the cache's sequence over."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_len = max_len
-        self.model, self.prefill_fn = make_prefill_step(cfg, self.device)
-        _, self.decode_fn = make_decode_step(cfg, self.device)
+        if mesh is not None and cfg.family not in MESH_FAMILIES:
+            if mesh.size() > 1:
+                raise NotImplementedError(
+                    f"serving the {cfg.family} family on a mesh of {mesh.size()} ranks: "
+                    "ROADMAP.md, section 1, item 6.2; serve it on one device")
+            mesh = None
+        self.mesh = mesh
+        self.model, self.prefill_fn = make_prefill_step(cfg, self.device, mesh)
+        _, self.decode_fn = make_decode_step(cfg, self.device, mesh)
         self._captured: dict[int, CapturedDecode] = {}  # by batch size
+        if mesh is not None:
+            n_data = mesh.size() // mesh.size(mesh.mesh_dim_names.index("model"))
+            self._param_specs = self.model.param_pspecs(
+                self._rules("prefill", n_data, max_len))
+
+    def _rules(self, kind: str, batch_size: int, seq_len: int) -> dict:
+        return logical_rules(self.cfg, ShapeConfig(kind, kind, seq_len, batch_size), self.mesh)
+
+    def place(self, params: dict) -> dict:
+        """``params`` on this server's mesh: each whole tensor placed by
+        ``model.param_pspecs`` under the prefill rules (a copy of this
+        rank's shard), each DTensor as it is.  Without a mesh, ``params``.
+        Placing once and serving from the result saves the copy per call."""
+        if self.mesh is None:
+            return params
+        return named(self.mesh, self._param_specs, params)
 
     def plan(self, batch_size: int):
         """The CAPre access plan of one decode step, traced on the ``meta``
         device (compile-time: nothing is allocated and the card is never
-        touched)."""
+        touched).  It is the per-model plan, a server on a mesh included:
+        the step's parameters and cache whole, as one device reads them."""
+        decode_fn = self.decode_fn
+        if self.mesh is not None:
+            _, decode_fn = make_decode_step(self.cfg, self.device)
         return build_access_plan(
-            lambda p, c, t: self.decode_fn(p, c, t, 0),
+            lambda p, c, t: decode_fn(p, c, t, 0),
             self.model.abstract_params(),
             self.model.abstract_cache(batch_size, self.max_len),
             torch.empty((batch_size, 1), dtype=torch.int64, device="meta"),
         )
 
-    @torch.inference_mode()
+    def _serving(self):
+        """``steps.serving_mode``: ``inference_mode``, or on a mesh
+        ``no_grad``."""
+        return serving_mode(self.mesh)
+
+    def _prefill(self, params, batch: dict):
+        """(params, logits, cache, decode context) for a prompt batch: on a
+        mesh the parameters and batch placed, the prefill run under the
+        prefill rules and its cache moved into the decode layout
+        (``to_decode_layout``), with the decode rules' context; without
+        one, the prefill as it is (its cache unpadded) and no context."""
+        if self.mesh is None:
+            logits, cache = self.prefill_fn(params, batch)
+            return params, logits, cache, contextlib.nullcontext()
+        mesh, cfg = self.mesh, self.cfg
+        B, S = self.model.prompt_shape(batch)
+        if S > self.max_len:
+            raise ValueError(f"a prompt of {S} tokens; the server holds max_len={self.max_len}")
+        params = self.place(params)
+        prules = self._rules("prefill", B, S)
+        specs = batch_pspecs(cfg, ShapeConfig("prefill", "prefill", S, B), mesh)
+        batch = {k: named(mesh, specs[k], v) if k in specs else v for k, v in batch.items()}
+        with activate_sharding(mesh, prules):
+            logits, cache = self.prefill_fn(params, batch)
+        dshape = ShapeConfig("decode", "decode", self.max_len, B)
+        cache = to_decode_layout(cache, mesh, cache_pspecs(cfg, dshape, mesh), self.max_len)
+        return params, logits, cache, activate_sharding(mesh, self._rules("decode", B,
+                                                                          self.max_len))
+
     def generate(self, params, batch: dict, steps: int, *, with_logits: bool = False):
         """Prefill the prompt batch, then greedily decode: ``steps`` tokens
         in all ([B, steps]), the first from the prefill logits; with
@@ -92,58 +176,85 @@ class Server:
 
         The prompt is ``batch["inputs"]`` [B, S], or for an ``embeds_input``
         config ``batch["embeds"]`` [B, S, d] where given (with its
-        ``positions``); encdec also reads ``batch["frames"]``."""
+        ``positions``); encdec also reads ``batch["frames"]``.
+
+        On a mesh the tokens and logits are DTensors (``full_tensor()``
+        gives them whole; ``generate``'s are split over the batch alone,
+        ``generate_eager``'s logits also over the vocab where the rules
+        split it), and the parameters may be whole tensors or ``place``'s
+        DTensors.  The captured step needs an
+        NCCL mesh: over gloo, whose collectives run on the host and cannot
+        be captured, a CUDA mesh raises and names ``generate_eager``."""
         if self.device.type != "cuda":
             return self.generate_eager(params, batch, steps, with_logits=with_logits)
+        if self.mesh is not None:
+            import torch.distributed as dist
+
+            backend = dist.get_backend(self.mesh.get_group(0))
+            if "nccl" not in backend:
+                raise RuntimeError(
+                    f"generate captures the decode step in a CUDA graph, which a {backend} "
+                    "mesh's collectives cannot enter: serve it with generate_eager")
         B, S = self.model.prompt_shape(batch)
         if S + steps - 1 > self.max_len:
             raise ValueError(f"a prompt of {S} and {steps} tokens need {S + steps - 1} "
                              f"positions; the server holds max_len={self.max_len}")
-        logits, cache = self.prefill_fn(params, batch)
-        step = self.captured_decode(params, B)
-        tok = torch.argmax(logits, dim=-1)
-        step.load(cache, tok, S)
-        del cache
-        out = torch.empty((B, steps), dtype=tok.dtype, device=self.device)
-        out[:, :1] = tok
-        if with_logits:
-            all_logits = logits.new_empty((B, steps, logits.shape[-1]))
-            all_logits[:, :1] = logits
-        for i in range(1, steps):
-            step.replay()
-            out[:, i : i + 1] = step.tokens
+        with self._serving():
+            params, logits, cache, _ = self._prefill(params, batch)
+            step = self.captured_decode(params, B)
+            logits = step.local(logits)
+            tok = torch.argmax(logits, dim=-1)
+            step.load(cache, tok, S)
+            del cache
+            out = torch.empty((tok.shape[0], steps), dtype=tok.dtype, device=self.device)
+            out[:, :1] = tok
             if with_logits:
-                all_logits[:, i : i + 1] = step.logits
-        return (out, all_logits) if with_logits else out
+                all_logits = logits.new_empty((tok.shape[0], steps, logits.shape[-1]))
+                all_logits[:, :1] = logits
+            for i in range(1, steps):
+                step.replay()
+                out[:, i : i + 1] = step.tokens
+                if with_logits:
+                    all_logits[:, i : i + 1] = step.logits
+            out = step.whole(out)
+            return (out, step.whole(all_logits)) if with_logits else out
 
-    @torch.inference_mode()
     def generate_eager(self, params, batch: dict, steps: int, *, with_logits: bool = False):
         """``generate`` with every decode step run eagerly from the host at an
         int position: the plain loop, which the captured step must equal."""
         B, S = self.model.prompt_shape(batch)
-        logits, cache = self.prefill_fn(params, batch)
-        cache = self._pad_cache(cache)
-        tok = torch.argmax(logits, dim=-1)
-        out, outs = [tok], [logits]
-        for i in range(steps - 1):
-            logits, cache = self.decode_fn(params, cache, tok, S + i)
+        with self._serving():
+            params, logits, cache, decoding = self._prefill(params, batch)
+            if self.mesh is None:
+                cache = self._pad_cache(cache)
             tok = torch.argmax(logits, dim=-1)
-            out.append(tok)
-            outs.append(logits)
-        out = torch.cat(out, dim=1)
-        return (out, torch.cat(outs, dim=1)) if with_logits else out
+            out, outs = [tok], [logits]
+            with decoding:
+                for i in range(steps - 1):
+                    logits, cache = self.decode_fn(params, cache, tok, S + i)
+                    tok = torch.argmax(logits, dim=-1)
+                    out.append(tok)
+                    outs.append(logits)
+            out = torch.cat(out, dim=1)
+            return (out, torch.cat(outs, dim=1)) if with_logits else out
 
-    @torch.inference_mode()
     def captured_decode(self, params, batch_size: int) -> CapturedDecode:
         """The captured decode step for ``batch_size`` rows over this
-        server's ``max_len`` and these ``params``, captured at the first
-        call (and again when the params lie elsewhere)."""
+        server's ``max_len`` and these ``params`` (on a mesh: ``place``'s
+        DTensors), captured at the first call (and again when the params lie
+        elsewhere)."""
         step = self._captured.get(batch_size)
         if step is None or step.key != params_key(params):
             self._captured.pop(batch_size, None)  # its graph and buffers go first
-            step = CapturedDecode(self.decode_fn, params,
-                                  self.model.abstract_cache(batch_size, self.max_len),
-                                  self.device)
+            layout = None
+            if self.mesh is not None:
+                dshape = ShapeConfig("decode", "decode", self.max_len, batch_size)
+                rules = self._rules("decode", batch_size, self.max_len)
+                layout = (self.mesh, rules, cache_pspecs(self.cfg, dshape, self.mesh))
+            with self._serving():
+                step = CapturedDecode(self.decode_fn, params,
+                                      self.model.abstract_cache(batch_size, self.max_len),
+                                      self.device, layout=layout)
             self._captured[batch_size] = step
         return step
 
@@ -158,6 +269,9 @@ class Server:
         does; returns (logits [B, 1, vocab], cache).  The encdec family is
         not streamed yet: it raises."""
         cfg, model = self.cfg, self.model
+        if self.mesh is not None:
+            raise NotImplementedError("streaming a sharded decode step: serve the mesh with "
+                                      "generate or generate_eager")
         if cfg.family == "encdec":
             raise NotImplementedError(
                 "streaming the encdec family is not ported yet: ROADMAP.md, section 1, item 5.8")
@@ -230,6 +344,39 @@ class Server:
         return out
 
 
+def to_decode_layout(cache: dict, mesh, specs: dict, max_len: int) -> dict:
+    """A prefill's k/v cache [L, B, S, KV, hd] (DTensors in the prefill's
+    layout) as the decode cache of ``max_len`` slots in ``specs``' layout
+    (``cache_pspecs`` under the decode rules: the sequence split over one
+    mesh axis, the kv heads whole), on the device: each rank gathers the
+    prompt's k/v heads it lacks over the head axis, keeps the slots of its
+    own sequence shard ([r * n, (r + 1) * n) with n = max_len / R) and
+    zeros the rest.  No tensor leaves the device."""
+    from torch.distributed.tensor import DTensor
+
+    out = {}
+    for key, c in cache.items():
+        spec = specs[key]
+        axis = spec[2]
+        if not isinstance(axis, str):
+            raise NotImplementedError(f"a cache sequence split over mesh axes {axis}")
+        R = mesh.size(mesh.mesh_dim_names.index(axis))
+        if max_len % R:
+            raise ValueError(f"max_len {max_len} does not divide over the {R} ranks of {axis!r}")
+        n = max_len // R
+        whole_seq = PSpec(*spec[:2], None, *spec[3:])
+        local = to_dtensor(c, mesh).redistribute(mesh, placements(mesh, whole_seq)).to_local()
+        start = mesh.get_local_rank(axis) * n
+        buf = local.new_zeros(local.shape[:2] + (n,) + local.shape[3:])
+        m = min(n, max(0, local.shape[2] - start))
+        buf[:, :, :m] = local[:, :, start:start + m]
+        shape = tuple(c.shape[:2]) + (max_len,) + tuple(c.shape[3:])
+        out[key] = DTensor.from_local(buf, mesh, placements(mesh, spec), run_check=False,
+                                      shape=shape,
+                                      stride=torch.empty(shape, device="meta").stride())
+    return out
+
+
 # the top-level parameter groups of a layer stack, per family: ``layers``
 # (dense, moe, ssm), ``rec_layers`` and ``attn_layers`` (hybrid); encdec's
 # decode is not streamed (``Server.stream_decode`` raises)
@@ -258,21 +405,34 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--attn-impl", default=None,
                     help="naive | chunked | pallas (the CUDA kernels); default: the config's")
+    ap.add_argument("--mesh", default=None,
+                    help="DATAxMODEL (or PODxDATAxMODEL): serve on a mesh of every rank of "
+                         "the process group (torchrun's); the dense and moe families")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)
     if args.attn_impl:
         cfg = cfg.replace(attn_impl=args.attn_impl)
     device = resolve_device(args.device)
-    server = Server(cfg, device=device, max_len=args.prompt_len + args.gen)
-    plan = server.plan(args.batch)
-    print(f"access plan: {len(plan.records)} records, "
-          f"{len(plan.collections())} collections, {plan.total_bytes/1e6:.1f} MB")
-    for h in plan.hints()[:8]:
-        print("  hint:", h)
+    mesh, rank = None, 0
+    if args.mesh:
+        from .mesh import make_mesh
+
+        shape = tuple(int(n) for n in args.mesh.split("x"))
+        if device.type == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        mesh = make_mesh(shape, ("pod", "data", "model")[-len(shape):], device=device.type)
+        rank = mesh.get_rank()
+    server = Server(cfg, device=device, max_len=args.prompt_len + args.gen, mesh=mesh)
+    if rank == 0:
+        plan = server.plan(args.batch)
+        print(f"access plan: {len(plan.records)} records, "
+              f"{len(plan.collections())} collections, {plan.total_bytes/1e6:.1f} MB")
+        for h in plan.hints()[:8]:
+            print("  hint:", h)
 
     model = server.model
-    params = model.compute_params(model.init_params(seed=0))
+    params = server.place(model.compute_params(model.init_params(seed=0)))
     batch = concrete_batch(cfg, args.batch, args.prompt_len, device=device)
     batch.pop("targets", None)
     t0 = time.perf_counter()
@@ -280,9 +440,13 @@ def main(argv=None) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
     dt = time.perf_counter() - t0
-    print(f"generated {tuple(tokens.shape)} tokens in {dt:.2f}s "
-          f"({args.batch * args.gen / dt:.1f} tok/s) on {device}")
-    print("sample:", tokens[0, :12].tolist())
+    if mesh is not None:
+        tokens = tokens.full_tensor()
+    if rank == 0:
+        print(f"generated {tuple(tokens.shape)} tokens in {dt:.2f}s "
+              f"({args.batch * args.gen / dt:.1f} tok/s) on {device}"
+              + (f", mesh {args.mesh}" if mesh is not None else ""))
+        print("sample:", tokens[0, :12].tolist())
 
 
 if __name__ == "__main__":

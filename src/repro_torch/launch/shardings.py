@@ -158,12 +158,29 @@ def batch_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
     return specs
 
 
+def _axes(entry) -> tuple:
+    """The mesh axes a spec entry names."""
+    if entry is None:
+        return ()
+    return entry if isinstance(entry, tuple) else (entry,)
+
+
 def cache_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
-    """Specs of the decode cache (``Model.abstract_cache``'s tree)."""
+    """Specs of the decode cache (``Model.abstract_cache``'s tree).
+
+    Where ``cache_seq`` and ``act_kv`` name the same axis (decode, with
+    ``model`` dividing the kv heads), the sequence keeps it and the kv heads
+    go whole, in the self-attention cache and in encdec's cross k/v alike.
+    JAX's ``cache_pspecs`` names the axis twice there, a spec its
+    ``NamedSharding`` refuses (``DuplicateSpecError``); the layout kept here
+    is the one JAX's production meshes give, whose 16-wide ``model`` divides
+    no config's kv heads."""
     rules = logical_rules(cfg, shape, mesh)
     b = rules["batch"]
     cseq = rules["cache_seq"]
     kvh = rules["act_kv"]
+    if set(_axes(kvh)) & set(_axes(cseq)):
+        kvh = None
     ff = rules["ff"]
     if cfg.family in ("dense", "moe"):
         kv = PSpec(None, b, cseq, kvh, None)
@@ -188,19 +205,21 @@ def placements(mesh, spec) -> tuple:
     """The DTensor placement of each mesh dim for ``spec``: ``Shard(d)``
     where tensor dim ``d``'s entry names the axis, else ``Replicate()``.
     A dim split over several axes must name them in mesh order (outermost
-    first), which is how DTensor nests them."""
+    first), which is how DTensor nests them.  An axis that names two dims
+    raises, as JAX's ``NamedSharding`` does (``DuplicateSpecError``)."""
     from torch.distributed.tensor import Replicate, Shard
 
     names = list(axis_sizes(mesh))
     out = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
-        if entry is None:
-            continue
-        axes = entry if isinstance(entry, tuple) else (entry,)
+        axes = _axes(entry)
         idx = [names.index(a) for a in axes]
         if idx != sorted(idx):
             raise ValueError(f"spec {spec}: axes {axes} of dim {d} are not in mesh order {names}")
         for i in idx:
+            if out[i] != Replicate():
+                raise ValueError(f"spec {spec}: mesh axis {names[i]!r} names two tensor dims "
+                                 f"({out[i].dim} and {d})")
             out[i] = Shard(d)
     return tuple(out)
 
@@ -208,10 +227,12 @@ def placements(mesh, spec) -> tuple:
 def named(mesh, spec_tree, tree):
     """``tree`` (a nested dict of tensors, each whole on every rank)
     distributed by ``spec_tree``: each leaf a DTensor holding a copy of this
-    rank's shard.  Counterpart of placing a tree with JAX's
-    ``NamedSharding``s."""
-    from torch.distributed.tensor import distribute_tensor
+    rank's shard; a leaf that already is a DTensor stays as it is.
+    Counterpart of placing a tree with JAX's ``NamedSharding``s."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
 
     if isinstance(tree, dict):
         return {k: named(mesh, spec_tree[k], v) for k, v in tree.items()}
+    if isinstance(tree, DTensor):
+        return tree
     return distribute_tensor(tree, mesh, placements(mesh, spec_tree), src_data_rank=None)

@@ -54,7 +54,7 @@ def mesh_info_for(cfg: ModelConfig, mesh) -> Optional[tuple]:
     return (mesh, dp if len(dp) > 1 else dp[0], "model")
 
 
-def _no_grad(mesh):
+def serving_mode(mesh):
     """The serving steps' autograd context: ``inference_mode``, or under a
     mesh ``no_grad`` (DTensor cannot take views of its parameters in
     inference mode: an inference tensor has no version counter)."""
@@ -145,7 +145,7 @@ def make_prefill_step(cfg: ModelConfig, device="cuda", mesh=None):
     model = Model(cfg, device=device)
     minfo = mesh_info_for(cfg, mesh)
 
-    @_no_grad(mesh)
+    @serving_mode(mesh)
     def prefill_step(params, batch):
         _require_context(mesh)
         return model.prefill(params, batch, minfo)
@@ -160,7 +160,7 @@ def make_decode_step(cfg: ModelConfig, device="cuda", mesh=None):
     model = Model(cfg, device=device)
     minfo = mesh_info_for(cfg, mesh)
 
-    @_no_grad(mesh)
+    @serving_mode(mesh)
     def decode_step(params, cache, tokens, pos):
         _require_context(mesh)
         return model.decode_step(params, cache, tokens, pos, minfo)
@@ -183,52 +183,117 @@ class CapturedDecode:
     ``pos``: no host work beyond the launch of the graph.
 
     The step is warmed up on a side stream before the capture, so that the
-    kernels' builds, cuBLAS's handles, flash-decode's ticket buffer and the
-    allocator's blocks exist before it begins; the capture's own launch
-    counts are taken back and added again on every replay
-    (``kernels.counters``).  The graph reads ``params`` where they lay at
-    the capture, and holds no reference to them: ``key`` is their (address,
-    shape, stride, dtype) leaf by leaf, which a caller checks before it
-    replays (``Server.captured_decode``).  A capture that fails raises."""
+    kernels' builds, cuBLAS's handles, flash-decode's ticket buffer, a mesh's
+    communicators and the allocator's blocks exist before it begins; the
+    capture's own launch counts are taken back and added again on every
+    replay (``kernels.counters``).  The graph reads ``params`` where they
+    lay at the capture, and holds no reference to them: ``key`` is their
+    (address, shape, stride, dtype) leaf by leaf, which a caller checks
+    before it replays (``Server.captured_decode``).  A capture that fails
+    raises.
+
+    On a mesh (``layout`` = (mesh, decode rules, the cache's specs)) the
+    static cache is DTensors in that layout, over local buffers; the step
+    runs under ``activate_sharding`` with the tokens split over the batch
+    rule's axes, and its logits are gathered to whole rows before the
+    argmax.  ``tokens`` and ``logits`` are this rank's rows (plain
+    tensors); ``local`` and ``whole`` move between a DTensor of the step's
+    rows and its local rows.  The collectives (NCCL) are captured with
+    the graph; the capture is in thread-local mode, so the process group's
+    watchdog thread may query its events meanwhile."""
 
     def __init__(self, decode_fn, params: dict, cache_like: dict, device,
-                 pos_shape: tuple = ()):
+                 pos_shape: tuple = (), layout=None):
         self.decode_fn = decode_fn
         self.key = params_key(params)
+        self.layout = layout
         B = next(iter(cache_like.values())).shape[1]
-        self.tokens = torch.zeros((B, 1), dtype=torch.int64, device=device)
         self.pos = torch.zeros(pos_shape, dtype=torch.int64, device=device)
-        self.cache = {k: torch.zeros(c.shape, dtype=c.dtype, device=device)
-                      for k, c in cache_like.items()}
+        if layout is None:
+            self.tokens = torch.zeros((B, 1), dtype=torch.int64, device=device)
+            self._tokens_in = self.tokens
+            self.cache = {k: torch.zeros(c.shape, dtype=c.dtype, device=device)
+                          for k, c in cache_like.items()}
+        else:
+            from torch.distributed import tensor as dtensor
+
+            from .shardings import placements
+
+            mesh, _, specs = layout
+            self._tokens_in = dtensor.zeros((B, 1), dtype=torch.int64, device_mesh=mesh,
+                                            placements=self._row_placements(2))
+            self.tokens = self._tokens_in.to_local()
+            self.cache = {k: dtensor.zeros(c.shape, dtype=c.dtype, device_mesh=mesh,
+                                           placements=placements(mesh, specs[k]))
+                          for k, c in cache_like.items()}
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
         with torch.cuda.stream(side):
             for _ in range(2):
                 self._step(params)
         torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
         self.graph = torch.cuda.CUDAGraph()
+        mode = "global" if layout is None else "thread_local"
         before = counters.snapshot()
         try:
-            with torch.cuda.graph(self.graph):
+            with torch.cuda.graph(self.graph, capture_error_mode=mode):
                 self._step(params)
         finally:
             self.launches = counters.since(before)  # per replay
             counters.add(self.launches, -1)  # the capture launched nothing
 
     def _step(self, params):
-        self.logits, _ = self.decode_fn(params, self.cache, self.tokens, self.pos)
+        if self.layout is None:
+            self.logits, _ = self.decode_fn(params, self.cache, self.tokens, self.pos)
+        else:
+            from repro_torch.models.common import activate_sharding
+
+            mesh, rules, _ = self.layout
+            with activate_sharding(mesh, rules):
+                logits, _ = self.decode_fn(params, self.cache, self._tokens_in, self.pos)
+            self.logits = self.local(logits)
         self.tokens.copy_(torch.argmax(self.logits, dim=-1))
         self.pos.add_(1)
 
-    @torch.inference_mode()
+    def _row_placements(self, ndim: int) -> tuple:
+        """The placements of a [B, ...] tensor split by the batch rule alone."""
+        from .shardings import PSpec, placements
+
+        mesh, rules, _ = self.layout
+        return placements(mesh, PSpec(rules["batch"], *(None,) * (ndim - 1)))
+
+    def local(self, t):
+        """This rank's rows of ``t`` (a DTensor [B, ...] on the mesh, made
+        whole on every other dim), or ``t`` itself without a mesh."""
+        if self.layout is None:
+            return t
+        return t.redistribute(self.layout[0], self._row_placements(t.ndim)).to_local()
+
+    def whole(self, t):
+        """This rank's rows ``t`` as the DTensor [B, ...] they are part of, or
+        ``t`` itself without a mesh."""
+        if self.layout is None:
+            return t
+        from torch.distributed.tensor import DTensor
+
+        return DTensor.from_local(t, self.layout[0], self._row_placements(t.ndim),
+                                  run_check=False)
+
     def load(self, cache: dict, tokens, pos: int) -> None:
         """Start from a prefill: its ``cache`` into the static one (a k/v
         cache with fewer slots into the first ones, the rest zeroed, as
         ``Server._pad_cache`` pads; encdec's cross k/v, whose shape the
-        prefill fixes, as it is), ``tokens`` [B, 1] and ``pos``, the
-        position of those tokens."""
+        prefill fixes, as it is; on a mesh, local shard into local shard),
+        ``tokens`` [B, 1] (this rank's rows) and ``pos``, the position of
+        those tokens.  Runs under the caller's serving context."""
         for key, buf in self.cache.items():
             src = cache[key]
+            if self.layout is not None:
+                if src.placements != buf.placements:
+                    raise ValueError(f"cache {key!r}: {src.placements}, the captured step "
+                                     f"holds {buf.placements}")
+                src, buf = src.to_local(), buf.to_local()
             if src.dtype != buf.dtype:
                 raise TypeError(f"cache {key!r}: {src.dtype}, the captured step holds {buf.dtype}")
             if src.shape == buf.shape:
@@ -247,9 +312,16 @@ class CapturedDecode:
 
 def params_key(params: dict) -> tuple:
     """What a captured step reads of ``params``: each leaf's address, shape,
-    stride and dtype."""
-    return tuple((path, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
-                 for path, t in tree_items(params))
+    stride and dtype (a DTensor's: its local shard's, and its
+    placements)."""
+    from torch.distributed.tensor import DTensor
+
+    def key(path, t):
+        if isinstance(t, DTensor):
+            return key(path, t.to_local()) + (t.placements,)
+        return (path, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
+
+    return tuple(key(path, t) for path, t in tree_items(params))
 
 
 def concrete_batch(cfg: ModelConfig, shape_or_bs, seq_len: Optional[int] = None,

@@ -234,6 +234,17 @@ def local_kv(mesh, q_axis, kv_axis, ql, kl, vl, G: int):
     return kl[:, :, kv0:kv1], vl[:, :, kv0:kv1]
 
 
+def merge_partials(o, lse, dtype):
+    """Attention outputs over disjoint sets of keys merged into the output
+    over their union: o [R, ..., D], each part normalised over its own keys,
+    and its f32 log-sum-exp lse [R, ...] -> sum_r exp(lse_r - lse) o_r with
+    lse = logsumexp_r lse_r, in f32, rounded once to ``dtype``.  A part
+    with no key (lse -1e30) weighs exactly 0.  Plain PyTorch: the reduction
+    that JAX's GSPMD makes of the softmax over a sharded sequence."""
+    w = torch.exp(lse - torch.logsumexp(lse, dim=0))
+    return (w[..., None] * o.float()).sum(0).to(dtype)
+
+
 def local_attention(q, k, v, *, causal, impl, chunk, q_offset, local_window, kv_len):
     B, Sq, H, hd = q.shape
     KV = k.shape[2]

@@ -263,7 +263,7 @@ def moe_apply(x, p, cfg, compute_dtype, mesh_info=None):
     ``moe_apply`` does: ``mesh_info`` is (mesh, data axes, model axis[,
     "ep_a2a"]) from ``launch.steps.mesh_info_for``; a model axis of None
     selects the fsdp-local path, an axis that does not divide the experts
-    the dense one."""
+    the dense one (on a mesh's DTensors: ``_dense_on_mesh``)."""
     if mesh_info is not None:
         mesh, data_axes, model_axis = mesh_info[:3]
         mode = mesh_info[3] if len(mesh_info) > 3 else "ep_psum"
@@ -274,4 +274,26 @@ def moe_apply(x, p, cfg, compute_dtype, mesh_info=None):
             if mode == "ep_a2a":
                 return moe_apply_ep_a2a(x, p, cfg, compute_dtype, mesh, data_axes, model_axis)
             return moe_apply_ep(x, p, cfg, compute_dtype, mesh, data_axes, model_axis)
+        from torch.distributed.tensor import DTensor
+
+        if isinstance(x, DTensor):
+            return _dense_on_mesh(x, p, cfg, compute_dtype, mesh)
     return moe_apply_dense(x, p, cfg, compute_dtype)
+
+
+def _dense_on_mesh(x, p, cfg, compute_dtype, mesh):
+    """The dense path on a mesh whose model axis does not split the experts
+    (one rank wide, or not dividing them): every token and every expert on
+    every rank, the global computation that JAX's GSPMD partitions (its
+    capacity from every token), as a ``shard_map`` over whole tensors.  On
+    one rank it is the unsharded path's arithmetic."""
+    def whole(t):
+        return PSpec(*(None,) * t.ndim)
+
+    banks = _banks(p)
+
+    def body(xl, router, we_gate, we_up, we_down):
+        lp = {"router": router, "we_gate": we_gate, "we_up": we_up, "we_down": we_down}
+        return moe_apply_dense(xl, lp, cfg, compute_dtype)
+
+    return shard_map(body, mesh, (whole(x), *(whole(b) for b in banks)), whole(x))(x, *banks)

@@ -25,13 +25,14 @@ from torch.utils.checkpoint import (
     create_selective_checkpoint_contexts,
 )
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, ref
 
 from .common import constrain, current_mesh_rules, logical_to_pspec, tree_items, tree_map
 from .layers import (
     NEG_INF,
     local_attention,
     local_kv,
+    merge_partials,
     apply_norm,
     apply_rope,
     attn_output,
@@ -388,7 +389,7 @@ def _attend_cache(q, k_cache, v_cache, *, cfg, dt, pos, window, kv_len):
         ring_pos = pos - ((slot - idx) % S)
         valid = (ring_pos >= 0) & (ring_pos >= pos - window + 1)
         return _masked_decode_attention(q, k_cache, v_cache, valid, cfg)
-    if cfg.attn_impl == "pallas" and k_cache.shape[1] % 128 == 0:
+    if _kernel_route(cfg, k_cache):
         # the flash-decode kernel reads the cache in its stored dtype (fp8
         # caches halve the traffic) and only the first pos + 1 slots
         return ops.decode_attention(q[:, 0], k_cache, v_cache, kv_len).to(dt)[:, None]
@@ -397,17 +398,26 @@ def _attend_cache(q, k_cache, v_cache, *, cfg, dt, pos, window, kv_len):
                             chunk=cfg.attn_chunk, q_offset=pos, local_window=0, kv_len=kv_len)
 
 
+def _kernel_route(cfg, k_cache) -> bool:
+    """Whether the decode attends through flash-decode: ``attn_impl="pallas"``
+    and a cache (under a mesh: this rank's shard of it) of a multiple of 128
+    slots, JAX's guard."""
+    return cfg.attn_impl == "pallas" and k_cache.shape[1] % 128 == 0
+
+
 def _sharded_cache_attention(ctx, q, k, v, k_cache, v_cache, kw):
     """The cache write and the attention under a mesh, as a ``shard_map``
-    on each rank's rows and heads: q (batch, act_heads), the new k/v and
-    the cache [B, S, KV, hd] (batch, act_kv), the cache's sequence
-    unsharded (its sequence-sharded layout, ``cache_pspecs``, is sharded
-    serving: ROADMAP.md, section 1, item 6.1).  Where q's heads are split
-    and the cache's are not, each rank writes every kv head and attends
-    with those its query heads read."""
+    on each rank's rows and heads.  Where the rules shard the cache's
+    sequence (``cache_seq``: decode), that is ``_seq_sharded_attention``.
+    Otherwise q is split by (batch, act_heads), the new k/v and the cache
+    [B, S, KV, hd] by (batch, act_kv), the cache's sequence whole; where q's
+    heads are split and the cache's are not, each rank writes every kv head
+    and attends with those its query heads read."""
     from repro_torch.launch.compat import shard_map
 
     mesh, rules = ctx
+    if rules.get("cache_seq") is not None:
+        return _seq_sharded_attention(mesh, rules, q, k, v, k_cache, v_cache, kw)
     qs = logical_to_pspec(("batch", None, "act_heads", None), rules)
     ks = logical_to_pspec(("batch", None, "act_kv", None), rules)
     G = q.shape[2] // k.shape[2]
@@ -418,6 +428,123 @@ def _sharded_cache_attention(ctx, q, k, v, k_cache, v_cache, kw):
         return _attend_cache(ql, kc, vc, **kw)
 
     return shard_map(body, mesh, (qs, ks, ks, ks, ks), qs)(q, k, v, k_cache, v_cache)
+
+
+def _seq_sharded_attention(mesh, rules, q, k, v, k_cache, v_cache, kw):
+    """Decode attention against a cache whose sequence is split over the
+    mesh axis ``cache_seq`` names (``launch.shardings.cache_pspecs``' decode
+    layout: [B, S, KV, hd] by (batch, cache_seq), the kv heads whole), as a
+    ``shard_map``.  Each rank holds the ``n = S / R`` slots from ``r * n``
+    (rank ``r`` of ``R`` on that axis):
+
+    - q's heads and the new k/v's kv heads are gathered over the axis (the
+      body's inputs are whole on heads);
+    - only the rank whose slots hold ``pos`` writes the new k/v; at a device
+      ``pos`` every rank writes a clamped slot, the others their old row
+      back, so a captured step replays on every rank alike;
+    - flash-decode (the route ``_kernel_route`` decides on the shard's
+      length) attends to the shard's live slots, ``pos + 1 - r * n`` of
+      them (clamped to [0, n] by the kernel: an empty shard gives lse
+      -1e30), with each head's log-sum-exp;
+    - the ranks' (o, lse) are all-gathered over the axis and merged
+      (``merge_partials``: what GSPMD computes by reducing the softmax's
+      statistics over ``model``), and each rank keeps its own query heads
+      (act_heads) for ``attn_output``.
+
+    On one rank this is the unsharded step's arithmetic: a merge of one
+    part is that part, bitwise."""
+    from repro_torch.launch.compat import shard_map
+    from repro_torch.launch.shardings import PSpec, placements
+
+    axis, window, pos, cfg, dt = (rules["cache_seq"], kw["window"], kw["pos"], kw["cfg"],
+                                  kw["dt"])
+    if window:
+        raise NotImplementedError("a ring cache (hybrid) with a sharded sequence: "
+                                  "ROADMAP.md, section 1, item 6.2")
+    if not isinstance(axis, str):
+        raise NotImplementedError(f"a cache sequence split over several mesh axes {axis}")
+    b, heads = rules["batch"], rules.get("act_heads")
+    whole = PSpec(b, None, None, None)
+    cs = PSpec(b, axis, None, None)
+    want = placements(mesh, cs)
+    for c in (k_cache, v_cache):
+        if tuple(getattr(c, "placements", ())) != want:
+            raise ValueError(f"the cache must lie in cache_pspecs' decode layout {cs} "
+                             f"({want}); it has {getattr(c, 'placements', 'no placements')}")
+    R = mesh.size(mesh.mesh_dim_names.index(axis))
+    if not isinstance(pos, torch.Tensor) and not 0 <= pos < R * k_cache.shape[1]:
+        raise IndexError(f"position {pos} outside the cache's {R * k_cache.shape[1]} slots")
+
+    def body(ql, kl, vl, kc, vc):
+        n = kc.shape[1]
+        start = mesh.get_local_rank(axis) * n
+        _write_shard(kl, vl, kc, vc, pos - start)
+        o, lse = _attend_shard(ql, kc, vc, cfg, dt, _local_kv_len(kw["kv_len"], start, n,
+                                                                   ql.device))
+        D = o.shape[-1]
+        parts = _all_gather(torch.cat([o.float(), lse[..., None]], dim=-1)[None], mesh, axis)
+        o = merge_partials(parts[..., :D], parts[..., D], ql.dtype)[:, None]
+        if heads is not None:
+            Hl = o.shape[2] // mesh.size(mesh.mesh_dim_names.index(heads))
+            h0 = mesh.get_local_rank(heads) * Hl
+            o = o[:, :, h0:h0 + Hl]
+        return o
+
+    qs = PSpec(b, None, heads, None)
+    return shard_map(body, mesh, (whole, whole, whole, cs, cs), qs)(q, k, v, k_cache, v_cache)
+
+
+def _write_shard(k, v, k_cache, v_cache, slot):
+    """The new k/v [B, 1, KV, hd] into slot ``slot`` of a cache shard [B, n,
+    KV, hd] where it lies in the shard (``slot = pos - start``).  At a
+    device position every rank writes the clamped slot: the new row where
+    the shard holds ``pos``, its own old row elsewhere (a row picked from
+    [old, new] by index, which any cache dtype takes)."""
+    n = k_cache.shape[1]
+    if not isinstance(slot, torch.Tensor):
+        if 0 <= slot < n:
+            k_cache[:, slot] = k[:, 0].to(k_cache.dtype)
+            v_cache[:, slot] = v[:, 0].to(v_cache.dtype)
+        return
+    at = slot.clamp(0, n - 1).reshape(1).long()
+    owned = ((slot >= 0) & (slot < n)).reshape(1).long()
+    for new, cache in ((k, k_cache), (v, v_cache)):
+        rows = torch.cat([cache.index_select(1, at), new.to(cache.dtype)], dim=1)
+        cache.index_copy_(1, at, rows.index_select(1, owned))
+
+
+def _local_kv_len(kv_len, start: int, n: int, device):
+    """A shard's live length ``kv_len - start`` (``kv_len`` = pos + 1, an
+    int or flash-decode's int32 device tensor) in the form flash-decode
+    takes: the step's own tensor on the first shard, an int32 tensor the
+    kernel clamps to [0, n] past it; an int where it lies in [1, n]."""
+    if isinstance(kv_len, torch.Tensor):
+        return kv_len if start == 0 else (kv_len - start).to(torch.int32)
+    local = kv_len - start
+    if 1 <= local <= n:
+        return local
+    return torch.full((1,), min(max(local, 0), n), dtype=torch.int32, device=device)
+
+
+def _attend_shard(q, k_cache, v_cache, cfg, dt, kv_len):
+    """q [B, 1, H, hd] against the first ``kv_len`` slots of a cache shard
+    -> (o [B, H, hd] in ``dt``, lse [B, H] f32): flash-decode where
+    ``_kernel_route`` takes the shard, else its plain version on the cache
+    cast to ``dt`` (the plain path's operands)."""
+    if _kernel_route(cfg, k_cache):
+        o, lse = ops.decode_attention(q[:, 0], k_cache, v_cache, kv_len, with_lse=True)
+        return o.to(dt), lse
+    return ref.decode_attention_ref(q[:, 0], k_cache.to(dt), v_cache.to(dt), kv_len,
+                                    with_lse=True)
+
+
+def _all_gather(x, mesh, axis: str):
+    """``x`` [1, ...] of every rank on ``axis``, stacked: [R, ...]."""
+    from torch.distributed import _functional_collectives as funcol
+
+    gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
+    out = gather(x.contiguous(), 0, mesh.get_group(axis))
+    return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
 
 
 def _masked_decode_attention(q, k_cache, v_cache, valid, cfg):

@@ -17,7 +17,10 @@ the JAX package run unsharded on the same inputs (f32):
   * ``Trainer(mesh=)`` on a 2x2 mesh: its checkpoint restores bitwise in
     JAX's ``CheckpointManager`` and in the unsharded port's, and on the mesh
     (re-sharded);
-  * ``Server`` refuses a mesh of more than one rank.
+  * the prefill and greedy decode steps on a 2x4 mesh, the decode on JAX's
+    decode layout (the cache's sequence over ``model``: 64-slot shards,
+    which take the plain route) and with the cache split over batch and kv
+    heads; ``Server(mesh=)`` itself is ``test_torch_serve_mesh.py``'s.
 
 Each group of ranks runs once per module (``run_ranks``: a ``FileStore``
 under pytest's temporary directory, a timeout on the process group and on
@@ -53,7 +56,10 @@ TRAIN = {  # name: (arch, overrides, B, S)
 STEPS = 4
 MESH = (2, 4)
 SERVE = ("chatglm3_6b", "qwen3_moe_30b_a3b")  # a dense model; the MoE EP path
-SERVE_LEN, SERVE_STEPS = 256, 3  # cache slots (flash-decode's route), decode steps
+SERVE_LEN, SERVE_STEPS = 256, 3  # cache slots, decode steps
+# the decode cache's layouts: JAX's decode layout (the sequence over
+# `model`), and the decode rules without `cache_seq` (batch and kv heads)
+SERVE_CASES = [(arch, layout) for arch in SERVE for layout in ("seq", "heads")]
 TIMEOUT = 240.0
 
 
@@ -109,16 +115,16 @@ def ranks(tmp_path_factory):
     cases.append(("backward_on_a_thread", "chatglm3_6b", MESH,
                   _np(JModel(jget_smoke("chatglm3_6b")).init_params(jax.random.PRNGKey(0))),
                   batch))
-    for arch in SERVE:
+    for arch, layout in SERVE_CASES:
         cfg, params, prompt = _serve_inputs(arch)
-        cases.append(("serve", arch, MESH, params, prompt, SERVE_LEN, SERVE_STEPS))
+        cases.append(("serve", arch, MESH, params, prompt, SERVE_LEN, SERVE_STEPS, layout))
     out = run_ranks(torch_mesh_ranks.suite, 8, cases, timeout=TIMEOUT,
                     store_dir=tmp_path_factory.mktemp("store"))[0]
     moe = {(arch, cf): out[2 * i + j] for i, arch in enumerate(MOE)
            for j, cf in enumerate((None, "no_drop"))}
     n = 2 * len(MOE) + len(TRAIN)
     return (moe, dict(zip(TRAIN, out[2 * len(MOE):n])), out[n], out[n + 1],
-            dict(zip(SERVE, out[n + 2:])))
+            dict(zip(SERVE_CASES, out[n + 2:])))
 
 
 @pytest.mark.parametrize("arch", MOE)
@@ -269,16 +275,20 @@ def _jax_serve(cfg, params, prompt):
     return first, steps, toks
 
 
-@pytest.mark.parametrize("arch", SERVE)
-def test_prefill_and_decode_steps_on_a_mesh_match_jax(ranks, arch):
+@pytest.mark.parametrize("arch,layout", SERVE_CASES)
+def test_prefill_and_decode_steps_on_a_mesh_match_jax(ranks, arch, layout):
     """``make_prefill_step(mesh=)`` (the flash forward on local heads) and
-    greedy ``make_decode_step(mesh=)`` steps (flash-decode's plain version
-    on local rows and heads, the cache written in place on each rank)
-    against JAX's unsharded ``prefill`` and ``decode_step`` on each data
-    shard's rows (the MoE EP path routes a data shard's tokens under their
-    own capacity, as JAX's does), f32."""
+    greedy ``make_decode_step(mesh=)`` steps against JAX's unsharded
+    ``prefill`` and ``decode_step`` on each data shard's rows (the MoE EP
+    path routes a data shard's tokens under their own capacity, as JAX's
+    does), f32.  "seq": the sequence-sharded cache (four 64-slot shards:
+    the plain route, each rank's partial (o, lse) merged over ``model``;
+    the cache written in place by the rank that holds the position, the
+    prompt's 128 filling two shards and the decode the third).  "heads":
+    the cache split over batch and kv heads, its sequence whole (256 slots:
+    flash-decode's route), written in place on each rank."""
     cfg, params, prompt = _serve_inputs(arch)
-    first, steps, toks = ranks[4][arch]
+    first, steps, toks = ranks[4][arch, layout]
     p = jax.tree.map(jnp.asarray, params)
     half = prompt.shape[0] // MESH[0]
     shards = [_jax_serve(cfg, p, prompt[r * half:(r + 1) * half]) for r in range(MESH[0])]
@@ -309,15 +319,3 @@ def test_one_rank_mesh_step_is_the_unsharded_step_bitwise(one_rank, dtype):
     assert mloss == loss
     for (path, a), (_, b) in zip(tree_items(mgrads), tree_items(grads)):
         np.testing.assert_array_equal(a, b, err_msg=path)
-
-
-def test_server_refuses_a_mesh_of_several_ranks():
-    from repro_torch.configs import get_smoke_config
-    from repro_torch.launch.serve import Server
-
-    class TwoRanks:
-        def size(self):
-            return 2
-
-    with pytest.raises(NotImplementedError, match="6.1"):
-        Server(get_smoke_config("chatglm3_6b"), device="cpu", mesh=TwoRanks())

@@ -1216,3 +1216,141 @@ def test_captured_batcher_tick_has_no_host_sync(cuda):
         torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(b._graph.logits).all())
+
+
+# ---------------------------------------------------------------------------
+# flash-decode's log-sum-exp and sharded serving
+# ---------------------------------------------------------------------------
+
+# (q dtype, cache dtype, B, S, H, KV, D): the tensor-core variant at
+# chatglm3-6b's decode (one split and several), the CUDA-core one in f32
+# and in bf16 at a head dim the tensor cores do not take
+LSE_CASES = [
+    ("mma", torch.bfloat16, torch.bfloat16, 4, 512, 32, 2, 128),
+    ("mma", torch.bfloat16, torch.float8_e4m3fn, 2, 256, 8, 2, 64),
+    ("simt", torch.float32, torch.float32, 4, 512, 32, 2, 128),
+    ("simt", torch.bfloat16, torch.bfloat16, 2, 256, 8, 2, 96),
+]
+
+
+def _lse_inputs(cuda, q_dtype, kv_dtype, B, S, H, KV, D, seed=30):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    return (_randn(gen, (B, H, D), q_dtype, cuda), _randn(gen, (B, S, KV, D), kv_dtype, cuda),
+            _randn(gen, (B, S, KV, D), kv_dtype, cuda))
+
+
+@pytest.mark.parametrize("form", ["int", "device", "per_row"])
+@pytest.mark.parametrize("variant,q_dtype,kv_dtype,B,S,H,KV,D", LSE_CASES)
+def test_decode_lse_matches_ref(cuda, variant, q_dtype, kv_dtype, B, S, H, KV, D, form):
+    """Both variants' lse against the plain version's at the int, device
+    and per-row ``kv_len``; o with lse asked for is bitwise o without."""
+    from repro_torch.kernels import decode_attention as dec
+
+    assert dec.variant(q_dtype, kv_dtype, D) == variant
+    q, k, v = _lse_inputs(cuda, q_dtype, kv_dtype, B, S, H, KV, D)
+    for length in (1, 17, S // 2 + 3, S):
+        if form == "int":
+            kv = length
+        elif form == "device":
+            kv = torch.full((1,), length, dtype=torch.int32, device=cuda)
+        else:
+            kv = torch.tensor([length, 1, S, S // 3][:B], dtype=torch.int32, device=cuda)
+        o, lse = decode_attention_fwd(q, k, v, kv, with_lse=True)
+        plain_o = decode_attention_fwd(q, k, v, kv)
+        want_o, want_lse = ref.decode_attention_ref(q, k, v, kv, with_lse=True)
+        torch.cuda.synchronize()
+        assert lse.dtype == torch.float32 and tuple(lse.shape) == (B, H)
+        assert torch.equal(o, plain_o), (form, length)
+        _close(o, want_o, **TOL[q_dtype])
+        _close(lse, want_lse, **TOL[q_dtype])
+
+
+@pytest.mark.parametrize("variant,q_dtype,kv_dtype,B,S,H,KV,D", LSE_CASES)
+def test_decode_empty_rows_weigh_nothing(cuda, variant, q_dtype, kv_dtype, B, S, H, KV, D):
+    """A per-row ``kv_len`` of 0 or below (a shard that holds no live key)
+    gives zero o and lse <= -1e29; merged with a live part it weighs exactly
+    0, with no NaN."""
+    from repro_torch.models.layers import merge_partials
+
+    q, k, v = _lse_inputs(cuda, q_dtype, kv_dtype, B, S, H, KV, D)
+    lens = torch.tensor([0, -5, 7, S][:B], dtype=torch.int32, device=cuda)
+    o, lse = decode_attention_fwd(q, k, v, lens, with_lse=True)
+    live_o, live_lse = decode_attention_fwd(q, k, v, S, with_lse=True)
+    torch.cuda.synchronize()
+    for row in range(min(B, 2)):
+        assert float(o[row].abs().max()) == 0.0
+        assert float(lse[row].max()) <= -1e29
+    got = merge_partials(torch.stack([o, live_o]), torch.stack([lse, live_lse]), q_dtype)
+    assert torch.isfinite(got).all()
+    for row in range(min(B, 2)):
+        assert torch.equal(got[row], live_o[row])
+
+
+@pytest.mark.parametrize("variant,q_dtype,kv_dtype,B,S,H,KV,D", LSE_CASES)
+def test_decode_merged_halves_match_the_whole_cache(cuda, variant, q_dtype, kv_dtype, B, S, H,
+                                                     KV, D):
+    """Two halves of the cache, each attended with its own live length
+    (``kv_len - S/2`` for the second: negative, zero or partial), merged,
+    against the kernel and its plain version over the whole cache."""
+    from repro_torch.models.layers import merge_partials
+
+    q, k, v = _lse_inputs(cuda, q_dtype, kv_dtype, B, S, H, KV, D)
+    h = S // 2
+    for length in (1, h - 1, h, h + 1, S - 5, S):
+        parts = [decode_attention_fwd(q, k[:, s:s + h], v[:, s:s + h],
+                                      torch.full((1,), length - s, dtype=torch.int32,
+                                                 device=cuda), with_lse=True)
+                 for s in (0, h)]
+        got = merge_partials(torch.stack([p[0] for p in parts]),
+                             torch.stack([p[1] for p in parts]), q_dtype)
+        torch.cuda.synchronize()
+        _close(got, decode_attention_fwd(q, k, v, length), **TOL[q_dtype])
+        _close(got, ref.decode_attention_ref(q, k, v, length), **TOL[q_dtype])
+
+
+def _one_rank_group(tmp_path, backend):
+    import datetime
+
+    import torch.distributed as dist
+
+    dist.init_process_group(backend, store=dist.FileStore(str(tmp_path / "store"), 1), rank=0,
+                            world_size=1, timeout=datetime.timedelta(seconds=60))
+
+
+@pytest.mark.parametrize("backend", ["nccl", "gloo"])
+def test_server_on_a_one_rank_mesh_is_the_unsharded_server(cuda, tmp_path, backend):
+    """``Server(mesh=)`` on a 1x1 CUDA mesh, chatglm3's smoke config in bf16
+    with ``attn_impl="pallas"``: over NCCL the captured ``generate`` (its
+    all-gathers inside the graph), over gloo ``generate_eager`` (and
+    ``generate`` refuses, naming it), tokens equal and logits bitwise the
+    unsharded ``Server.generate``'s."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+
+    cfg = get_smoke_config("chatglm3_6b").replace(attn_impl="pallas")
+    _one_rank_group(tmp_path, backend)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"), device="cuda", backend=backend)
+        plain = Server(cfg, device="cuda", max_len=256)
+        params = plain.model.compute_params(plain.model.init_params(seed=0))
+        batch = concrete_batch(cfg, 2, 128, device=cuda)
+        batch.pop("targets")
+        want_t, want_l = plain.generate(params, batch, 12, with_logits=True)
+        server = Server(cfg, device="cuda", max_len=256, mesh=mesh)
+        placed = server.place(params)
+        if backend == "gloo":
+            with pytest.raises(RuntimeError, match="generate_eager"):
+                server.generate(placed, batch, 12)
+            got_t, got_l = server.generate_eager(placed, batch, 12, with_logits=True)
+        else:
+            got_t, got_l = server.generate(placed, batch, 12, with_logits=True)
+            again_t, _ = server.generate(placed, batch, 12, with_logits=True)
+            assert torch.equal(again_t.full_tensor(), got_t.full_tensor())
+        assert torch.equal(got_t.full_tensor(), want_t)
+        assert torch.equal(got_l.full_tensor(), want_l)
+    finally:
+        dist.destroy_process_group()

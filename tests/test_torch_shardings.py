@@ -61,6 +61,25 @@ def _same(port_tree, jax_tree, what):
     assert got == want, what
 
 
+def _names(entry) -> set:
+    if entry is None:
+        return set()
+    return set(entry) if isinstance(entry, tuple) else {entry}
+
+
+def _repaired(jcache: dict) -> dict:
+    """JAX's cache specs as tuples, with the port's repair of the
+    reference's fault: where the self cache's sequence (dim 2) and kv heads
+    (dim 3) name one mesh axis, which JAX's ``NamedSharding`` refuses, the
+    kv heads go whole in every k/v of the cache (cross k/v included)."""
+    out = {k: tuple(v) for k, v in jcache.items()}
+    if "k" in out and _names(out["k"][2]) & _names(out["k"][3]):
+        for key in ("k", "v", "cross_k", "cross_v"):
+            if key in out:
+                out[key] = out[key][:3] + (None,) + out[key][4:]
+    return out
+
+
 @pytest.mark.parametrize("mesh_name", list(MESHES))
 @pytest.mark.parametrize("arch,parallelism", CASES)
 def test_rules_and_specs_equal_jax(arch, parallelism, mesh_name):
@@ -79,8 +98,8 @@ def test_rules_and_specs_equal_jax(arch, parallelism, mesh_name):
         assert {k: tuple(v) for k, v in bs.items()} == {k: tuple(v) for k, v in jbs.items()}, what
         if shape.kind == "decode":
             cs = shardings.cache_pspecs(cfg, shape, mesh)
-            jcs = jshard.cache_pspecs(jcfg, jshape, mesh)
-            assert {k: tuple(v) for k, v in cs.items()} == {k: tuple(v) for k, v in jcs.items()}, what
+            jcs = _repaired(jshard.cache_pspecs(jcfg, jshape, mesh))
+            assert {k: tuple(v) for k, v in cs.items()} == jcs, what
         _same(model.param_pspecs(rules), jmodel.param_pspecs(jrules), what)
 
 
@@ -120,3 +139,48 @@ def test_placements_follow_the_spec():
     with pytest.raises(ValueError, match="mesh order"):
         shardings.placements(mesh, P(("model", "data"), None))
     assert repr(P("data", None)) == "PSpec('data', None)"
+
+
+def test_placements_refuse_an_axis_named_twice_as_jax_does():
+    """JAX's decode cache spec for chatglm3's smoke config on a 2x2 mesh
+    names ``model`` twice (its sequence and its 2 kv heads): JAX's
+    ``NamedSharding`` raises ``DuplicateSpecError``, and ``placements``
+    raises on the same spec (it would otherwise shard one dim and drop the
+    other in silence)."""
+    from jax.sharding import AbstractMesh, NamedSharding
+    from jax.sharding import PartitionSpec as JP
+
+    jmesh = AbstractMesh((2, 2), ("data", "model"))
+    jcfg = jget_config("chatglm3_6b")
+    jspec = jshard.cache_pspecs(jcfg, JSHAPES["decode_32k"], jmesh)["k"]
+    assert tuple(jspec) == (None, "data", "model", "model", None)
+    with pytest.raises(Exception, match="duplicate") as err:
+        NamedSharding(jmesh, jspec)
+    assert type(err.value).__name__ == "DuplicateSpecError"
+    mesh = _FakeMesh({"data": 2, "model": 2})
+    with pytest.raises(ValueError, match="names two tensor dims"):
+        shardings.placements(mesh, shardings.PSpec(*jspec))
+    with pytest.raises(ValueError, match="names two tensor dims"):
+        shardings.placements(mesh, shardings.PSpec(("data", "model"), "model"))
+    NamedSharding(jmesh, JP(None, "data", "model", None, None))  # the port's layout
+
+
+@pytest.mark.parametrize("arch", ["chatglm3_6b", "qwen3_moe_30b_a3b"])
+def test_decode_cache_keeps_the_sequence_on_model(arch):
+    """The port's decode cache on a 2x2 mesh, smoke and full configs: the
+    sequence over ``model``, the kv heads whole (both configs' kv heads
+    divide ``model``); on the production 16x16 mesh, JAX's spec unchanged."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+
+    mesh = _FakeMesh({"data": 2, "model": 2})
+    for cfg in (get_smoke_config(arch), get_config(arch)):
+        specs = shardings.cache_pspecs(cfg, ShapeConfig("d", "decode", 256, 8), mesh)
+        assert specs == {"k": shardings.PSpec(None, "data", "model", None, None),
+                         "v": shardings.PSpec(None, "data", "model", None, None)}
+        for spec in specs.values():
+            shardings.placements(mesh, spec)
+    big = _FakeMesh(MESHES["16x16"])
+    cs = shardings.cache_pspecs(get_config(arch), SHAPES["decode_32k"], big)
+    jcs = jshard.cache_pspecs(jget_config(arch), JSHAPES["decode_32k"], big)
+    assert {k: tuple(v) for k, v in cs.items()} == {k: tuple(v) for k, v in jcs.items()}

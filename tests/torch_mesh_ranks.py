@@ -217,7 +217,8 @@ def suite(rank, world, cases):
     """Several cases in one process group (one spawn): each ``(name,
     *args)`` runs ``name(rank, world, *args)``; the list of results."""
     fns = {"train": train, "moe": moe, "remat_a2a": remat_a2a,
-           "backward_on_a_thread": backward_on_a_thread, "serve": serve}
+           "backward_on_a_thread": backward_on_a_thread, "serve": serve, "server": server,
+           "serve_cli": serve_cli}
     return [fns[name](rank, world, *args) for name, *args in cases]
 
 
@@ -330,16 +331,20 @@ def pipeline_and_compression(rank, world, ws, xs, grads, residuals):
     return (out, every, half["w"].numpy()) if rank == 0 else None
 
 
-def serve(rank, world, arch, mesh_shape, params_np, prompt_np, max_len, steps):
-    """``make_prefill_step(mesh=)`` on a prompt, the cache padded to
-    ``max_len`` slots, then ``steps`` greedy ``make_decode_step(mesh=)``
-    steps (the cache sharded over batch and kv heads, its sequence whole):
-    (prefill logits, [decode logits], [tokens]) on rank 0."""
+def serve(rank, world, arch, mesh_shape, params_np, prompt_np, max_len, steps, layout):
+    """``make_prefill_step(mesh=)`` on a prompt, then ``steps`` greedy
+    ``make_decode_step(mesh=)`` steps on the cache in ``layout``: "seq",
+    the decode layout (``cache_pspecs``: the sequence split over ``model``,
+    the kv heads whole; ``serve.to_decode_layout``), or "heads", the
+    decode rules without ``cache_seq`` (the cache split over batch and kv
+    heads, its sequence whole, padded on the host): (prefill logits,
+    [decode logits], [tokens]) on rank 0."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.convert import from_numpy_tree
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.shardings import PSpec, logical_rules, named, placements
+    from repro_torch.launch.serve import to_decode_layout
+    from repro_torch.launch.shardings import PSpec, cache_pspecs, logical_rules, named, placements
     from repro_torch.launch.steps import make_decode_step, make_prefill_step
     from repro_torch.models.common import activate_sharding, logical_to_pspec
 
@@ -349,19 +354,27 @@ def serve(rank, world, arch, mesh_shape, params_np, prompt_np, max_len, steps):
     model, prefill = make_prefill_step(cfg, device="cpu", mesh=mesh)
     _, decode = make_decode_step(cfg, device="cpu", mesh=mesh)
     rules = logical_rules(cfg, ShapeConfig("p", "prefill", S, B), mesh)
-    drules = logical_rules(cfg, ShapeConfig("d", "decode", max_len, B), mesh)
+    dshape = ShapeConfig("d", "decode", max_len, B)
+    drules = logical_rules(cfg, dshape, mesh)
+    if layout == "heads":
+        drules["cache_seq"] = None
     params = from_numpy_tree(params_np, device="cpu")
     batch = named(mesh, {"inputs": PSpec(rules["batch"], None)},
                   {"inputs": torch.from_numpy(prompt_np).long()})
     with activate_sharding(mesh, rules):
         logits, cache = prefill(named(mesh, model.param_pspecs(rules), params), batch)
     first = _full(logits)
-    kv_spec = logical_to_pspec((None, "batch", None, "act_kv", None), drules)
-    padded = {}
-    for key, c in cache.items():
-        buf = torch.zeros((c.shape[0], B, max_len) + tuple(c.shape[3:]), dtype=c.dtype)
-        buf[:, :, :S] = torch.from_numpy(_full(c)).to(c.dtype)
-        padded[key] = named(mesh, kv_spec, buf)
+    if layout == "seq":
+        specs = cache_pspecs(cfg, dshape, mesh)
+        padded = to_decode_layout(cache, mesh, specs, max_len)
+    else:
+        kv_spec = logical_to_pspec((None, "batch", None, "act_kv", None), drules)
+        specs, padded = {}, {}
+        for key, c in cache.items():
+            buf = torch.zeros((c.shape[0], B, max_len) + tuple(c.shape[3:]), dtype=c.dtype)
+            buf[:, :, :S] = torch.from_numpy(_full(c)).to(c.dtype)
+            specs[key] = kv_spec
+            padded[key] = named(mesh, kv_spec, buf)
     dparams = named(mesh, model.param_pspecs(drules), params)
     tok = torch.from_numpy(first[:, -1].argmax(-1)[:, None]).long()
     out, toks = [], []
@@ -373,5 +386,65 @@ def serve(rank, world, arch, mesh_shape, params_np, prompt_np, max_len, steps):
         out.append(step)
         tok = torch.from_numpy(step[:, -1].argmax(-1)[:, None]).long()
         toks.append(tok.numpy())
-    assert all(c.placements == placements(mesh, kv_spec) for c in padded.values())
+    assert all(c.placements == placements(mesh, specs[k]) for k, c in padded.items())
     return (first, out, toks) if rank == 0 else None
+
+
+def server(rank, world, arch, mesh_shape, params_np, prompt_np, max_len, steps, dtype):
+    """``Server(mesh=)`` on a ("data", "model") mesh: ``generate`` (on the
+    CPU, the eager loop) from whole parameters, ``steps`` tokens: (tokens,
+    logits) whole, on rank 0."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import from_numpy_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Server
+
+    cfg = get_smoke_config(arch).replace(compute_dtype=dtype, attn_impl="pallas")
+    mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu", backend="gloo")
+    srv = Server(cfg, device="cpu", max_len=max_len, mesh=mesh)
+    params = srv.model.compute_params(from_numpy_tree(params_np, device="cpu"))
+    tokens, logits = srv.generate(params, {"inputs": torch.from_numpy(prompt_np).long()},
+                                  steps, with_logits=True)
+    tokens, logits = _full(tokens), _full(logits)  # collectives: every rank takes part
+    return (tokens, logits) if rank == 0 else None
+
+
+def serve_cli(rank, world, argv):
+    """``python -m repro_torch.launch.serve`` with ``argv`` on every rank:
+    what rank 0 prints."""
+    import contextlib
+    import io
+
+    from repro_torch.launch.serve import main
+
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        main(argv)
+    return printed.getvalue() if rank == 0 else None
+
+
+def server_one_rank(rank, world, cases, max_len, steps):
+    """``Server(mesh=)`` on a 1x1 mesh and the unsharded ``Server`` on the
+    same parameters and prompt, for each (arch, compute dtype, params,
+    prompt) of ``cases``: {(arch, dtype): ((tokens, logits) on the mesh,
+    (tokens, logits) unsharded)}, logits as raw bits."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import from_numpy_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Server
+
+    mesh = make_mesh((1, 1), ("data", "model"), device="cpu", backend="gloo")
+    out = {}
+    for arch, dtype, params_np, prompt_np in cases:
+        prompt = {"inputs": torch.from_numpy(prompt_np).long()}
+        cfg = get_smoke_config(arch).replace(compute_dtype=dtype, attn_impl="pallas")
+        runs = []
+        for m in (mesh, None):
+            srv = Server(cfg, device="cpu", max_len=max_len, mesh=m)
+            params = srv.model.compute_params(from_numpy_tree(params_np, device="cpu"))
+            tokens, logits = srv.generate(params, prompt, steps, with_logits=True)
+            if m is not None:
+                tokens, logits = tokens.full_tensor(), logits.full_tensor()
+            runs.append((tokens.numpy(), logits.view(torch.int32).numpy()))
+        out[arch, dtype] = tuple(runs)
+    return out
