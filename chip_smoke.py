@@ -2587,11 +2587,12 @@ def phase_fused_scans(torch, ref, scan_fwd, gated_fwd) -> list:
 
 
 def phase_recurrent(torch, arch: str, counters: dict, B: int, prompt: int,
-                    gen_tokens: int) -> dict:
+                    gen_tokens: int, smi: str, mesh_launches: dict) -> dict:
     """One recurrent model (ssm or hybrid) at full width and depth, served
-    through ``Server.generate``; the launch counts of that run, then the
+    through ``Server.generate``; the launch counts of that run; the same
+    weights served on a 1x1 NCCL mesh (``[serve_mesh] (a)``); then the
     kernel path against the plain path in bf16 and f32.  Returns the
-    launch counts."""
+    launch counts of the unsharded run."""
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Server
     from repro_torch.launch.steps import concrete_batch
@@ -2627,6 +2628,8 @@ def phase_recurrent(torch, arch: str, counters: dict, B: int, prompt: int,
     check(tuple(tokens.shape) == (B, gen_tokens), f"tokens shape {tuple(tokens.shape)}")
     check(bool(((tokens >= 0) & (tokens < cfg.vocab_size)).all()), "token out of range")
     check(launched == want, f"{cfg.name}: the serve's launch counts are not the path's")
+    serve_mesh_one_rank(torch, server, params, batch, gen_tokens, counters, want, smi,
+                        mesh_launches)
 
     # the plain path, teacher-forced on the first 9 generated tokens, in
     # bf16, in bf16 at depth 3, and (the same weights, not cast) in f32
@@ -2858,14 +2861,16 @@ ENC_VLM = (("whisper_large_v3", "whisper", 128, 256), ("qwen2_vl_2b", "qwen2vl",
 
 
 def phase_enc_vlm(torch, arch: str, tag: str, counters: dict, B: int, prompt: int,
-                  gen_tokens: int, max_len: int) -> dict:
+                  gen_tokens: int, max_len: int, smi: str, mesh_launches: dict) -> dict:
     """whisper-large-v3 (audio frames [B, 1500, d] through the encoder, the
     decoder prompted with tokens) or qwen2-vl-2b (the prompt as embeddings
     at the image layout's positions, no tokens) at full width and depth,
     weights from seed 0 in f32 cast to bf16, served through
     ``Server.generate`` beside ``generate_eager`` (``time_serve``); the
     launch counts of the first graph run, the step's byte bound, a profile
-    of 8 replays, one eager decode step with no host sync; then at depth 2
+    of 8 replays, one eager decode step with no host sync; for whisper, the
+    same weights served on a 1x1 NCCL mesh (``[serve_mesh] (a)``); then at
+    depth 2
     (full width) the kernel path against the plain path teacher-forced, in
     bf16 (naive) and f32 (chunked).  Returns the launch counts."""
     from repro_torch.configs import get_config
@@ -2935,7 +2940,11 @@ def phase_enc_vlm(torch, arch: str, tag: str, counters: dict, B: int, prompt: in
         step.pos.fill_(prompt)
     profile_run(torch, f"{cfg.name} 8 replays of the captured decode step",
                 lambda: [step.replay() for _ in range(8)])
-    del params, leaves, server, model, run, step
+    del step
+    if cfg.family == "encdec":
+        serve_mesh_one_rank(torch, server, params, batch, gen_tokens, counters, want, smi,
+                            mesh_launches)
+    del params, leaves, server, model, run
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3330,18 +3339,30 @@ def phase_mesh(torch) -> dict:
 # ---------------------------------------------------------------------------
 
 # (a) chatglm3-6b at full width and depth on a 1x1 ("data", "model") NCCL
-# mesh, served as the slice is; one rank runs the unsharded step's kernels
-# on the same tensors and the merge of one (o, lse) part is that part, so
-# the captured generate is held bitwise to the unsharded one.  (b) four
-# ranks sharing the card over gloo (a 2x2 mesh): SERVE_MESH_ARCHS cut to
-# depth SERVE_MESH_DEPTH (four ranks' weights and the unsharded reference on
-# one card), full width, bf16 weights made on the card, B x prompt, a cache
-# of SERVE_MESH_LEN slots (256 a model rank: flash-decode's route), the
-# unsharded Server's SERVE_MESH_TOKENS tokens fed back (teacher-forced),
-# eager (gloo's collectives run on the host: no capture)
-SERVE_MESH_ARCHS = ("chatglm3_6b", "qwen3_moe_30b_a3b")
-SERVE_MESH_DEPTH = 2
-SERVE_MESH_B, SERVE_MESH_PROMPT, SERVE_MESH_LEN, SERVE_MESH_TOKENS = 4, 128, 512, 160
+# mesh, served as the slice is (and falcon-mamba-7b, recurrentgemma-2b and
+# whisper-large-v3 inside their own phases, on their weights);
+# one rank runs the unsharded step's kernels on the same tensors and the
+# merge of one (o, lse) part is that part, so the captured generate is held
+# bitwise to the unsharded one.  (b) four ranks sharing the card over gloo
+# (a 2x2 mesh): SERVE_MESH_CELLS at full width, cut in depth (four ranks'
+# weights and the unsharded reference on one card), bf16 weights made on
+# the card, B x prompt, the unsharded Server's tokens fed back
+# (teacher-forced), eager (gloo's collectives run on the host: no capture);
+# the ssm, hybrid and encdec weights drawn in f32 and cast (the scans read
+# A_log, D and lam in f32).
+# Per arch: (depth, cache slots, tokens).  The self caches and the hybrid's
+# ring are 512 or 256 slots, 256 or 128 a model rank: flash-decode's route,
+# rank 1's shard empty after the 128-token prompt and filled by the decode;
+# the new families take 64 tokens (recurrentgemma's ring of min(2048, 256)
+# slots and whisper's 256-slot cache hold 128 + 63 positions)
+SERVE_MESH_CELLS = {
+    "chatglm3_6b": (2, 512, 160),
+    "qwen3_moe_30b_a3b": (2, 512, 160),
+    "falcon_mamba_7b": (2, 512, 64),
+    "recurrentgemma_2b": (3, 256, 64),  # one (rec, rec, attn) pattern
+    "whisper_large_v3": (2, 256, 64),  # 2 decoder and 2 encoder layers
+}
+SERVE_MESH_B, SERVE_MESH_PROMPT = 4, 128
 SERVE_MESH_PROFILED = 8  # the last decode steps, under torch.profiler
 
 
@@ -3349,10 +3370,34 @@ def _serving_counters() -> dict:
     from repro_torch.kernels.decode_attention import decode_attention_fwd
     from repro_torch.kernels.flash_attention import flash_attention_fwd
     from repro_torch.kernels.prefetch_gather import prefetch_gather_fwd
+    from repro_torch.kernels.rglru_scan import rglru_gated_fwd
+    from repro_torch.kernels.selective_scan import selective_scan_fwd
 
     return {"flash_attention_fwd": flash_attention_fwd,
             "decode_attention_fwd": decode_attention_fwd,
-            "prefetch_gather_fwd": prefetch_gather_fwd}
+            "prefetch_gather_fwd": prefetch_gather_fwd,
+            "selective_scan_fwd": selective_scan_fwd, "rglru_gated_fwd": rglru_gated_fwd}
+
+
+def _serve_want(cfg, steps: int) -> dict:
+    """The serving kernels' launches of a prefill and ``steps`` decode steps
+    of ``cfg`` (bf16, ``attn_impl="pallas"``, a 128-multiple prompt and
+    cache shards): the flash forward once per attention layer (whisper's
+    decoder; the hybrid's window and whisper's encoder and cross-attention
+    take the plain path), flash-decode once per layer per step, a scan once
+    per recurrent layer per call, the gather once per call."""
+    from repro_torch.models.transformer import block_kinds
+
+    want = dict.fromkeys(_serving_counters(), 0)
+    want["prefetch_gather_fwd"] = 1 + steps
+    if cfg.family == "ssm":
+        want["selective_scan_fwd"] = cfg.n_layers * (1 + steps)
+    elif cfg.family == "hybrid":
+        want["rglru_gated_fwd"] = block_kinds(cfg).count("rec") * (1 + steps)
+    else:
+        want["flash_attention_fwd"] = cfg.n_layers
+        want["decode_attention_fwd"] = cfg.n_layers * steps
+    return want
 
 
 def _zero_counters(counters: dict) -> None:
@@ -3377,105 +3422,107 @@ def _replayed_ms(torch, step, pos: int, n: int) -> float:
     return start.elapsed_time(end) / n
 
 
-def serve_mesh_one_rank(torch, counters: dict, smi: str, B: int, prompt: int, gen_tokens: int,
-                        max_len: int) -> dict:
-    """(a): ``Server(mesh=)`` on a 1x1 NCCL mesh against the unsharded
-    ``Server``, chatglm3-6b at full width and depth, bf16, B x prompt,
-    ``gen_tokens`` tokens, cache ``max_len``.  Both captured (a warm-up
-    ``generate`` of 4 tokens each); the counters zeroed just before the mesh
-    ``generate`` and read just after (flash once per layer, flash-decode once
-    per layer per step on the tensor cores, the gather once per prefill and
-    step); tokens equal and logits bitwise the unsharded ``generate``'s;
-    the replayed step's device time on and off the mesh, in turns."""
+def _add_launches(total: dict, launched: dict) -> None:
+    """``launched``'s kernel counts (not the per-variant ones) added into
+    ``total``."""
+    for n, v in launched.items():
+        if "." not in n:
+            total[n] = total.get(n, 0) + v
+
+
+@contextlib.contextmanager
+def one_rank_nccl(torch):
+    """A one-rank NCCL process group (a ``FileStore`` in a temporary
+    directory) and its 1x1 ("data", "model") mesh, torn down on exit."""
     import datetime
     import tempfile
 
     import torch.distributed as dist
 
-    from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.launch.serve import Server
-    from repro_torch.launch.steps import concrete_batch
-    from repro_torch.models.common import tree_items
 
-    cfg = get_config("chatglm3_6b").replace(attn_impl="pallas")
-    decode = counters["decode_attention_fwd"]
     with tempfile.TemporaryDirectory() as tmp:
         dist.init_process_group("nccl", store=dist.FileStore(f"{tmp}/store", 1), rank=0,
                                 world_size=1, timeout=datetime.timedelta(seconds=120))
         try:
-            mesh = make_mesh((1, 1), ("data", "model"), device="cuda", backend="nccl")
-            plain = Server(cfg, device="cuda", max_len=max_len)
-            params = plain.model.compute_params(plain.model.init_params(seed=0))
-            batch = concrete_batch(cfg, B, prompt, device="cuda")
-            batch.pop("targets")
-            server = Server(cfg, device="cuda", max_len=max_len, mesh=mesh)
-            placed = server.place(params)
-            shared = all(a.to_local().data_ptr() == b.data_ptr() for (_, a), (_, b)
-                         in zip(tree_items(placed), tree_items(params)))
-            t = time.perf_counter()
-            server.generate(placed, batch, 4)  # the mesh step's capture
-            torch.cuda.synchronize()
-            capture_s = time.perf_counter() - t
-            plain.generate(params, batch, 4)
-            torch.cuda.synchronize()
-            _zero_counters(counters)
-            t = time.perf_counter()
-            mt, ml = server.generate(placed, batch, gen_tokens, with_logits=True)
-            torch.cuda.synchronize()
-            mesh_s = time.perf_counter() - t
-            launched = {n: c.launches for n, c in counters.items()}
-            n_mma = decode.launches_mma
-            t = time.perf_counter()
-            ut, ul = plain.generate(params, batch, gen_tokens, with_logits=True)
-            torch.cuda.synchronize()
-            plain_s = time.perf_counter() - t
-            mt, ml = mt.full_tensor(), ml.full_tensor()
-            steps = gen_tokens - 1
-            print(f"[serve_mesh] (a) 1x1 NCCL mesh, {cfg.name} full width and depth "
-                  f"({cfg.n_layers} layers), bf16, B={B} prompt={prompt} cache {max_len}, "
-                  f"{gen_tokens} tokens: parameters placed {'in place' if shared else 'by copy'}; "
-                  f"first generate (the capture) {capture_s:.3f} s; generate {mesh_s:.3f} s on the "
-                  f"mesh, {plain_s:.3f} s unsharded (host clock); tokens equal "
-                  f"{torch.equal(mt, ut)}, logits bitwise {torch.equal(ml, ul)}; launches {launched} "
-                  f"(flash-decode on the tensor cores {n_mma})")
-            check(torch.equal(mt, ut), "[serve_mesh] (a) the mesh's tokens differ from the "
-                                       "unsharded Server's")
-            check(torch.equal(ml, ul), "[serve_mesh] (a) the mesh's logits are not bitwise the "
-                                       "unsharded Server's")
-            check(launched["decode_attention_fwd"] == cfg.n_layers * steps == n_mma,
-                  "[serve_mesh] (a) flash-decode did not run once per layer per step on the "
-                  "tensor cores")
-            check(launched["flash_attention_fwd"] == cfg.n_layers,
-                  "[serve_mesh] (a) the prefill did not run the flash forward once per layer")
-            check(launched["prefetch_gather_fwd"] == 1 + steps,
-                  "[serve_mesh] (a) the gather did not run once per prefill and step")
-            del ml, ul
-            ms = {"unsharded": [], "mesh": []}
-            for name in ("unsharded", "mesh", "mesh", "unsharded"):
-                srv, p = (plain, params) if name == "unsharded" else (server, placed)
-                ms[name].append(_replayed_ms(torch, srv.captured_decode(p, B), prompt, steps))
-            print(f"[serve_mesh] (a) captured step replayed back to back, device ms per step "
-                  f"(CUDA events, {steps} replays, in turns unsharded, mesh, mesh, unsharded): "
-                  f"mesh {[round(x, 4) for x in ms['mesh']]}, unsharded "
-                  f"{[round(x, 4) for x in ms['unsharded']]}; {smi}")
-            return launched
+            yield make_mesh((1, 1), ("data", "model"), device="cuda", backend="nccl")
         finally:
             dist.destroy_process_group()
 
 
+def serve_mesh_one_rank(torch, plain, params, batch, gen_tokens: int, counters: dict,
+                        want: dict, smi: str, mesh_launches: dict) -> None:
+    """(a): ``Server(mesh=)`` on a 1x1 NCCL mesh against ``plain`` (an
+    unsharded ``Server`` whose step is captured already) on the same
+    full-width, full-depth weights and prompt (chatglm3-6b's here; the ssm,
+    hybrid and encdec families' inside their own phases, on their
+    weights), both captured (a 4-token warm-up of the mesh run: its
+    capture); the counters zeroed just before the mesh ``generate`` and
+    read just after, held to ``want`` exactly (flash-decode on the tensor
+    cores); tokens equal and logits bitwise the unsharded ``generate``'s;
+    the replayed step's device time on and off the mesh, in turns.  The
+    mesh run's launches are added into ``mesh_launches``."""
+    from repro_torch.launch.serve import Server
+
+    cfg, B, S = plain.cfg, *plain.model.prompt_shape(batch)
+    steps = gen_tokens - 1
+    t0 = time.perf_counter()
+    with one_rank_nccl(torch) as mesh:
+        server = Server(cfg, device="cuda", max_len=plain.max_len, mesh=mesh)
+        placed = server.place(params)
+        t = time.perf_counter()
+        server.generate(placed, batch, 4)  # the mesh step's capture
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t
+        _zero_counters(counters)
+        mt, ml = server.generate(placed, batch, gen_tokens, with_logits=True)
+        torch.cuda.synchronize()
+        launched = {n: c.launches for n, c in counters.items()}
+        n_mma = counters["decode_attention_fwd"].launches_mma
+        ut, ul = plain.generate(params, batch, gen_tokens, with_logits=True)
+        torch.cuda.synchronize()
+        mt, ml = mt.full_tensor(), ml.full_tensor()
+        tokens_equal, bitwise = bool(torch.equal(mt, ut)), bool(torch.equal(ml, ul))
+        del mt, ml, ut, ul
+        ms = {"unsharded": [], "mesh": []}
+        for name in ("unsharded", "mesh", "mesh", "unsharded"):
+            srv, p = (plain, params) if name == "unsharded" else (server, placed)
+            ms[name].append(_replayed_ms(torch, srv.captured_decode(p, B), S, steps))
+        del server, placed
+    print(f"[serve_mesh] (a) 1x1 NCCL mesh, {cfg.name} ({cfg.family}) full width and depth, "
+          f"bf16, B={B} prompt={S} cache {plain.max_len}, {gen_tokens} tokens: first generate "
+          f"(the capture) {capture_s:.3f} s; tokens equal {tokens_equal}, logits bitwise "
+          f"{bitwise}; launches {launched} (want {want}; flash-decode on the tensor cores "
+          f"{n_mma}); captured step replayed back to back, device ms per step (CUDA events, "
+          f"{steps} replays, in turns unsharded, mesh, mesh, unsharded): mesh "
+          f"{[round(x, 4) for x in ms['mesh']]}, unsharded "
+          f"{[round(x, 4) for x in ms['unsharded']]}; {time.perf_counter() - t0:.1f} s; {smi}")
+    check(tokens_equal, f"[serve_mesh] (a) {cfg.name}: the mesh's tokens differ from the "
+                        "unsharded Server's")
+    check(bitwise, f"[serve_mesh] (a) {cfg.name}: the mesh's logits are not bitwise the "
+                   "unsharded Server's")
+    check(launched == want, f"[serve_mesh] (a) {cfg.name}: the mesh run's launch counts are "
+                            "not the path's")
+    if want.get("decode_attention_fwd"):
+        check(n_mma == want["decode_attention_fwd"],
+              f"[serve_mesh] (a) {cfg.name}: flash-decode did not run on the tensor cores")
+    _add_launches(mesh_launches, launched)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def serve_mesh_rank(rank: int, world: int) -> dict:
     """(b) One of four ranks sharing the card, a 2x2 gloo mesh: for each of
-    SERVE_MESH_ARCHS at depth SERVE_MESH_DEPTH, the unsharded ``Server`` on
-    this rank's data shard's rows (``generate_eager``: the tokens and the
-    reference logits), then ``Server(mesh=)``'s prefill and decode steps
-    fed those tokens, eager, the counters zeroed just before and read just
-    after; the logits of this rank's rows against the reference's, ms per
-    step (host clock, the card synced), the collectives' share of the last
-    SERVE_MESH_PROFILED steps, whether the model-1 shard of the cache was
-    empty after the prefill and holds keys at the end, and the MoE routes
-    the mesh run would have chosen otherwise (it is fed the reference's,
-    as the ``[moe]`` phase's plain path is)."""
+    SERVE_MESH_CELLS, the unsharded ``Server`` on this rank's data shard's
+    rows (``generate_eager``: the tokens and the reference logits), then
+    ``Server(mesh=)``'s prefill and decode steps fed those tokens, eager,
+    the counters zeroed just before and read just after; the logits of
+    this rank's rows against the reference's, ms per step (host clock, the
+    card synced), the collectives' share of the last SERVE_MESH_PROFILED
+    steps, whether the model-1 shard of a k/v cache was empty after the
+    prefill and holds keys at the end, and the MoE routes the mesh run
+    would have chosen otherwise (it is fed the reference's, as the
+    ``[moe]`` phase's plain path is)."""
     import torch
 
     torch.cuda.set_device(0)
@@ -3494,20 +3541,24 @@ def serve_mesh_rank(rank: int, world: int) -> dict:
     data, model_rank = mesh.get_coordinate()
     rows2 = placements(mesh, PSpec("data", None))
     rows3 = placements(mesh, PSpec("data", None, None))
-    B, S, T = SERVE_MESH_B, SERVE_MESH_PROMPT, SERVE_MESH_TOKENS
+    B, S = SERVE_MESH_B, SERVE_MESH_PROMPT
     mine = slice(data * B // 2, (data + 1) * B // 2)
     out = {"rank": rank, "coord": (data, model_rank)}
-    for arch in SERVE_MESH_ARCHS:
-        cfg = get_config(arch).replace(n_layers=SERVE_MESH_DEPTH, attn_impl="pallas",
-                                       param_dtype="bfloat16")
-        plain = Server(cfg, device="cuda", max_len=SERVE_MESH_LEN)
+    for arch, (depth, max_len, T) in SERVE_MESH_CELLS.items():
+        t_arch = time.perf_counter()
+        cfg = get_config(arch).replace(n_layers=depth, attn_impl="pallas")
+        if cfg.family in ("dense", "moe"):  # made in bf16 on the card
+            cfg = cfg.replace(param_dtype="bfloat16")
+        if cfg.family == "encdec":
+            cfg = cfg.replace(enc_layers=depth)
+        plain = Server(cfg, device="cuda", max_len=max_len)
         params = plain.model.compute_params(plain.model.init_params(seed=0))
         batch = concrete_batch(cfg, B, S, device="cuda")
         batch.pop("targets")
         with routing(torch) as ref_routes:
-            ref_t, ref_l = plain.generate_eager(params, {"inputs": batch["inputs"][mine]}, T,
-                                                with_logits=True)
-        server = Server(cfg, device="cuda", max_len=SERVE_MESH_LEN, mesh=mesh)
+            ref_t, ref_l = plain.generate_eager(params, {k: v[mine] for k, v in batch.items()},
+                                                T, with_logits=True)
+        server = Server(cfg, device="cuda", max_len=max_len, mesh=mesh)
         placed = server.place(params)
         forced = DTensor.from_local(ref_t, mesh, rows2, run_check=False)
         scale = float(ref_l.abs().max())
@@ -3522,7 +3573,8 @@ def serve_mesh_rank(rank: int, world: int) -> dict:
             p, logits, cache, decoding = server._prefill(placed, batch)
             got = logits.redistribute(mesh, rows3).to_local()
             worst[0] = float((got - ref_l[:, :1]).abs().max()) / scale
-            empty_after_prefill = float(cache["k"].to_local().abs().max()) == 0.0
+            kv = "k" in cache
+            empty_after_prefill = kv and float(cache["k"].to_local().abs().max()) == 0.0
             with decoding:
                 for i in range(T - 1):
                     last = i == T - 1 - SERVE_MESH_PROFILED
@@ -3551,10 +3603,12 @@ def serve_mesh_rank(rank: int, world: int) -> dict:
             "prefill_rel": worst[0], "decode_rel": worst[1],
             "step_ms": statistics.median(step_ms[:T - 1 - SERVE_MESH_PROFILED]),
             "profiled_ms": prof_ms, "coll_ms": coll_ms, "launched": launched,
+            "want": _serve_want(cfg, T - 1), "kv": kv,
             "empty_after_prefill": empty_after_prefill,
-            "filled_at_end": float(cache["k"].to_local().abs().max()) > 0.0,
+            "filled_at_end": kv and float(cache["k"].to_local().abs().max()) > 0.0,
             "routes": (len(ref_routes), *differ),
             "peak": torch.cuda.max_memory_allocated(),
+            "seconds": time.perf_counter() - t_arch,
         }
         del plain, server, params, placed, cache, p, ref_l
         gc.collect()
@@ -3566,25 +3620,24 @@ def serve_mesh_shared_card(torch) -> dict:
     """(b) in four processes (``launch.spawn.run_ranks``, gloo, CUDA
     tensors); a rank that fails or hangs kills the others and fails the
     phase.  Each rank's logits within LOGITS_REL_TOL_BF16_DEPTH2 of the
-    unsharded reference's, flash-decode once per layer per step on each
-    rank, the model-1 shard empty after the prefill (the prompt fills 128
-    of rank 0's 256 slots) and holding keys at the end."""
+    unsharded reference's, each serving kernel launched exactly as the path
+    says on each rank (``_serve_want``; flash-decode on the tensor cores),
+    the model-1 shard of a k/v cache empty after the prefill (the prompt
+    fills 128 slots of rank 0's) and holding keys at the end."""
     from repro_torch.launch.spawn import run_ranks
 
     t = time.perf_counter()
     try:
-        outs = run_ranks(serve_mesh_rank, 4, backend="gloo", timeout=MESH_TIMEOUT)
+        outs = run_ranks(serve_mesh_rank, 4, backend="gloo", timeout=2 * MESH_TIMEOUT)
     except (RuntimeError, TimeoutError) as e:
         fail(f"[serve_mesh] (b) the four-rank run failed: {e}")
-    steps = SERVE_MESH_TOKENS - 1
     tol = LOGITS_REL_TOL_BF16_DEPTH2
-    print(f"[serve_mesh] (b) 2x2 mesh, 4 ranks on one card over gloo, depth "
-          f"{SERVE_MESH_DEPTH} (full width), bf16, B={SERVE_MESH_B} prompt={SERVE_MESH_PROMPT} "
-          f"cache {SERVE_MESH_LEN} ({SERVE_MESH_LEN // 2} a model rank), {SERVE_MESH_TOKENS} "
-          f"tokens teacher-forced, eager: {time.perf_counter() - t:.1f} s")
+    print(f"[serve_mesh] (b) 2x2 mesh, 4 ranks on one card over gloo, full width, bf16, "
+          f"B={SERVE_MESH_B} prompt={SERVE_MESH_PROMPT}, (depth, cache slots, tokens "
+          f"teacher-forced) {SERVE_MESH_CELLS}, eager: {time.perf_counter() - t:.1f} s")
     total = {}
     for o in outs:
-        for arch in SERVE_MESH_ARCHS:
+        for arch in SERVE_MESH_CELLS:
             r = o[arch]
             L = r["launched"]
             print(f"[serve_mesh] (b) rank {o['rank']} (data, model) {o['coord']} {arch}: logits "
@@ -3593,36 +3646,46 @@ def serve_mesh_shared_card(torch) -> dict:
                   f"{r['step_ms']:.3f} ms per step (median, host clock); the last "
                   f"{SERVE_MESH_PROFILED} steps profiled {r['profiled_ms']:.3f} ms, collectives "
                   f"{r['coll_ms']:.3f} ms (share {r['coll_ms'] / r['profiled_ms']:.4f}); launches "
-                  f"{L}; model-1 shard empty after the prefill {r['empty_after_prefill']}, "
-                  f"holding keys at the end {r['filled_at_end']}; router calls, the mesh's own "
-                  f"expert choices that the reference it was fed did not take, and all choices "
-                  f"{r['routes']}; peak {r['peak']} B")
+                  f"{L} (want {r['want']}); model-1 shard empty after the prefill "
+                  f"{r['empty_after_prefill']}, holding keys at the end {r['filled_at_end']}; "
+                  f"router calls, the mesh's own expert choices that the reference it was fed "
+                  f"did not take, and all choices {r['routes']}; peak {r['peak']} B; "
+                  f"{r['seconds']:.1f} s")
             check(r["prefill_rel"] <= tol and r["decode_rel"] <= tol,
                   f"[serve_mesh] (b) rank {o['rank']} {arch}: logits disagree with the unsharded "
                   "Server's")
-            check(L["decode_attention_fwd"] == SERVE_MESH_DEPTH * steps
-                  == L["decode_attention_fwd.launches_mma"],
-                  f"[serve_mesh] (b) rank {o['rank']} {arch}: flash-decode did not run once per "
-                  "layer per step on the tensor cores")
-            check(L["flash_attention_fwd"] == SERVE_MESH_DEPTH,
-                  f"[serve_mesh] (b) rank {o['rank']} {arch}: the prefill did not run the flash "
-                  "forward once per layer")
-            check(r["filled_at_end"] and (r["empty_after_prefill"] == (o["coord"][1] == 1)),
+            check({n: L[n] for n in r["want"]} == r["want"]
+                  and L["decode_attention_fwd.launches_mma"] == L["decode_attention_fwd"],
+                  f"[serve_mesh] (b) rank {o['rank']} {arch}: the serving kernels' launches are "
+                  "not the path's (flash-decode on the tensor cores)")
+            check(not r["kv"] or (r["filled_at_end"]
+                                  and r["empty_after_prefill"] == (o["coord"][1] == 1)),
                   f"[serve_mesh] (b) rank {o['rank']} {arch}: the cache's shards are not filled "
                   "as the positions say")
-            for n in ("flash_attention_fwd", "decode_attention_fwd", "prefetch_gather_fwd"):
+            for n in r["want"]:
                 total[n] = total.get(n, 0) + L[n]
     return total
 
 
 # (c), only with ``--cards``: one rank per card over NCCL (the production
-# backend), a 2x2 mesh, chatglm3-6b at full width and depth, served as (a).
-# Two runs: NCCL's own choice of algorithm, then ring and simple fixed for
-# every collective, which tells a difference that the collectives'
-# reduction order makes (NCCL may choose another algorithm for a captured
-# launch than for an eager one) from a difference of the step itself
+# backend), a 2x2 mesh, at full width and depth, served as (a): chatglm3-6b
+# twice, under NCCL's own choice of algorithm, then with ring and simple
+# fixed for every collective, which tells a difference that the
+# collectives' reduction order makes (NCCL may choose another algorithm for
+# a captured launch than for an eager one) from a difference of the step
+# itself; then the ssm, hybrid and encdec families under the default, in
+# one process group.  Per arch: (B, prompt, tokens, cache slots), the
+# cells of the unsharded phases
 SERVE_CARDS = 4
 SERVE_CARDS_NCCL = ({}, {"NCCL_ALGO": "Ring", "NCCL_PROTO": "Simple"})
+SERVE_CARDS_CELLS = {
+    "chatglm3_6b": (4, 512, 32, 1024),
+    "falcon_mamba_7b": (4, 512, 32, 544),
+    "recurrentgemma_2b": (4, 512, 32, 544),  # a ring of 544 slots, 272 a model rank
+    "whisper_large_v3": (4, 128, 32, 256),
+}
+SERVE_CARDS_RUNS = tuple((("chatglm3_6b",), env) for env in SERVE_CARDS_NCCL) + (
+    (("falcon_mamba_7b", "recurrentgemma_2b", "whisper_large_v3"), SERVE_CARDS_NCCL[0]),)
 
 
 def _forced_mesh_logits(torch, server, params, batch, tokens):
@@ -3645,9 +3708,9 @@ def _forced_mesh_logits(torch, server, params, batch, tokens):
     return torch.cat(out, dim=1)
 
 
-def serve_cards_rank(rank: int, world: int, B: int, prompt: int, gen_tokens: int,
-                     max_len: int, nccl_env: dict) -> dict:
-    """(c) One rank of a 2x2 NCCL mesh, one card each, under ``nccl_env``:
+def serve_cards_rank(rank: int, world: int, archs: tuple, nccl_env: dict) -> dict:
+    """(c) One rank of a 2x2 NCCL mesh, one card each, under ``nccl_env``,
+    for each of ``archs`` (its SERVE_CARDS_CELLS cell) in turn:
     ``Server(mesh=)``'s captured ``generate`` (the sharded step with its
     NCCL collectives inside the graph) and its launches; its logits against
     the mesh's eager steps and against the unsharded ``Server`` on this
@@ -3668,100 +3731,129 @@ def serve_cards_rank(rank: int, world: int, B: int, prompt: int, gen_tokens: int
     counters = _serving_counters()
     mesh = make_mesh((2, 2), ("data", "model"), device="cuda", backend="nccl")
     data = mesh.get_coordinate()[0]
-    mine = slice(data * B // 2, (data + 1) * B // 2)
-    cfg = get_config("chatglm3_6b").replace(attn_impl="pallas")
-    server = Server(cfg, device="cuda", max_len=max_len, mesh=mesh)
-    plain = Server(cfg, device="cuda", max_len=max_len)
-    params = plain.model.compute_params(plain.model.init_params(seed=0))
-    placed = server.place(params)
-    batch = concrete_batch(cfg, B, prompt, device="cuda")
-    batch.pop("targets")
-    rows = {"inputs": batch["inputs"][mine]}
-    t = time.perf_counter()
-    server.generate(placed, batch, 4)  # the capture
-    torch.cuda.synchronize()
-    capture_s = time.perf_counter() - t
-    plain.generate(params, rows, 4)
-    torch.cuda.synchronize()
-    _zero_counters(counters)
-    mt, ml = server.generate(placed, batch, gen_tokens, with_logits=True)
-    torch.cuda.synchronize()
-    launched = {n: c.launches for n, c in counters.items()}
-    launched["decode_attention_fwd.launches_mma"] = counters["decode_attention_fwd"].launches_mma
-    eager = _forced_mesh_logits(torch, server, placed, batch, mt)
-    mt, ml = mt.to_local(), ml.to_local()
-    unsharded = path_logits(torch, cfg, "pallas", params, rows, mt, max_len)
-    ms = {"unsharded": [], "mesh": []}
-    steps = gen_tokens - 1
-    for name in ("unsharded", "mesh", "mesh", "unsharded"):
-        srv, p, b = (plain, params, B // 2) if name == "unsharded" else (server, placed, B)
-        ms[name].append(_replayed_ms(torch, srv.captured_decode(p, b), prompt, steps))
-    return {"rank": rank, "coord": tuple(mesh.get_coordinate()), "capture_s": capture_s,
-            "bitwise": bool(torch.equal(ml, eager)), "eager_rel": rel_err(torch, ml, eager)[0],
-            "plain_rel": rel_err(torch, ml, unsharded)[0], "launched": launched, "ms": ms,
-            "peak": torch.cuda.max_memory_allocated()}
+    out = {"rank": rank, "coord": tuple(mesh.get_coordinate())}
+    for arch in archs:
+        B, prompt, gen_tokens, max_len = SERVE_CARDS_CELLS[arch]
+        mine = slice(data * B // 2, (data + 1) * B // 2)
+        cfg = get_config(arch).replace(attn_impl="pallas")
+        server = Server(cfg, device="cuda", max_len=max_len, mesh=mesh)
+        plain = Server(cfg, device="cuda", max_len=max_len)
+        params = plain.model.compute_params(plain.model.init_params(seed=0))
+        placed = server.place(params)
+        batch = concrete_batch(cfg, B, prompt, device="cuda")
+        batch.pop("targets")
+        rows = {k: v[mine] for k, v in batch.items()}
+        t = time.perf_counter()
+        server.generate(placed, batch, 4)  # the capture
+        torch.cuda.synchronize()
+        capture_s = time.perf_counter() - t
+        plain.generate(params, rows, 4)
+        torch.cuda.synchronize()
+        _zero_counters(counters)
+        mt, ml = server.generate(placed, batch, gen_tokens, with_logits=True)
+        torch.cuda.synchronize()
+        launched = {n: c.launches for n, c in counters.items()}
+        launched["decode_attention_fwd.launches_mma"] = counters[
+            "decode_attention_fwd"].launches_mma
+        eager = _forced_mesh_logits(torch, server, placed, batch, mt)
+        mt, ml = mt.to_local(), ml.to_local()
+        unsharded = path_logits(torch, cfg, "pallas", params, rows, mt, max_len)
+        ms = {"unsharded": [], "mesh": []}
+        steps = gen_tokens - 1
+        for name in ("unsharded", "mesh", "mesh", "unsharded"):
+            srv, p, b = (plain, params, B // 2) if name == "unsharded" else (server, placed, B)
+            ms[name].append(_replayed_ms(torch, srv.captured_decode(p, b), prompt, steps))
+        out[arch] = {"capture_s": capture_s, "bitwise": bool(torch.equal(ml, eager)),
+                     "eager_rel": rel_err(torch, ml, eager)[0],
+                     "plain_rel": rel_err(torch, ml, unsharded)[0], "launched": launched,
+                     "want": _serve_want(cfg, steps), "ms": ms,
+                     "peak": torch.cuda.max_memory_allocated()}
+        del server, plain, params, placed, batch, rows, mt, ml, eager, unsharded
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    return out
 
 
 def phase_serve_cards(torch, smi: str) -> dict:
     """(c) in SERVE_CARDS processes, one a card, over NCCL
-    (``launch.spawn.run_ranks``), once per SERVE_CARDS_NCCL; a rank that
+    (``launch.spawn.run_ranks``), once per SERVE_CARDS_RUNS; a rank that
     fails or hangs kills the others and fails the phase.  The captured
     run's logits, fed its own tokens, within LOGITS_REL_TOL_BF16 of the
-    mesh's eager steps and of the unsharded ``Server`` (full depth); whether
-    the captured and eager steps are bitwise equal is printed."""
-    from repro_torch.configs import get_config
+    mesh's eager steps and of the unsharded ``Server`` (full depth), and
+    bitwise the eager steps for the ssm, hybrid and encdec families (for
+    chatglm3-6b whether they are is printed); each serving kernel launched
+    exactly as the path says on each rank."""
     from repro_torch.launch.spawn import run_ranks
 
-    B, prompt, gen_tokens, max_len = 4, 512, 32, 1024
-    n_layers = get_config("chatglm3_6b").n_layers
-    steps = gen_tokens - 1
     tol = LOGITS_REL_TOL_BF16
     total = {}
-    for env in SERVE_CARDS_NCCL:
+    for archs, env in SERVE_CARDS_RUNS:
         t = time.perf_counter()
         try:
-            outs = run_ranks(serve_cards_rank, SERVE_CARDS, B, prompt, gen_tokens, max_len, env,
-                             backend="nccl", timeout=MESH_TIMEOUT)
+            outs = run_ranks(serve_cards_rank, SERVE_CARDS, archs, env, backend="nccl",
+                             timeout=2 * MESH_TIMEOUT)
         except (RuntimeError, TimeoutError) as e:
             fail(f"[serve_mesh] (c) the {SERVE_CARDS}-card run failed: {e}")
         print(f"[serve_mesh] (c) 2x2 NCCL mesh, one rank a card ({SERVE_CARDS} cards), NCCL "
-              f"settings {env or 'the library default'}, chatglm3-6b full width and depth, bf16, "
-              f"B={B} prompt={prompt} cache {max_len}, {gen_tokens} tokens: "
+              f"settings {env or 'the library default'}, {', '.join(archs)} full width and "
+              f"depth, bf16, (B, prompt, tokens, cache) "
+              f"{ {a: SERVE_CARDS_CELLS[a] for a in archs} }: "
               f"{time.perf_counter() - t:.1f} s; {smi}")
         for o in outs:
-            L = o["launched"]
-            print(f"[serve_mesh] (c) rank {o['rank']} (data, model) {o['coord']}: captured "
-                  f"generate's logits, fed its own tokens, against the mesh's eager steps: "
-                  f"bitwise {o['bitwise']}, max |diff| / max |logit| {o['eager_rel']:.3e}; "
-                  f"against the unsharded Server on this card over this data shard's rows "
-                  f"{o['plain_rel']:.3e} (tol {tol}); first generate (the capture) "
-                  f"{o['capture_s']:.3f} s; launches {L}; replayed step device ms (in turns "
-                  f"unsharded B={B // 2}, mesh B={B}, mesh, unsharded) mesh "
-                  f"{[round(x, 4) for x in o['ms']['mesh']]}, unsharded "
-                  f"{[round(x, 4) for x in o['ms']['unsharded']]}; peak {o['peak']} B")
-            check(o["eager_rel"] <= tol and o["plain_rel"] <= tol,
-                  f"[serve_mesh] (c) rank {o['rank']}: the captured sharded decode's logits "
-                  "disagree")
-            check(L["decode_attention_fwd"] == n_layers * steps
-                  == L["decode_attention_fwd.launches_mma"],
-                  f"[serve_mesh] (c) rank {o['rank']}: flash-decode did not run once per layer "
-                  "per step on the tensor cores")
-            for n in ("flash_attention_fwd", "decode_attention_fwd", "prefetch_gather_fwd"):
-                total[n] = total.get(n, 0) + L[n]
+            for arch in archs:
+                r, B = o[arch], SERVE_CARDS_CELLS[arch][0]
+                L = r["launched"]
+                print(f"[serve_mesh] (c) rank {o['rank']} (data, model) {o['coord']} {arch}: "
+                      f"captured generate's logits, fed its own tokens, against the mesh's eager "
+                      f"steps: bitwise {r['bitwise']}, max |diff| / max |logit| "
+                      f"{r['eager_rel']:.3e}; against the unsharded Server on this card over "
+                      f"this data shard's rows {r['plain_rel']:.3e} (tol {tol}); first generate "
+                      f"(the capture) {r['capture_s']:.3f} s; launches {L} (want {r['want']}); "
+                      f"replayed step device ms (in turns unsharded B={B // 2}, mesh B={B}, "
+                      f"mesh, unsharded) mesh {[round(x, 4) for x in r['ms']['mesh']]}, "
+                      f"unsharded {[round(x, 4) for x in r['ms']['unsharded']]}; peak "
+                      f"{r['peak']} B")
+                check(r["eager_rel"] <= tol and r["plain_rel"] <= tol,
+                      f"[serve_mesh] (c) rank {o['rank']} {arch}: the captured sharded decode's "
+                      "logits disagree")
+                check(arch == "chatglm3_6b" or r["bitwise"],
+                      f"[serve_mesh] (c) rank {o['rank']} {arch}: the captured sharded decode is "
+                      "not bitwise its eager steps")
+                check({n: L[n] for n in r["want"]} == r["want"]
+                      and L["decode_attention_fwd.launches_mma"] == L["decode_attention_fwd"],
+                      f"[serve_mesh] (c) rank {o['rank']} {arch}: the serving kernels' launches "
+                      "are not the path's (flash-decode on the tensor cores)")
+                for n in r["want"]:
+                    total[n] = total.get(n, 0) + L[n]
     return total
 
 
-def phase_serve_mesh(torch, counters: dict, smi: str, B: int, prompt: int, gen_tokens: int,
-                     max_len: int) -> dict:
-    """(a) then (b); returns the serving kernels' launches of both."""
+def phase_serve_mesh(torch, smi: str, B: int, prompt: int, gen_tokens: int, max_len: int,
+                     mesh_launches: dict) -> None:
+    """(a) for chatglm3-6b at full width and depth (B x prompt, cache
+    ``max_len``), then (b); the serving kernels' launches of both are
+    added into ``mesh_launches``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.steps import concrete_batch
+
     t = time.perf_counter()
-    one = serve_mesh_one_rank(torch, counters, smi, B, prompt, gen_tokens, max_len)
+    cfg = get_config("chatglm3_6b").replace(attn_impl="pallas")
+    plain = Server(cfg, device="cuda", max_len=max_len)
+    params = plain.model.compute_params(plain.model.init_params(seed=0))
+    batch = concrete_batch(cfg, B, prompt, device="cuda")
+    batch.pop("targets")
+    plain.generate(params, batch, 4)  # its capture
+    serve_mesh_one_rank(torch, plain, params, batch, gen_tokens, _serving_counters(),
+                        _serve_want(cfg, gen_tokens - 1), smi, mesh_launches)
+    del plain, params
     gc.collect()
     torch.cuda.empty_cache()
     shared = serve_mesh_shared_card(torch)
-    print(f"[serve_mesh] launches: (a) {one}; (b) the four ranks {shared}; phase "
+    print(f"[serve_mesh] launches: (b) the four ranks {shared}; phase "
           f"{time.perf_counter() - t:.1f} s")
-    return {n: one[n] + shared[n] for n in shared}
+    _add_launches(mesh_launches, shared)
 
 
 def main() -> int:
@@ -3835,12 +3927,10 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     # sharded serving: a one-rank NCCL mesh, four gloo ranks on the card
-    served = phase_serve_mesh(torch, {"flash_attention_fwd": flash_attention_fwd,
-                                      "decode_attention_fwd": decode_attention_fwd,
-                                      "prefetch_gather_fwd": prefetch_gather_fwd}, smi,
-                              B, prompt, gen_tokens, max_len)
-    for k, n in served.items():
-        launches[k] += n
+    # (their launches, with those of the other families' one-rank meshes,
+    # are added at the end)
+    mesh_launches: dict = {}
+    phase_serve_mesh(torch, smi, B, prompt, gen_tokens, max_len, mesh_launches)
     gc.collect()
     torch.cuda.empty_cache()
     phase_stream(torch, {"decode_attention_fwd": decode_attention_fwd,
@@ -3887,7 +3977,8 @@ def main() -> int:
     scans = (*OFF_PATH, "selective_scan_fwd", "rglru_gated_fwd")
     launches.update({k: 0 for k in scans})
     for arch in RECURRENT:
-        run = phase_recurrent(torch, arch, serve_counters, B, prompt, gen_tokens)
+        run = phase_recurrent(torch, arch, serve_counters, B, prompt, gen_tokens, smi,
+                              mesh_launches)
         launches.update({k: v for k, v in run.items() if k in scans and v})
     gc.collect()
     torch.cuda.empty_cache()
@@ -3900,9 +3991,14 @@ def main() -> int:
     # the encoder-decoder and the M-RoPE model, each after every earlier one
     # is freed
     for arch, tag, dec_prompt, slots in ENC_VLM:
-        phase_enc_vlm(torch, arch, tag, serve_counters, B, dec_prompt, gen_tokens, slots)
+        phase_enc_vlm(torch, arch, tag, serve_counters, B, dec_prompt, gen_tokens, slots, smi,
+                      mesh_launches)
         gc.collect()
         torch.cuda.empty_cache()
+    # the sharded runs' launches: [serve_mesh] (a) and (b), and (a) of the
+    # ssm, hybrid and encdec families in their phases
+    print(f"[serve_mesh] launches of every sharded run: {mesh_launches}")
+    _add_launches(launches, mesh_launches)
     for r in recs:
         r["launches"] = launches[r["name"]]
         if r["name"] in OFF_PATH:

@@ -82,6 +82,12 @@ def _waited(t):
     return t
 
 
+def _local(*ts) -> tuple:
+    """``_waited`` of each tensor given (None stays None): what every kernel
+    wrapper applies on the card, so that no DTensor reaches a kernel."""
+    return tuple(None if t is None else _waited(t) for t in ts)
+
+
 def flash_attention_trainable(q, k, v, causal=True, q_offset=0):
     """Differentiable ``flash_attention``: q [B, Sq, H, D]; k, v [B, Sk, KV,
     D] -> [B, Sq, H, D].  Its gradients are dq in q's layout and dk, dv per
@@ -104,6 +110,7 @@ def decode_attention(q, k, v, kv_len, with_lse: bool = False):
     own tiles, so any S is taken: the JAX wrapper's
     ``S % min(block_k, S) == 0`` assertion has no counterpart here."""
     if q.is_cuda:
+        q, k, v = _local(q, k, v)
         return decode_attention_fwd(q, k, v, kv_len, with_lse)
     return ref.decode_attention_ref(q, k, v, kv_len, with_lse)
 
@@ -114,7 +121,7 @@ def prefetch_gather(table, idx):
     result back, the CUDA kernel copies rows of any width as they are.  The
     indices stay on the device (no ``.item()``, no host range check)."""
     if table.is_cuda:
-        return prefetch_gather_fwd(table, idx)
+        return prefetch_gather_fwd(*_local(table, idx))
     return ref.prefetch_gather_ref(table, idx)
 
 
@@ -126,7 +133,7 @@ def rglru_scan(a, g, h0=None):
     batch into channels ([S, B * W]), has no h0 and takes block sizes, which
     have no counterpart here (the kernel takes any S and W)."""
     if a.is_cuda:
-        return rglru_scan_fwd(a, g, h0)
+        return rglru_scan_fwd(*_local(a, g, h0))
     return ref.rglru_scan_ref(a, g, h0)
 
 
@@ -139,7 +146,7 @@ def mamba_scan(dA, dBu, C, h0=None, with_state=False):
     and drops its last state; the CUDA kernel takes h0 and returns h_S,
     what the model's prefill and decode need, and any S and Ch."""
     if dA.is_cuda:
-        return mamba_scan_fwd(dA, dBu, C, h0, with_state)
+        return mamba_scan_fwd(*_local(dA, dBu, C, h0), with_state)
     return ref.mamba_scan_ref(dA, dBu, C, h0, with_state)
 
 
@@ -154,6 +161,7 @@ def selective_scan(u, dt, A, B_ssm, C_ssm, D, h0=None, *, h_out=None):
     kernel, per step, as the JAX model forms them inside its ``lax.scan``;
     ``mamba_scan`` is the TPU kernel's contract, with both materialised."""
     if u.is_cuda:
+        u, dt, A, B_ssm, C_ssm, D, h0, h_out = _local(u, dt, A, B_ssm, C_ssm, D, h0, h_out)
         return selective_scan_fwd(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h_out)
     return ref.selective_scan_ref(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h_out)
 
@@ -166,5 +174,6 @@ def rglru_gated_scan(x, r, i, lam, h0=None):
     decay coefficient -8 softplus(lam) is formed here with the plain
     version's ops, so both round it alike."""
     if x.is_cuda:
+        x, r, i, lam, h0 = _local(x, r, i, lam, h0)
         return rglru_gated_fwd(x, r, i, ref.rglru_decay(lam), h0)
     return ref.rglru_gated_scan_ref(x, r, i, lam, h0)

@@ -22,12 +22,16 @@ captured decode step (``launch.steps.CapturedDecode``, the counterpart of
 the JAX server's ``_jit_decode``) for every further token; on the CPU it
 runs the eager loop (``generate_eager``).
 
-On a mesh (``Server(cfg, mesh=mesh)``, the dense and moe families) the
-prefill runs under the prefill rules (batch over the data axes, heads over
-``model``) and the decode under the decode rules, on JAX's decode layout:
-the cache's sequence split over ``model`` (``shardings.cache_pspecs``),
-each rank's flash-decode over its slots merged across the ranks
-(``models.transformer._seq_sharded_attention``).  ``generate`` captures the
+On a mesh (``Server(cfg, mesh=mesh)``, every family) the prefill runs
+under the prefill rules (batch over the data axes, heads and channels over
+``model``) and the decode under the decode rules, on JAX's decode layout
+(``shardings.cache_pspecs``): a k/v cache's sequence (the hybrid's ring
+too) split over ``cache_seq``'s axis, each rank's attention over its slots
+merged across the ranks (``models.transformer._seq_sharded_attention``);
+the conv and recurrent states split over ``ff``, each rank's scans on its
+own channels (``models.ssm.channel_map``); encdec's cross k/v whole on the
+sequence.  At batch 1 the decode takes the ``long`` layout (states over
+every axis, the ring over the data axes).  ``generate`` captures the
 sharded step, its collectives inside the graph, on an NCCL mesh; over gloo
 (several ranks sharing a card, or the CPU) the decode runs eagerly
 (``generate_eager``).
@@ -75,29 +79,19 @@ from repro_torch.launch.steps import (
 from repro_torch.models.common import activate_sharding, to_dtensor, tree_items
 from repro_torch.models.transformer import decode_layers
 
-# the families served on a mesh of several ranks; the others are item 6.2
-MESH_FAMILIES = ("dense", "moe")
-
-
 class Server:
     def __init__(self, cfg, device="cuda", max_len: int = 256, mesh=None):
         """``mesh``: a ``DeviceMesh`` with axes ("data", "model") (or
         ("pod", "data", "model")) over every rank of the process group, on
-        ``device``'s type.  The dense and moe families serve on it (the
-        parameters placed by ``model.param_pspecs`` under the prefill rules,
-        ``place``); the ssm, hybrid and encdec families on a mesh of several
-        ranks raise (ROADMAP.md, section 1, item 6.2), and on a one-rank
-        mesh serve as on no mesh.  ``max_len`` must divide by the size of
-        the axis the decode splits the cache's sequence over."""
+        ``device``'s type.  Every family serves on it (the parameters placed
+        by ``model.param_pspecs`` under the prefill rules, ``place``), the
+        decode cache in ``cache_pspecs``' layout.  The cache's slots
+        (``max_len``, or the hybrid's ring of min(local_window, max_len))
+        must divide by the size of the axis the decode splits its sequence
+        over."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.max_len = max_len
-        if mesh is not None and cfg.family not in MESH_FAMILIES:
-            if mesh.size() > 1:
-                raise NotImplementedError(
-                    f"serving the {cfg.family} family on a mesh of {mesh.size()} ranks: "
-                    "ROADMAP.md, section 1, item 6.2; serve it on one device")
-            mesh = None
         self.mesh = mesh
         self.model, self.prefill_fn = make_prefill_step(cfg, self.device, mesh)
         _, self.decode_fn = make_decode_step(cfg, self.device, mesh)
@@ -108,7 +102,13 @@ class Server:
                 self._rules("prefill", n_data, max_len))
 
     def _rules(self, kind: str, batch_size: int, seq_len: int) -> dict:
-        return logical_rules(self.cfg, ShapeConfig(kind, kind, seq_len, batch_size), self.mesh)
+        """The logical rules of a ``kind`` step.  A prefill of fewer rows
+        than the data axes hold (the batch-1 ``long`` decode's prompt) keeps
+        its rows whole: the batch does not divide over them."""
+        rules = logical_rules(self.cfg, ShapeConfig(kind, kind, seq_len, batch_size), self.mesh)
+        if kind == "prefill" and batch_size % _size(self.mesh, rules["batch"]):
+            rules["batch"] = None
+        return rules
 
     def place(self, params: dict) -> dict:
         """``params`` on this server's mesh: each whole tensor placed by
@@ -155,11 +155,14 @@ class Server:
         params = self.place(params)
         prules = self._rules("prefill", B, S)
         specs = batch_pspecs(cfg, ShapeConfig("prefill", "prefill", S, B), mesh)
+        if prules["batch"] is None:  # rows kept whole (``_rules``)
+            specs = {k: PSpec(*[None] * len(spec)) for k, spec in specs.items()}
         batch = {k: named(mesh, specs[k], v) if k in specs else v for k, v in batch.items()}
         with activate_sharding(mesh, prules):
             logits, cache = self.prefill_fn(params, batch)
         dshape = ShapeConfig("decode", "decode", self.max_len, B)
-        cache = to_decode_layout(cache, mesh, cache_pspecs(cfg, dshape, mesh), self.max_len)
+        cache = to_decode_layout(cache, mesh, cache_pspecs(cfg, dshape, mesh),
+                                 self.model.abstract_cache(B, self.max_len))
         return params, logits, cache, activate_sharding(mesh, self._rules("decode", B,
                                                                           self.max_len))
 
@@ -344,37 +347,58 @@ class Server:
         return out
 
 
-def to_decode_layout(cache: dict, mesh, specs: dict, max_len: int) -> dict:
-    """A prefill's k/v cache [L, B, S, KV, hd] (DTensors in the prefill's
-    layout) as the decode cache of ``max_len`` slots in ``specs``' layout
-    (``cache_pspecs`` under the decode rules: the sequence split over one
-    mesh axis, the kv heads whole), on the device: each rank gathers the
-    prompt's k/v heads it lacks over the head axis, keeps the slots of its
-    own sequence shard ([r * n, (r + 1) * n) with n = max_len / R) and
-    zeros the rest.  No tensor leaves the device."""
+def to_decode_layout(cache: dict, mesh, specs: dict, like: dict) -> dict:
+    """A prefill's cache (DTensors in the prefill's layout) as the decode
+    cache shaped as ``like`` (``Model.abstract_cache(B, max_len)``) in
+    ``specs``' layout (``cache_pspecs`` under the decode rules), on the
+    device; no tensor leaves it.
+
+    - A k/v cache whose sequence (dim 2) the spec splits over one mesh
+      axis (the self-attention cache of ``max_len`` slots, the hybrid's
+      ring of min(local_window, max_len)): each rank gathers the prompt's
+      k/v heads it lacks over the head axis, keeps the slots of its own
+      sequence shard ([r * n, (r + 1) * n) with n = slots / R) and zeros
+      the rest (a prompt shorter than the cache leaves them empty).  The
+      slots must divide by R, else ``ValueError``.
+    - Every other entry (the recurrent and conv states; encdec's cross k/v
+      over the encoder's frames, sequence whole): redistributed to its
+      spec."""
     from torch.distributed.tensor import DTensor
 
     out = {}
     for key, c in cache.items():
-        spec = specs[key]
-        axis = spec[2]
+        spec, shape = specs[key], tuple(like[key].shape)
+        axis = spec[2] if key in ("k", "v") else None
+        if axis is None:
+            if tuple(c.shape) != shape:
+                raise ValueError(f"cache {key!r}: {tuple(c.shape)}, the decode holds {shape}")
+            out[key] = to_dtensor(c, mesh).redistribute(mesh, placements(mesh, spec))
+            continue
         if not isinstance(axis, str):
             raise NotImplementedError(f"a cache sequence split over mesh axes {axis}")
-        R = mesh.size(mesh.mesh_dim_names.index(axis))
-        if max_len % R:
-            raise ValueError(f"max_len {max_len} does not divide over the {R} ranks of {axis!r}")
-        n = max_len // R
+        R, slots = mesh.size(mesh.mesh_dim_names.index(axis)), shape[2]
+        if slots % R:
+            raise ValueError(f"the cache's {slots} slots do not divide over the {R} ranks "
+                             f"of {axis!r}")
+        n = slots // R
         whole_seq = PSpec(*spec[:2], None, *spec[3:])
         local = to_dtensor(c, mesh).redistribute(mesh, placements(mesh, whole_seq)).to_local()
         start = mesh.get_local_rank(axis) * n
         buf = local.new_zeros(local.shape[:2] + (n,) + local.shape[3:])
         m = min(n, max(0, local.shape[2] - start))
         buf[:, :, :m] = local[:, :, start:start + m]
-        shape = tuple(c.shape[:2]) + (max_len,) + tuple(c.shape[3:])
         out[key] = DTensor.from_local(buf, mesh, placements(mesh, spec), run_check=False,
                                       shape=shape,
                                       stride=torch.empty(shape, device="meta").stride())
     return out
+
+
+def _size(mesh, entry) -> int:
+    """The number of ranks a spec entry (None, an axis or a tuple) spans."""
+    n = 1
+    for a in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return n
 
 
 # the top-level parameter groups of a layer stack, per family: ``layers``
@@ -407,7 +431,7 @@ def main(argv=None) -> None:
                     help="naive | chunked | pallas (the CUDA kernels); default: the config's")
     ap.add_argument("--mesh", default=None,
                     help="DATAxMODEL (or PODxDATAxMODEL): serve on a mesh of every rank of "
-                         "the process group (torchrun's); the dense and moe families")
+                         "the process group (torchrun's)")
     args = ap.parse_args(argv)
 
     cfg = get_smoke_config(args.arch) if args.smoke else get_config(args.arch)

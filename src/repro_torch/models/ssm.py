@@ -7,8 +7,15 @@ for the kernels (``attn_impl="pallas"``), the tensors lie on a CUDA device
 and autograd records nothing (the kernel has no backward); otherwise its
 plain version (``ref.selective_scan_ref``), the JAX model's recurrence one
 step at a time.  Both compute the same function.  Decode is a single
-recurrence step carrying (conv_state, ssm_state); the decode updates the
-cache's ssm state in place.
+recurrence step carrying (conv_state, ssm_state), both written into the
+cache in place.
+
+Under a mesh the conv and the scan each run in a ``shard_map`` over this
+rank's rows and channels (``channel_axes``: the decode cache's state
+layout), so that the kernel sees local tensors and a decode's state writes
+land in the cache's own local buffers, which a captured step replays.
+``x_proj``'s rows are those channels, so ``u @ x_proj`` is a partial sum
+over them, reduced before dt, B and C are sliced, as GSPMD does.
 """
 
 from __future__ import annotations
@@ -18,7 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
 
-from .common import constrain
+from .common import constrain, current_mesh_rules, to_dtensor
 
 
 def use_scan_kernel(cfg, *ts) -> bool:
@@ -27,6 +34,71 @@ def use_scan_kernel(cfg, *ts) -> bool:
     autograd records none of them."""
     return (cfg.attn_impl == "pallas" and ts[0].is_cuda
             and not (torch.is_grad_enabled() and any(t.requires_grad for t in ts)))
+
+
+def channel_axes(rules: dict):
+    """The mesh axes the conv and the scans split their channels over under
+    ``rules``: ``ff``'s, less any the batch is split over.  That is the
+    decode cache's state layout (``launch.shardings.cache_pspecs``):
+    ``model``, or in the batch-1 ``long`` layout every axis; under fsdp,
+    whose batch takes every axis, none (None)."""
+    from repro_torch.launch.shardings import _axes
+
+    batch = set(_axes(rules.get("batch")))
+    axes = tuple(a for a in _axes(rules.get("ff")) if a not in batch)
+    return axes[0] if len(axes) == 1 else (axes or None)
+
+
+def on_channels(x):
+    """[B, S, C] activations under a mesh split over the batch rule and
+    ``channel_axes`` (a reduce-scatter where ``x`` is a partial sum);
+    outside one, ``x``."""
+    ctx = current_mesh_rules()
+    if ctx is None:
+        return x
+    from repro_torch.launch.shardings import PSpec, placements
+
+    mesh, rules = ctx
+    spec = PSpec(rules["batch"], None, channel_axes(rules))
+    return to_dtensor(x, mesh).redistribute(mesh, placements(mesh, spec))
+
+
+def channel_map(body, args: tuple, in_dims: tuple, out_dims: tuple):
+    """``body(*args)`` on this rank's rows and channels: under a mesh a
+    ``shard_map``, outside one ``body`` itself.  ``in_dims`` and
+    ``out_dims``: per tensor, what each of its dims is split over, "b"
+    (the batch rule's axes), "c" (``channel_axes``) or None (whole); an
+    argument that is None stays None."""
+    ctx = current_mesh_rules()
+    if ctx is None:
+        return body(*args)
+    from repro_torch.launch.compat import shard_map
+    from repro_torch.launch.shardings import PSpec
+
+    mesh, rules = ctx
+    axes = {"b": rules["batch"], "c": channel_axes(rules), None: None}
+
+    def spec(dims):
+        return PSpec(*(axes[d] for d in dims))
+
+    in_specs = tuple(None if t is None else spec(d) for t, d in zip(args, in_dims))
+    return shard_map(body, mesh, in_specs, tuple(spec(d) for d in out_dims))(*args)
+
+
+def causal_conv(x, w, b, state=None):
+    """``depthwise_causal_conv`` on this rank's channels (``channel_map``):
+    x [B, S, C], w [C, K], b [C], state [B, K-1, C]; a given ``state`` (the
+    decode's cache) is overwritten in place with the new one, which is
+    returned."""
+
+    def body(xl, wl, bl, sl):
+        y, new = depthwise_causal_conv(xl, wl, bl, sl)
+        if sl is not None:
+            new = sl.copy_(new)
+        return y, new
+
+    rows = ("b", None, "c")
+    return channel_map(body, (x, w, b, state), (rows, ("c", None), ("c",), rows), (rows, rows))
 
 
 def depthwise_causal_conv(x, w, b, state=None):
@@ -71,24 +143,36 @@ def selective_scan(u, dt, A, B_ssm, C_ssm, D, h0=None, *, kernel: bool = False):
     that forms dA_t and dBu_t per step in registers), without it the plain
     loop over time; both form dA_t and dBu_t per step, as the JAX model
     does, and never the [B, S, C, N] tensors.  A given ``h0`` is the
-    decode's cache: the last state is written into it and returned."""
-    if kernel:
-        return ops.selective_scan(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h0)
-    return ref.selective_scan_ref(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h0)
+    decode's cache: the last state is written into it and returned.
+
+    Under a mesh it runs on this rank's rows and channels (``channel_map``):
+    u, dt, A, D and the state split on the channel dim, B_ssm and C_ssm
+    whole."""
+
+    def body(u, dt, A, B_ssm, C_ssm, D, h0):
+        if kernel:
+            return ops.selective_scan(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h0)
+        return ref.selective_scan_ref(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h0)
+
+    ch, rows, state = ("b", None, "c"), ("b", None, None), ("b", "c", None)
+    return channel_map(body, (u, dt, A, B_ssm, C_ssm, D, h0),
+                       (ch, ch, ("c", None), rows, rows, ("c",), state), (ch, state))
 
 
 def mamba_block(x, p, cfg, compute_dtype, conv_state=None, ssm_state=None):
     """Full mamba-1 mixer. x [B, S, d] -> (y [B, S, d], new conv state
     [B, K-1, d_inner], new ssm state [B, d_inner, N] f32); a given
-    ``ssm_state`` (the decode's cache) is updated in place and returned."""
+    ``conv_state`` and ``ssm_state`` (the decode's cache) are updated in
+    place and returned."""
     cast = lambda w: w.to(compute_dtype)  # noqa: E731
     di = cfg.d_inner
     xz = x @ cast(p["in_proj"])  # [B, S, 2*di]
     x_in, z = xz[..., :di], xz[..., di:]
-    x_in = constrain(x_in, "batch", "inner_seq", "act_ff")
-    x_conv, new_conv = depthwise_causal_conv(x_in, p["conv_w"], p.get("conv_b"), conv_state)
+    x_in = on_channels(x_in)
+    x_conv, new_conv = causal_conv(x_in, p["conv_w"], p.get("conv_b"), conv_state)
     u = F.silu(x_conv)
-    proj = u @ cast(p["x_proj"])  # [B, S, R + 2N]
+    # [B, S, R + 2N]: a sum over the channel shards under a mesh, reduced here
+    proj = constrain(u @ cast(p["x_proj"]), "batch", "inner_seq", None)
     R, N = cfg.dt_rank, cfg.ssm_state
     dt_raw, B_ssm, C_ssm = proj[..., :R], proj[..., R : R + N], proj[..., R + N :]
     dt = ref.softplus(dt_raw @ cast(p["dt_w"]) + cast(p["dt_b"]))  # [B, S, di]

@@ -434,21 +434,27 @@ def _seq_sharded_attention(mesh, rules, q, k, v, k_cache, v_cache, kw):
     """Decode attention against a cache whose sequence is split over the
     mesh axis ``cache_seq`` names (``launch.shardings.cache_pspecs``' decode
     layout: [B, S, KV, hd] by (batch, cache_seq), the kv heads whole), as a
-    ``shard_map``.  Each rank holds the ``n = S / R`` slots from ``r * n``
-    (rank ``r`` of ``R`` on that axis):
+    ``shard_map``.  Each rank holds the ``n = S / R`` slots from
+    ``start = r * n`` (rank ``r`` of ``R`` on that axis):
 
     - q's heads and the new k/v's kv heads are gathered over the axis (the
       body's inputs are whole on heads);
-    - only the rank whose slots hold ``pos`` writes the new k/v; at a device
+    - only the rank whose slots hold the write slot (``pos``, or for the
+      hybrid's ring ``pos % window``) writes the new k/v; at a device
       ``pos`` every rank writes a clamped slot, the others their old row
       back, so a captured step replays on every rank alike;
-    - flash-decode (the route ``_kernel_route`` decides on the shard's
-      length) attends to the shard's live slots, ``pos + 1 - r * n`` of
-      them (clamped to [0, n] by the kernel: an empty shard gives lse
+    - a full cache: flash-decode (the route ``_kernel_route`` decides on the
+      shard's length) attends to the shard's live slots, ``pos + 1 - start``
+      of them (clamped to [0, n] by the kernel: an empty shard gives lse
       -1e30), with each head's log-sum-exp;
+    - a ring of ``S = min(window, max_len)`` slots: each rank masks its
+      slots by the absolute position each holds, ``pos - ((pos % window -
+      (start + j)) mod S)``, valid where >= 0 and > ``pos - window`` (as
+      ``_attend_cache`` does over the whole ring), and attends with the
+      plain masked attention and its log-sum-exp (JAX's route for a window);
     - the ranks' (o, lse) are all-gathered over the axis and merged
       (``merge_partials``: what GSPMD computes by reducing the softmax's
-      statistics over ``model``), and each rank keeps its own query heads
+      statistics over the axis), and each rank keeps its own query heads
       (act_heads) for ``attn_output``.
 
     On one rank this is the unsharded step's arithmetic: a merge of one
@@ -458,9 +464,6 @@ def _seq_sharded_attention(mesh, rules, q, k, v, k_cache, v_cache, kw):
 
     axis, window, pos, cfg, dt = (rules["cache_seq"], kw["window"], kw["pos"], kw["cfg"],
                                   kw["dt"])
-    if window:
-        raise NotImplementedError("a ring cache (hybrid) with a sharded sequence: "
-                                  "ROADMAP.md, section 1, item 6.2")
     if not isinstance(axis, str):
         raise NotImplementedError(f"a cache sequence split over several mesh axes {axis}")
     b, heads = rules["batch"], rules.get("act_heads")
@@ -471,16 +474,23 @@ def _seq_sharded_attention(mesh, rules, q, k, v, k_cache, v_cache, kw):
         if tuple(getattr(c, "placements", ())) != want:
             raise ValueError(f"the cache must lie in cache_pspecs' decode layout {cs} "
                              f"({want}); it has {getattr(c, 'placements', 'no placements')}")
-    R = mesh.size(mesh.mesh_dim_names.index(axis))
-    if not isinstance(pos, torch.Tensor) and not 0 <= pos < R * k_cache.shape[1]:
-        raise IndexError(f"position {pos} outside the cache's {R * k_cache.shape[1]} slots")
+    S = k_cache.shape[1]  # the whole cache's slots
+    if not window and not isinstance(pos, torch.Tensor) and not 0 <= pos < S:
+        raise IndexError(f"position {pos} outside the cache's {S} slots")
+    slot = pos % window if window else pos
 
     def body(ql, kl, vl, kc, vc):
         n = kc.shape[1]
         start = mesh.get_local_rank(axis) * n
-        _write_shard(kl, vl, kc, vc, pos - start)
-        o, lse = _attend_shard(ql, kc, vc, cfg, dt, _local_kv_len(kw["kv_len"], start, n,
-                                                                   ql.device))
+        _write_shard(kl, vl, kc, vc, slot - start)
+        if window:
+            ring_pos = pos - ((slot - (start + torch.arange(n, device=ql.device))) % S)
+            valid = (ring_pos >= 0) & (ring_pos > pos - window)
+            o, lse = _masked_decode_attention(ql, kc, vc, valid, cfg, with_lse=True)
+            o = o[:, 0]
+        else:
+            o, lse = _attend_shard(ql, kc, vc, cfg, dt,
+                                   _local_kv_len(kw["kv_len"], start, n, ql.device))
         D = o.shape[-1]
         parts = _all_gather(torch.cat([o.float(), lse[..., None]], dim=-1)[None], mesh, axis)
         o = merge_partials(parts[..., :D], parts[..., D], ql.dtype)[:, None]
@@ -496,10 +506,11 @@ def _seq_sharded_attention(mesh, rules, q, k, v, k_cache, v_cache, kw):
 
 def _write_shard(k, v, k_cache, v_cache, slot):
     """The new k/v [B, 1, KV, hd] into slot ``slot`` of a cache shard [B, n,
-    KV, hd] where it lies in the shard (``slot = pos - start``).  At a
-    device position every rank writes the clamped slot: the new row where
-    the shard holds ``pos``, its own old row elsewhere (a row picked from
-    [old, new] by index, which any cache dtype takes)."""
+    KV, hd] where it lies in the shard (``slot`` = the write slot less the
+    shard's ``start``).  At a device position every rank writes the clamped
+    slot: the new row where the shard holds the write slot, its own old row
+    elsewhere (a row picked from [old, new] by index, which any cache dtype
+    takes)."""
     n = k_cache.shape[1]
     if not isinstance(slot, torch.Tensor):
         if 0 <= slot < n:
@@ -547,10 +558,12 @@ def _all_gather(x, mesh, axis: str):
     return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
 
 
-def _masked_decode_attention(q, k_cache, v_cache, valid, cfg):
+def _masked_decode_attention(q, k_cache, v_cache, valid, cfg, with_lse: bool = False):
     """q [B, 1, H, hd] against every slot of k/v [B, S, KV, hd] where
     ``valid`` ([S], or [B, 1, 1, 1, S]: a mask per row); the cache upcast to
-    q's dtype, scores in f32."""
+    q's dtype, scores in f32.  With ``with_lse`` also each head's f32
+    log-sum-exp of its valid scaled scores [B, H], -1e30 where no slot is
+    valid (such a part weighs nothing in ``merge_partials``)."""
     B, S, KV, hd = k_cache.shape
     H = q.shape[2]
     G = H // KV
@@ -558,8 +571,12 @@ def _masked_decode_attention(q, k_cache, v_cache, valid, cfg):
     s = torch.einsum("bqkgd,bskd->bkgqs", q5.float(), k_cache.to(q.dtype).float()) / (hd**0.5)
     s = torch.where(valid, s, torch.full_like(s, NEG_INF))
     p = torch.softmax(s, dim=-1).to(q.dtype)
-    o = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.to(q.dtype))
-    return o.reshape(B, 1, H, hd)
+    o = torch.einsum("bkgqs,bskd->bqkgd", p, v_cache.to(q.dtype)).reshape(B, 1, H, hd)
+    if not with_lse:
+        return o
+    live = valid.expand(s.shape).any(dim=-1)
+    lse = torch.where(live, torch.logsumexp(s, dim=-1), NEG_INF)
+    return o, lse.reshape(B, H)
 
 
 def _kv_len(pos):
@@ -613,24 +630,24 @@ def decode_stack(params, cfg, x, cache, pos, mesh_info=None):
 
 def decode_ssm(params, cfg, x, cache):
     """ssm decode over all layers: one recurrence step per layer from the
-    cache's (conv, ssm) states, which it overwrites in place (the scan
-    writes the ssm state straight into the cache); returns (x, cache)."""
+    cache's (conv, ssm) states, which the block overwrites in place (the
+    scan writes the ssm state straight into the cache; under a mesh, into
+    this rank's shard of it); returns (x, cache)."""
     dt = cfg_dtype(cfg)
     for l in range(cfg.n_layers):
         lp = layer_params(params["layers"], l)
         hn = apply_norm(cfg.norm, x, lp["ln1"], lp.get("ln1_b"))
-        y, conv, _ = mamba_block(hn, lp["mamba"], cfg, dt, conv_state=cache["conv"][l],
-                                 ssm_state=cache["ssm"][l])
+        y, _, _ = mamba_block(hn, lp["mamba"], cfg, dt, conv_state=cache["conv"][l],
+                              ssm_state=cache["ssm"][l])
         x = x + y
-        cache["conv"][l] = conv
     return x, cache
 
 
 def decode_hybrid(params, cfg, x, cache, pos):
     """hybrid decode at ``pos`` (an int, or a 0-d int tensor on x's
-    device): one step per rec layer from its (conv, rec) states, one
-    ring-window attention per attn layer; overwrites the cache in place
-    and returns (x, cache)."""
+    device): one step per rec layer from its (conv, rec) states, which the
+    block overwrites in place, one ring-window attention per attn layer;
+    returns (x, cache)."""
     dt = cfg_dtype(cfg)
     angles = _step_angles(cfg, pos, x.shape[0], x.device)
     rec_i = attn_i = 0
@@ -638,12 +655,9 @@ def decode_hybrid(params, cfg, x, cache, pos):
         if kind == "rec":
             lp = static_layer_params(params["rec_layers"], rec_i)
             hn = apply_norm(cfg.norm, x, lp["ln1"], lp.get("ln1_b"))
-            y, conv, rec = recurrent_block(hn, lp["rec"], cfg, dt,
-                                           conv_state=cache["conv"][rec_i],
-                                           rec_state=cache["rec"][rec_i])
+            y, _, _ = recurrent_block(hn, lp["rec"], cfg, dt, conv_state=cache["conv"][rec_i],
+                                      rec_state=cache["rec"][rec_i])
             x = ffn_block(x + y, lp, cfg, dt)
-            cache["conv"][rec_i] = conv
-            cache["rec"][rec_i] = rec
             rec_i += 1
         else:
             lp = static_layer_params(params["attn_layers"], attn_i)

@@ -184,3 +184,47 @@ def test_decode_cache_keeps_the_sequence_on_model(arch):
     cs = shardings.cache_pspecs(get_config(arch), SHAPES["decode_32k"], big)
     jcs = jshard.cache_pspecs(jget_config(arch), JSHAPES["decode_32k"], big)
     assert {k: tuple(v) for k, v in cs.items()} == {k: tuple(v) for k, v in jcs.items()}
+
+
+@pytest.mark.parametrize("mesh_name", list(MESHES) + ["2x2"])
+@pytest.mark.parametrize("arch", ["falcon_mamba_7b", "recurrentgemma_2b", "whisper_large_v3"])
+def test_recurrent_and_encdec_cache_specs_equal_jax(arch, mesh_name):
+    """The decode cache specs of the ssm, hybrid and encdec families,
+    smoke and full configs, entry for entry against JAX's (with the port's
+    repair where the sequence and the kv heads name one axis: kv heads
+    whole, in the cross k/v too): at a ``decode_32k``-like batch, and for
+    ssm and hybrid at batch 1, the ``long`` layout (``ff`` over every axis,
+    the ring's sequence over the data axes, nothing over the batch).  Each
+    spec maps to placements; a dim split over several axes is a ``Shard``
+    of that dim on each, in mesh order."""
+    from torch.distributed.tensor import Replicate, Shard
+
+    from repro.configs import get_smoke_config as jget_smoke
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+
+    mesh = _FakeMesh(MESHES.get(mesh_name, {"data": 2, "model": 2}))
+    names = list(mesh.shape)
+    for cfg, jcfg in ((get_config(arch), jget_config(arch)),
+                      (get_smoke_config(arch), jget_smoke(arch))):
+        shapes = [ShapeConfig("d", "decode", 32_768, 128)]
+        if cfg.family in ("ssm", "hybrid"):
+            shapes.append(ShapeConfig("d", "decode", 524_288, 1))
+        for shape in shapes:
+            what = (arch, cfg.name, mesh_name, shape.global_batch)
+            cs = shardings.cache_pspecs(cfg, shape, mesh)
+            jcs = _repaired(jshard.cache_pspecs(jcfg, shape, mesh))
+            assert {k: tuple(v) for k, v in cs.items()} == jcs, what
+            dp = data_axes(mesh)
+            if shape.global_batch == 1:
+                assert cs["conv"][3] == dp + ("model",) and cs["conv"][1] is None, what
+                if "k" in cs:
+                    assert cs["k"][2] == (dp if len(dp) > 1 else dp[0]), what
+            if cfg.family == "encdec":
+                assert cs["cross_k"][2] is None and cs["cross_k"][1] == cs["k"][1], what
+            for spec in cs.values():
+                pl = shardings.placements(mesh, spec)
+                for d, entry in enumerate(spec):
+                    for a in _names(entry):
+                        assert pl[names.index(a)] == Shard(d), what
+                assert sum(p != Replicate() for p in pl) == sum(len(_names(e)) for e in spec)

@@ -218,7 +218,7 @@ def suite(rank, world, cases):
     *args)`` runs ``name(rank, world, *args)``; the list of results."""
     fns = {"train": train, "moe": moe, "remat_a2a": remat_a2a,
            "backward_on_a_thread": backward_on_a_thread, "serve": serve, "server": server,
-           "serve_cli": serve_cli}
+           "serve_cli": serve_cli, "decode_layout": decode_layout}
     return [fns[name](rank, world, *args) for name, *args in cases]
 
 
@@ -366,7 +366,7 @@ def serve(rank, world, arch, mesh_shape, params_np, prompt_np, max_len, steps, l
     first = _full(logits)
     if layout == "seq":
         specs = cache_pspecs(cfg, dshape, mesh)
-        padded = to_decode_layout(cache, mesh, specs, max_len)
+        padded = to_decode_layout(cache, mesh, specs, model.abstract_cache(B, max_len))
     else:
         kv_spec = logical_to_pspec((None, "batch", None, "act_kv", None), drules)
         specs, padded = {}, {}
@@ -390,10 +390,18 @@ def serve(rank, world, arch, mesh_shape, params_np, prompt_np, max_len, steps, l
     return (first, out, toks) if rank == 0 else None
 
 
-def server(rank, world, arch, mesh_shape, params_np, prompt_np, max_len, steps, dtype):
+def _batch(batch_np: dict) -> dict:
+    """A prompt batch of numpy arrays as tensors: token ids int64, the rest
+    (encdec's audio ``frames``) as they are."""
+    return {k: torch.from_numpy(v).long() if k == "inputs" else torch.from_numpy(v)
+            for k, v in batch_np.items()}
+
+
+def server(rank, world, arch, mesh_shape, params_np, batch_np, max_len, steps, dtype):
     """``Server(mesh=)`` on a ("data", "model") mesh: ``generate`` (on the
-    CPU, the eager loop) from whole parameters, ``steps`` tokens: (tokens,
-    logits) whole, on rank 0."""
+    CPU, the eager loop) from whole parameters on the prompt batch
+    ``batch_np`` (numpy arrays), ``steps`` tokens: (tokens, logits) whole,
+    on rank 0."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.convert import from_numpy_tree
     from repro_torch.launch.mesh import make_mesh
@@ -403,10 +411,72 @@ def server(rank, world, arch, mesh_shape, params_np, prompt_np, max_len, steps, 
     mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu", backend="gloo")
     srv = Server(cfg, device="cpu", max_len=max_len, mesh=mesh)
     params = srv.model.compute_params(from_numpy_tree(params_np, device="cpu"))
-    tokens, logits = srv.generate(params, {"inputs": torch.from_numpy(prompt_np).long()},
-                                  steps, with_logits=True)
+    tokens, logits = srv.generate(params, _batch(batch_np), steps, with_logits=True)
     tokens, logits = _full(tokens), _full(logits)  # collectives: every rank takes part
     return (tokens, logits) if rank == 0 else None
+
+
+def decode_layout(rank, world, arch, mesh_shape, params_np, batch_np, max_len):
+    """``serve.to_decode_layout`` on the mesh's own prefill cache: for each
+    key, whether this rank's shard equals, slot for slot, its part of the
+    whole prefill cache (the k/v padded to the decode's slots with zeros),
+    in ``cache_pspecs``' placements and the decode cache's shape; whether a
+    ring of a slot count the ``model`` axis does not divide raises
+    ``ValueError``; and whether an int position outside the cache's slots
+    raises ``IndexError``: {key: bool, "odd_ring": bool, "outside": bool},
+    from every rank."""
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.convert import from_numpy_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Server, to_decode_layout
+    from repro_torch.launch.shardings import PSpec, batch_pspecs, cache_pspecs, named, placements
+    from repro_torch.models.common import activate_sharding
+
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32", attn_impl="pallas")
+    mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu", backend="gloo")
+    srv = Server(cfg, device="cpu", max_len=max_len, mesh=mesh)
+    params = srv.place(srv.model.compute_params(from_numpy_tree(params_np, device="cpu")))
+    batch = _batch(batch_np)
+    B, S = batch["inputs"].shape
+    prules = srv._rules("prefill", B, S)
+    bspecs = batch_pspecs(cfg, ShapeConfig("p", "prefill", S, B), mesh)
+    with torch.no_grad(), activate_sharding(mesh, prules):
+        _, cache = srv.prefill_fn(params, named(mesh, bspecs, batch))
+        dshape = ShapeConfig("d", "decode", max_len, B)
+        specs = cache_pspecs(cfg, dshape, mesh)
+        like = srv.model.abstract_cache(B, max_len)
+        out = to_decode_layout(cache, mesh, specs, like)
+        got = {}
+        for key, c in cache.items():
+            whole = c.full_tensor()
+            pad = like[key].shape[2] - whole.shape[2]
+            if pad > 0:
+                whole = torch.cat([whole, whole.new_zeros(whole.shape[:2] + (pad,)
+                                                          + whole.shape[3:])], dim=2)
+            want = distribute_tensor(whole, mesh, placements(mesh, specs[key]),
+                                     src_data_rank=None).to_local()
+            got[key] = (out[key].placements == placements(mesh, specs[key])
+                        and tuple(out[key].shape) == tuple(like[key].shape)
+                        and torch.equal(out[key].to_local(), want))
+        got["odd_ring"] = got["outside"] = None
+        if cfg.family == "hybrid":  # a ring of min(window, 7) = 7 slots over 2 ranks
+            try:
+                to_decode_layout(cache, mesh, specs, srv.model.abstract_cache(B, 7))
+                got["odd_ring"] = False
+            except ValueError as err:
+                got["odd_ring"] = "7 slots" in str(err) and "2 ranks" in str(err)
+        if "k" in cache and cfg.family != "hybrid":
+            tok = named(mesh, PSpec(prules["batch"], None), torch.zeros((B, 1), dtype=torch.long))
+            try:
+                with activate_sharding(mesh, srv._rules("decode", B, max_len)):
+                    srv.decode_fn(params, out, tok, max_len)
+                got["outside"] = False
+            except IndexError:
+                got["outside"] = True
+    return got
 
 
 def serve_cli(rank, world, argv):
@@ -425,18 +495,19 @@ def serve_cli(rank, world, argv):
 
 def server_one_rank(rank, world, cases, max_len, steps):
     """``Server(mesh=)`` on a 1x1 mesh and the unsharded ``Server`` on the
-    same parameters and prompt, for each (arch, compute dtype, params,
-    prompt) of ``cases``: {(arch, dtype): ((tokens, logits) on the mesh,
-    (tokens, logits) unsharded)}, logits as raw bits."""
+    same parameters and prompt batch, for each (arch, compute dtype, params,
+    prompt batch) of ``cases``: {(arch, dtype): ((tokens, logits) on the
+    mesh, (tokens, logits) unsharded)}, logits as raw bits, and
+    "dtensor_refused" (``_refuses_a_dtensor``)."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.convert import from_numpy_tree
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import Server
 
     mesh = make_mesh((1, 1), ("data", "model"), device="cpu", backend="gloo")
-    out = {}
-    for arch, dtype, params_np, prompt_np in cases:
-        prompt = {"inputs": torch.from_numpy(prompt_np).long()}
+    out = {"dtensor_refused": _refuses_a_dtensor(mesh)}
+    for arch, dtype, params_np, batch_np in cases:
+        prompt = _batch(batch_np)
         cfg = get_smoke_config(arch).replace(compute_dtype=dtype, attn_impl="pallas")
         runs = []
         for m in (mesh, None):
@@ -448,3 +519,22 @@ def server_one_rank(rank, world, cases, max_len, steps):
             runs.append((tokens.numpy(), logits.view(torch.int32).numpy()))
         out[arch, dtype] = tuple(runs)
     return out
+
+
+def _refuses_a_dtensor(mesh) -> bool:
+    """Whether the kernel wrappers' guard (``ops._local``, which each
+    wrapper applies to its tensors on the card) raises ``TypeError`` on a
+    DTensor and hands a plain tensor (and None) back as it is."""
+    from torch.distributed.tensor import Replicate, distribute_tensor
+
+    from repro_torch.kernels import ops
+
+    t = torch.ones(4, 4)
+    kept, none = ops._local(t, None)
+    if kept is not t or none is not None:
+        return False
+    try:
+        ops._local(t, distribute_tensor(t, mesh, [Replicate(), Replicate()]))
+    except TypeError as err:
+        return "DTensor reached a kernel wrapper" in str(err)
+    return False
