@@ -107,7 +107,13 @@ Phases, each printing its lines; any failure exits non-zero:
      reference's experts, its own differing choices counted); logits
      within LOGITS_REL_TOL_BF16_DEPTH2 of the unsharded ones, flash-decode
      twice a step on each rank, ms per step and the collectives' share of
-     the last 8 steps.  A rank that fails or hangs past 240 s kills the
+     the last 8 steps; then, on a (2, 2, 1) ("pod", "data", "model") mesh
+     of the same ranks, recurrentgemma-2b at depth 3 and batch 1 (the
+     ``long`` layout: prompt 2048, cache 4096, the ring's 2048 slots over
+     ("pod", "data"), 512 a rank, pod-major, wrapped from the first decode
+     step; 64 tokens): each rank's slots against the unsharded prefill's,
+     logits within LOGITS_REL_TOL_BF16_DEPTH2, 128 gated RG-LRU launches a
+     rank.  A rank that fails or hangs past 240 s kills the
      others and fails the script.  (c), only with ``--cards`` (four cards,
      nothing else runs): a 2x2 NCCL mesh, one rank a card, chatglm3-6b at
      full width and depth served as (a), twice (NCCL's own algorithms,
@@ -115,6 +121,8 @@ Phases, each printing its lines; any failure exits non-zero:
      its own tokens, against the mesh's eager steps (bitwise or not,
      printed) and the unsharded ``Server`` on each rank's rows, both within
      LOGITS_REL_TOL_BF16; the replayed step beside the unsharded one's;
+     the other families likewise, and recurrentgemma-2b at full depth and
+     batch 1 on a (2, 2, 1) NCCL mesh, bitwise its eager steps;
   stream: chatglm3-6b at full width, all 28 layers, random weights from
      seed 0, decode weights streamed from pinned host memory.  The access
      plan of one decode step (``Server.plan``, traced on the meta device)
@@ -162,7 +170,12 @@ Phases, each printing its lines; any failure exits non-zero:
      recurrentgemma-2b (depth 6 of 26, ``reduced``) and falcon-mamba-7b
      (depth 4 of 64, ``reduced``), B=2, S=2048: no kernel launch (windowed or no attention,
      the scans' plain loop under autograd).
-  mesh (right after (b)): the multi-device layer.  (a) A 1x1 ("data",
+  cost (right after (b)): the cost model (``launch.costmodel.step_cost``,
+     on the meta device, the kernels priced) on chatglm3-6b's captured
+     decode step, prefill and depth-16 train step: FLOPs, bytes and the
+     bound beside the measured time; each kernel's calls must equal the
+     launches of one real step on the card;
+  mesh (right after cost): the multi-device layer.  (a) A 1x1 ("data",
      "model") NCCL mesh: chatglm3-6b at full width, the train phase's
      depth 16, B=2, S=2048, bf16: one step's loss and every gradient leaf
      on DTensors under ``activate_sharding`` bitwise the unsharded step's,
@@ -1203,11 +1216,24 @@ def time_serve(torch, server, params, batch, gen_tokens: int, counters: dict,
           f"CUDA events); {step_ms / decode['graph']:.4f} of the graph path's decode step, "
           f"{step_ms / decode['eager']:.4f} of the eager one's; eager / graph decode "
           f"{decode['eager'] / decode['graph']:.3f}")
-    return {"tokens": tokens, "launched": launched["graph"], "by_variant": by_variant["graph"]}
+    return {"tokens": tokens, "launched": launched["graph"], "by_variant": by_variant["graph"],
+            "prefill_ms": prefill_s * 1e3, "step_ms": step_ms}
+
+
+def _launched_once(torch, fn) -> dict:
+    """{kernel wrapper: launches} of one call of ``fn`` (the counters'
+    ``since`` around it, the card synced)."""
+    from repro_torch.kernels import counters
+
+    before = counters.snapshot()
+    fn()
+    torch.cuda.synchronize()
+    return {w.__name__: n for (w, attr), n in counters.since(before).items()
+            if attr == "launches"}
 
 
 def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
-                gen_tokens: int, max_len: int) -> dict:
+                gen_tokens: int, max_len: int, cost_cells: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.launch.serve import Server
     from repro_torch.launch.steps import concrete_batch
@@ -1246,6 +1272,14 @@ def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
           "the decode did not run flash-decode once per layer per step")
     check(n_gather == 1 + decode_steps,
           "the serve did not run the row gather once per prefill and once per decode step")
+    # [cost]: the launches of one real step of each serving cell, and its time
+    step = server.captured_decode(params, B)
+    with torch.inference_mode():
+        step.pos.fill_(prompt + gen_tokens // 2 - 1)  # kv_len 528, the kernel rows' length
+        cost_cells["decode"] = {"launches": _launched_once(torch, step.replay),
+                                "ms": run["step_ms"]}
+        cost_cells["prefill"] = {"launches": _launched_once(
+            torch, lambda: server.prefill_fn(params, batch)), "ms": run["prefill_ms"]}
 
     # the plain path, teacher-forced on the kernel path's tokens, in bf16
     # and (same weights from the same seed, not cast) in f32
@@ -2097,7 +2131,7 @@ def check_grads(torch, counters: dict, cfg, B: int, S: int, tag: str = "train",
 
 
 def train_model(torch, counters: dict, cfg, B: int, S: int, tag: str,
-                profile: bool = False) -> dict:
+                profile: bool = False, record: dict = None) -> dict:
     """Three ``repro_torch.launch.train.Trainer`` steps of ``cfg`` (weights
     from seed 0, bf16 compute, f32 parameters and AdamW state, remat=full)
     at B x S, the launch counters zeroed just before the run and read just
@@ -2105,7 +2139,8 @@ def train_model(torch, counters: dict, cfg, B: int, S: int, tag: str,
     and the first loss to the plain chunked path's loss on the same weights
     and batch; with ``profile`` a fourth step under torch.profiler.  Prints
     ms per step (median of steps 1-2), tokens/s and peak memory; returns the
-    run's launch counts."""
+    run's launch counts; ``record``, when given, takes the second step's
+    launches and the ms per step."""
     from repro_torch.launch.train import Trainer
     from repro_torch.models.model import Model
 
@@ -2163,13 +2198,16 @@ def train_model(torch, counters: dict, cfg, B: int, S: int, tag: str,
           f"launches in the run {launches}")
     check(loss_rel <= LOSS_REL_TOL, f"{cfg.name}: the first step's loss disagrees with the "
                                     "plain path")
+    if record is not None:
+        record.update(launches={n: c for n, c in steps[1][2].items() if c}, ms=ms)
     del params, opt_state, trainer
     return launches
 
 
-def phase_train(torch, counters: dict) -> dict:
+def phase_train(torch, counters: dict, cost_cells: dict) -> dict:
     """(a) depth-2 gradients, (b) three Trainer steps at depth 16; returns
-    the launch counts of the Trainer run."""
+    the launch counts of the Trainer run (one step's, and its ms, into
+    ``cost_cells["train"]``)."""
     from repro_torch.configs import get_config
 
     B, S, L = 2, 2048, TRAIN_DEPTH
@@ -2178,7 +2216,70 @@ def phase_train(torch, counters: dict) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     cfg = get_config("chatglm3_6b").replace(n_layers=L, attn_impl="pallas")
-    return train_model(torch, counters, cfg, B, S, "train", profile=True)
+    cost_cells["train"] = {}
+    return train_model(torch, counters, cfg, B, S, "train", profile=True,
+                       record=cost_cells["train"])
+
+
+# [cost]: the cost model's cells, chatglm3-6b at full width with the kernels:
+# (kind, depth, B, S, cache slots, position of the decode's new token)
+COST_CELLS = (("decode", 28, 4, 1, 1024, 527), ("prefill", 28, 4, 512, 0, 0),
+              ("train", TRAIN_DEPTH, 2, 2048, 0, 0))
+
+
+def phase_cost(torch, smi: str, cost_cells: dict) -> None:
+    """The cost model (``launch.costmodel.step_cost``) on the cells the card
+    ran: chatglm3-6b's captured decode step (B 4, cache 1024, kv_len 528),
+    its prefill (B 4, prompt 512; both bf16 weights, as ``compute_params``
+    casts them) and its train step at depth 16 (B 2, S 2048, f32 parameters
+    and AdamW state, remat full), each traced on ``meta`` with the kernels
+    priced.  Prints FLOPs, bytes, the bound max(F / 989 TFLOP/s, B / 3.35
+    TB/s) beside the measured time; fails unless each kernel's calls in
+    the cost model's list equal the launches of one real step on the card
+    (``cost_cells``, counted in ``[slice]`` and ``[train]``)."""
+    from repro_torch.configs import get_config
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch.costmodel import step_cost
+    from repro_torch.launch.steps import (
+        decode_input_specs,
+        input_specs,
+        make_decode_step,
+        make_prefill_step,
+        make_train_step,
+    )
+
+    base = get_config("chatglm3_6b").replace(attn_impl="pallas")
+    for kind, depth, B, S, slots, pos in COST_CELLS:
+        cfg = base.replace(n_layers=depth)
+        t = time.perf_counter()
+        if kind == "train":
+            model, opt, fn = make_train_step(cfg, device="meta")
+            params = model.abstract_params()
+            args = (params, opt.init(params), input_specs(cfg, ShapeConfig(kind, kind, S, B)))
+        elif kind == "prefill":
+            model, fn = make_prefill_step(cfg, device="meta")
+            batch = input_specs(cfg, ShapeConfig(kind, kind, S, B))
+            args = (model.compute_params(model.abstract_params()), batch)
+        else:
+            model, fn = make_decode_step(cfg, device="meta")
+            cache, tokens, _ = decode_input_specs(cfg, ShapeConfig(kind, kind, slots, B))
+            at = torch.empty((), dtype=torch.int64, device="meta")  # the captured step's pos
+            args = (model.compute_params(model.abstract_params()), cache, tokens, at)
+        cost = step_cost(fn, *args)
+        trace_s = time.perf_counter() - t
+        measured = cost_cells[kind]
+        bound_ms = max(cost.flops / 989e12, cost.bytes / HBM_BPS) * 1e3
+        print(f"[cost] chatglm3-6b {kind} (depth {depth}, B {B}, "
+              + (f"cache {slots}, kv_len {pos + 1}" if kind == "decode" else f"S {S}")
+              + f"): FLOPs {cost.flops:.6e} (products {cost.dot_flops:.6e}), bytes "
+              f"{cost.bytes:.6e}, bound max(F / 989 TFLOP/s, B / 3.35 TB/s) {bound_ms:.4f} ms "
+              f"({'bytes' if cost.bytes / HBM_BPS > cost.flops / 989e12 else 'operations'}); "
+              f"measured {measured['ms']:.4f} ms ({measured['ms'] / bound_ms:.3f} x the bound); "
+              f"{smi}; traced on meta in {trace_s:.2f} s")
+        print(f"[cost] {kind}: the cost model's kernel calls {cost.kernels}, one real step's "
+              f"launches on the card {measured['launches']}")
+        check(cost.kernels == measured["launches"],
+              f"[cost] {kind}: the cost model's kernel calls are not the card's launches")
 
 
 # the other families trained at full width after the dense one: (arch, depth
@@ -3364,6 +3465,11 @@ SERVE_MESH_CELLS = {
 }
 SERVE_MESH_B, SERVE_MESH_PROMPT = 4, 128
 SERVE_MESH_PROFILED = 8  # the last decode steps, under torch.profiler
+# the batch-1 ``long`` layout on a (2, 2, 1) ("pod", "data", "model") mesh:
+# (arch, depth, cache slots, prompt, tokens); the ring's 2048 slots (the
+# local window) lie over ("pod", "data"), 512 a rank, and the prompt fills
+# them, so the first decode step wraps it
+SERVE_POD = ("recurrentgemma_2b", 3, 4096, 2048, 64)
 
 
 def _serving_counters() -> dict:
@@ -3613,6 +3719,87 @@ def serve_mesh_rank(rank: int, world: int) -> dict:
         del plain, server, params, placed, cache, p, ref_l
         gc.collect()
         torch.cuda.empty_cache()
+    out["pod"] = serve_pod_rank(torch, counters)
+    return out
+
+
+def serve_pod_rank(torch, counters: dict) -> dict:
+    """(b) on a (2, 2, 1) ("pod", "data", "model") mesh of the same four
+    gloo ranks, SERVE_POD at batch 1: the decode rules' ``long`` layout, the
+    states over all three axes, the ring over ("pod", "data") taken as one
+    flattened axis, pod-major.  The unsharded ``Server``'s eager run on
+    the whole prompt (the reference tokens and logits), then
+    ``Server(mesh=)``'s prefill and eager decode steps fed those tokens,
+    the counters zeroed just before and read just after; the logits against
+    the reference's, ms per step (host clock, the card synced), the
+    collectives' share of the last SERVE_MESH_PROFILED steps, and this
+    rank's ring slots after the prefill against the slots [r n, (r + 1) n)
+    of the unsharded prefill's ring, r = 2 pod + data (bitwise, and the
+    largest difference relative to the largest key)."""
+    from torch.distributed.tensor import DTensor
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import entry_rank, make_mesh
+    from repro_torch.launch.serve import Server
+    from repro_torch.launch.shardings import PSpec, placements
+    from repro_torch.launch.steps import concrete_batch
+
+    arch, depth, max_len, S, T = SERVE_POD
+    t_arch = time.perf_counter()
+    mesh = make_mesh((2, 2, 1), ("pod", "data", "model"), device="cuda", backend="gloo")
+    cfg = get_config(arch).replace(n_layers=depth, attn_impl="pallas")
+    plain = Server(cfg, device="cuda", max_len=max_len)
+    params = plain.model.compute_params(plain.model.init_params(seed=0))
+    batch = concrete_batch(cfg, 1, S, device="cuda")
+    batch.pop("targets")
+    ref_t, ref_l = plain.generate_eager(params, batch, T, with_logits=True)
+    with torch.no_grad():
+        _, _, ref_cache = plain._prefill(params, batch)[:3]
+    server = Server(cfg, device="cuda", max_len=max_len, mesh=mesh)
+    placed = server.place(params)
+    forced = DTensor.from_local(ref_t, mesh, placements(mesh, PSpec(None, None)),
+                                run_check=False)
+    scale = float(ref_l.abs().max())
+    worst, step_ms = [0.0, 0.0], []
+    torch.cuda.synchronize()
+    _zero_counters(counters)
+    with torch.no_grad():
+        p, logits, cache, decoding = server._prefill(placed, batch)
+        worst[0] = float((logits.full_tensor() - ref_l[:, :1]).abs().max()) / scale
+        ring = cache["k"].to_local()
+        r, n = entry_rank(mesh, ("pod", "data")), ring.shape[2]
+        want = ref_cache["k"][:, :, r * n:(r + 1) * n]
+        slots = (bool(torch.equal(ring, want)),
+                 float((ring.float() - want.float()).abs().max() / want.float().abs().max()))
+        with decoding:
+            for i in range(T - 1):
+                if i == T - 1 - SERVE_MESH_PROFILED:
+                    prof = profile(activities=[ProfilerActivity.CPU])
+                    prof.__enter__()
+                    t_prof = time.perf_counter()
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                logits, cache = server.decode_fn(p, cache, forced[:, i:i + 1], S + i)
+                got = logits.full_tensor()
+                torch.cuda.synchronize()
+                step_ms.append((time.perf_counter() - t) * 1e3)
+                worst[1] = max(worst[1],
+                               float((got - ref_l[:, i + 1:i + 2]).abs().max()) / scale)
+        prof.__exit__(None, None, None)
+        prof_ms = (time.perf_counter() - t_prof) * 1e3
+        coll_ms = sum(ev.self_cpu_time_total for ev in prof.key_averages()
+                      if "c10d" in ev.key or "gloo" in ev.key) / 1e3
+    out = {"coord": tuple(mesh.get_coordinate()), "flat": r, "slots": (r * n, (r + 1) * n),
+           "ring_equal": slots, "prefill_rel": worst[0], "decode_rel": worst[1],
+           "step_ms": statistics.median(step_ms[:T - 1 - SERVE_MESH_PROFILED]),
+           "profiled_ms": prof_ms, "coll_ms": coll_ms,
+           "launched": {n: c.launches for n, c in counters.items()},
+           "want": _serve_want(cfg, T - 1), "peak": torch.cuda.max_memory_allocated(),
+           "seconds": time.perf_counter() - t_arch}
+    del plain, server, params, placed, cache, p, ref_l, ref_cache
+    gc.collect()
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3664,6 +3851,36 @@ def serve_mesh_shared_card(torch) -> dict:
                   "as the positions say")
             for n in r["want"]:
                 total[n] = total.get(n, 0) + L[n]
+    arch, depth, max_len, S, T = SERVE_POD
+    print(f"[serve_mesh] (b) pod mesh (2, 2, 1) (pod, data, model), 4 ranks on one card over "
+          f"gloo, {arch} full width, depth {depth}, bf16, B=1 prompt={S}, cache {max_len} "
+          f"(ring of {min(max_len, 2048)} slots over (pod, data)), {T} tokens teacher-forced, "
+          f"eager")
+    for o in outs:
+        r = o["pod"]
+        L = r["launched"]
+        print(f"[serve_mesh] (b) pod rank {o['rank']} (pod, data, model) {r['coord']}, flattened "
+              f"(pod, data) index {r['flat']}: ring slots {r['slots']} after the prefill against "
+              f"the unsharded prefill's (bitwise, max |diff| / max |key|) {r['ring_equal']}; "
+              f"logits vs the unsharded Server, max "
+              f"|diff| / max |logit|: prefill {r['prefill_rel']:.3e}, decode "
+              f"{r['decode_rel']:.3e} (tol {tol}); decode {r['step_ms']:.3f} ms per step "
+              f"(median, host clock); the last {SERVE_MESH_PROFILED} steps profiled "
+              f"{r['profiled_ms']:.3f} ms, collectives {r['coll_ms']:.3f} ms (share "
+              f"{r['coll_ms'] / r['profiled_ms']:.4f}); launches {L} (want {r['want']}); gated "
+              f"RG-LRU launches on this rank {L['rglru_gated_fwd']}; peak {r['peak']} B; "
+              f"{r['seconds']:.1f} s")
+        check(r["prefill_rel"] <= tol and r["decode_rel"] <= tol,
+              f"[serve_mesh] (b) pod rank {o['rank']}: logits disagree with the unsharded "
+              "Server's")
+        check(r["ring_equal"][0] and r["flat"] == 2 * r["coord"][0] + r["coord"][1],
+              f"[serve_mesh] (b) pod rank {o['rank']}: its ring slots are not the pod-major "
+              "shard of the prompt's keys")
+        check({n: L[n] for n in r["want"]} == r["want"],
+              f"[serve_mesh] (b) pod rank {o['rank']}: the serving kernels' launches are not "
+              "the path's")
+        for n in r["want"]:
+            total[n] = total.get(n, 0) + L[n]
     return total
 
 
@@ -3684,8 +3901,13 @@ SERVE_CARDS_CELLS = {
     "recurrentgemma_2b": (4, 512, 32, 544),  # a ring of 544 slots, 272 a model rank
     "whisper_large_v3": (4, 128, 32, 256),
 }
-SERVE_CARDS_RUNS = tuple((("chatglm3_6b",), env) for env in SERVE_CARDS_NCCL) + (
-    (("falcon_mamba_7b", "recurrentgemma_2b", "whisper_large_v3"), SERVE_CARDS_NCCL[0]),)
+# and recurrentgemma-2b at full depth and batch 1 on a (2, 2, 1) ("pod",
+# "data", "model") mesh: the ``long`` layout, its ring's 2048 slots over
+# ("pod", "data"), wrapped from the first decode step
+SERVE_CARDS_POD_CELLS = {"recurrentgemma_2b": (1, 2048, 64, 4096)}
+SERVE_CARDS_RUNS = tuple((("chatglm3_6b",), env, (2, 2)) for env in SERVE_CARDS_NCCL) + (
+    (("falcon_mamba_7b", "recurrentgemma_2b", "whisper_large_v3"), SERVE_CARDS_NCCL[0], (2, 2)),
+    (("recurrentgemma_2b",), SERVE_CARDS_NCCL[0], (2, 2, 1)))
 
 
 def _forced_mesh_logits(torch, server, params, batch, tokens):
@@ -3708,9 +3930,12 @@ def _forced_mesh_logits(torch, server, params, batch, tokens):
     return torch.cat(out, dim=1)
 
 
-def serve_cards_rank(rank: int, world: int, archs: tuple, nccl_env: dict) -> dict:
-    """(c) One rank of a 2x2 NCCL mesh, one card each, under ``nccl_env``,
-    for each of ``archs`` (its SERVE_CARDS_CELLS cell) in turn:
+def serve_cards_rank(rank: int, world: int, archs: tuple, nccl_env: dict,
+                     mesh_shape: tuple) -> dict:
+    """(c) One rank of an NCCL mesh of ``mesh_shape`` (2x2 ("data",
+    "model"), or (2, 2, 1) ("pod", "data", "model") with the
+    SERVE_CARDS_POD_CELLS), one card each, under ``nccl_env``, for each of
+    ``archs`` (its SERVE_CARDS_CELLS cell) in turn:
     ``Server(mesh=)``'s captured ``generate`` (the sharded step with its
     NCCL collectives inside the graph) and its launches; its logits against
     the mesh's eager steps and against the unsharded ``Server`` on this
@@ -3724,19 +3949,22 @@ def serve_cards_rank(rank: int, world: int, archs: tuple, nccl_env: dict) -> dic
     torch.cuda.set_device(rank)
     torch.backends.cuda.matmul.allow_tf32 = False
     from repro_torch.configs import get_config
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import entry_rank, entry_size, make_mesh
     from repro_torch.launch.serve import Server
     from repro_torch.launch.steps import concrete_batch
 
     counters = _serving_counters()
-    mesh = make_mesh((2, 2), ("data", "model"), device="cuda", backend="nccl")
-    data = mesh.get_coordinate()[0]
+    axes = ("pod", "data", "model")[-len(mesh_shape):]
+    mesh = make_mesh(mesh_shape, axes, device="cuda", backend="nccl")
+    cells = SERVE_CARDS_CELLS if len(mesh_shape) == 2 else SERVE_CARDS_POD_CELLS
     out = {"rank": rank, "coord": tuple(mesh.get_coordinate())}
     for arch in archs:
-        B, prompt, gen_tokens, max_len = SERVE_CARDS_CELLS[arch]
-        mine = slice(data * B // 2, (data + 1) * B // 2)
+        B, prompt, gen_tokens, max_len = cells[arch]
         cfg = get_config(arch).replace(attn_impl="pallas")
         server = Server(cfg, device="cuda", max_len=max_len, mesh=mesh)
+        rows_rule = server._rules("decode", B, max_len)["batch"]  # None: rows whole
+        n_rows, i_rows = entry_size(mesh, rows_rule), entry_rank(mesh, rows_rule)
+        mine = slice(i_rows * B // n_rows, (i_rows + 1) * B // n_rows)
         plain = Server(cfg, device="cuda", max_len=max_len)
         params = plain.model.compute_params(plain.model.init_params(seed=0))
         placed = server.place(params)
@@ -3761,7 +3989,8 @@ def serve_cards_rank(rank: int, world: int, archs: tuple, nccl_env: dict) -> dic
         ms = {"unsharded": [], "mesh": []}
         steps = gen_tokens - 1
         for name in ("unsharded", "mesh", "mesh", "unsharded"):
-            srv, p, b = (plain, params, B // 2) if name == "unsharded" else (server, placed, B)
+            srv, p, b = ((plain, params, B // n_rows) if name == "unsharded"
+                         else (server, placed, B))
             ms[name].append(_replayed_ms(torch, srv.captured_decode(p, b), prompt, steps))
         out[arch] = {"capture_s": capture_s, "bitwise": bool(torch.equal(ml, eager)),
                      "eager_rel": rel_err(torch, ml, eager)[0],
@@ -3788,21 +4017,23 @@ def phase_serve_cards(torch, smi: str) -> dict:
 
     tol = LOGITS_REL_TOL_BF16
     total = {}
-    for archs, env in SERVE_CARDS_RUNS:
+    for archs, env, shape in SERVE_CARDS_RUNS:
+        cells = SERVE_CARDS_CELLS if len(shape) == 2 else SERVE_CARDS_POD_CELLS
         t = time.perf_counter()
         try:
-            outs = run_ranks(serve_cards_rank, SERVE_CARDS, archs, env, backend="nccl",
+            outs = run_ranks(serve_cards_rank, SERVE_CARDS, archs, env, shape, backend="nccl",
                              timeout=2 * MESH_TIMEOUT)
         except (RuntimeError, TimeoutError) as e:
             fail(f"[serve_mesh] (c) the {SERVE_CARDS}-card run failed: {e}")
-        print(f"[serve_mesh] (c) 2x2 NCCL mesh, one rank a card ({SERVE_CARDS} cards), NCCL "
+        print(f"[serve_mesh] (c) {shape} {('pod', 'data', 'model')[-len(shape):]} NCCL mesh, "
+              f"one rank a card ({SERVE_CARDS} cards), NCCL "
               f"settings {env or 'the library default'}, {', '.join(archs)} full width and "
               f"depth, bf16, (B, prompt, tokens, cache) "
-              f"{ {a: SERVE_CARDS_CELLS[a] for a in archs} }: "
+              f"{ {a: cells[a] for a in archs} }: "
               f"{time.perf_counter() - t:.1f} s; {smi}")
         for o in outs:
             for arch in archs:
-                r, B = o[arch], SERVE_CARDS_CELLS[arch][0]
+                r, B = o[arch], cells[arch][0]
                 L = r["launched"]
                 print(f"[serve_mesh] (c) rank {o['rank']} (data, model) {o['coord']} {arch}: "
                       f"captured generate's logits, fed its own tokens, against the mesh's eager "
@@ -3810,7 +4041,8 @@ def phase_serve_cards(torch, smi: str) -> dict:
                       f"{r['eager_rel']:.3e}; against the unsharded Server on this card over "
                       f"this data shard's rows {r['plain_rel']:.3e} (tol {tol}); first generate "
                       f"(the capture) {r['capture_s']:.3f} s; launches {L} (want {r['want']}); "
-                      f"replayed step device ms (in turns unsharded B={B // 2}, mesh B={B}, "
+                      f"replayed step device ms (in turns unsharded B={max(1, B // 2)}, mesh "
+                      f"B={B}, "
                       f"mesh, unsharded) mesh {[round(x, 4) for x in r['ms']['mesh']]}, "
                       f"unsharded {[round(x, 4) for x in r['ms']['unsharded']]}; peak "
                       f"{r['peak']} B")
@@ -3914,8 +4146,9 @@ def main() -> int:
     ]
     # each path's counts: serving for the forward, flash-decode and the
     # gather, the Trainer run for the backward kernels
+    cost_cells: dict = {}
     launches = phase_slice(torch, flash_attention_fwd, decode_attention_fwd, prefetch_gather_fwd,
-                           B, prompt, gen_tokens, max_len)
+                           B, prompt, gen_tokens, max_len, cost_cells)
     gc.collect()
     torch.cuda.empty_cache()
     # the continuous batcher's serving path: its launches add to the slice's
@@ -3939,7 +4172,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     train = phase_train(torch, {"flash_attention_fwd": flash_attention_fwd,
                                 "flash_attention_bwd_dkdv": flash_attention_bwd_dkdv,
-                                "flash_attention_bwd_dq": flash_attention_bwd_dq})
+                                "flash_attention_bwd_dq": flash_attention_bwd_dq},
+                        cost_cells)
+    phase_cost(torch, smi, cost_cells)
     gc.collect()
     torch.cuda.empty_cache()
     # the multi-device layer: the Trainer on a one-rank NCCL mesh, four ranks

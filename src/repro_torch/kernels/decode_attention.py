@@ -38,7 +38,7 @@ import functools
 
 import torch
 
-from . import _build
+from . import _build, pricing
 from .flash_attention import check_head_dim
 
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -174,7 +174,17 @@ def decode_attention_fwd(q, k, v, kv_len, with_lse: bool = False):
     tensor on q's device, or a ``[B]`` int32 tensor there (row b attends to
     its first ``kv_len[b]`` rows; ``device_kv_len``; the kernels clamp a
     tensor's values to [0, S]); the grid depends on S alone, so one launch
-    and its replays serve every length and every mix of lengths."""
+    and its replays serve every length and every mix of lengths.  A
+    ``meta`` q is priced (``pricing``: 4 B H S D, the cache's S slots), not
+    launched."""
+    if q.is_meta:
+        B, H, D = q.shape
+        kv = kv_len if isinstance(kv_len, torch.Tensor) else pricing.empty((1,), torch.int32)
+        out = (pricing.empty(q.shape, q.dtype),
+               pricing.empty((B, H), torch.float32) if with_lse else None)
+        o, lse = pricing.priced("decode_attention_fwd", (kv, q, k, v), out,
+                                4 * B * H * k.shape[1] * D, dot=True)
+        return (o, lse) if with_lse else o
     _check(q, k, v)
     B, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]

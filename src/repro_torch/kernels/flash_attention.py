@@ -21,7 +21,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, pricing
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_HEAD_DIM = 1024
@@ -102,7 +102,12 @@ def flash_attention_fwd(q, k, v, *, causal: bool = True, q_offset: int = 0):
     bases and strides 16-byte aligned) -> (o [B, Sq, H, D] in q's dtype,
     lse [B*H, Sq] f32).  ``route`` says which kernel runs: bf16 on the
     tensor cores (wgmma, TMA, warp specialisation) where D allows, the rest
-    on the CUDA cores."""
+    on the CUDA cores.  A ``meta`` q is priced (``pricing``), not launched."""
+    if q.is_meta:
+        B, Sq, H, D = q.shape
+        o, lse = pricing.empty(q.shape, q.dtype), pricing.empty((B * H, Sq), torch.float32)
+        return pricing.priced("flash_attention_fwd", (q, k, v), (o, lse),
+                              4 * B * H * Sq * k.shape[1] * D, dot=True)
     _check(q, k, v)
     if q_offset < 0:
         raise ValueError(f"q_offset {q_offset} < 0")

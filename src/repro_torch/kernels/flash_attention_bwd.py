@@ -24,7 +24,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, pricing
 from .decode_attention import _sm_count
 from .flash_attention import _DTYPES, _check, route, tma_aligned
 
@@ -116,7 +116,13 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
     """q, do [B, Sq, H, D]; k, v [B, Sk, KV, D]; lse, delta [B*H, Sq] f32 (CUDA;
     f32 or bf16, 1 <= D <= 1024, contiguous last dim, rows 16-byte aligned on
     the tensor-core route) -> (dk, dv) [B, Sk, KV, D] in k's dtype, summed
-    over each KV head's query group."""
+    over each KV head's query group.  ``meta`` inputs are priced
+    (``pricing``), not launched."""
+    if q.is_meta:
+        B, Sq, H, D = q.shape
+        dk, dv = pricing.empty(k.shape, k.dtype), pricing.empty(v.shape, v.dtype)
+        return pricing.priced("flash_attention_bwd_dkdv", (q, k, v, do, lse, delta), (dk, dv),
+                              8 * B * H * Sq * k.shape[1] * D, dot=True)
     _check_bwd(q, k, v, do, lse, delta, q_offset)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -135,7 +141,13 @@ def flash_attention_bwd_dkdv(q, k, v, do, lse, delta, *, causal: bool = True,
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, *, causal: bool = True, q_offset: int = 0):
     """The same inputs as ``flash_attention_bwd_dkdv`` -> dq [B, Sq, H, D] in
-    q's dtype."""
+    q's dtype (``meta`` inputs: priced)."""
+    if q.is_meta:
+        B, Sq, H, D = q.shape
+        dq, = pricing.priced("flash_attention_bwd_dq", (q, k, v, do, lse, delta),
+                             (pricing.empty(q.shape, q.dtype),),
+                             6 * B * H * Sq * k.shape[1] * D, dot=True)
+        return dq
     _check_bwd(q, k, v, do, lse, delta, q_offset)
     B, Sq, H, D = q.shape
     Sk, KV = k.shape[1], k.shape[2]
@@ -164,7 +176,7 @@ def flash_attention_bwd(q, k, v, o, do, lse, *, causal: bool = True, q_offset: i
     """(dq, dk, dv) of flash attention from the forward's inputs, its output
     ``o`` and f32 ``lse``, and the output's cotangent ``do``; ``do`` is made
     contiguous once if its rows are not aligned for the kernels."""
-    if not _aligned(do):
+    if not do.is_meta and not _aligned(do):
         do = do.contiguous()
     delta = attention_delta(o, do)
     dk, dv = flash_attention_bwd_dkdv(q, k, v, do, lse, delta, causal=causal, q_offset=q_offset)

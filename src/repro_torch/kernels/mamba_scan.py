@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, pricing
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_N = 32  # the lanes of one channel's state must fit a warp
@@ -58,7 +58,15 @@ def mamba_scan_fwd(dA, dBu, C, h0=None, with_state: bool = False):
     """dA, dBu [B, S, Ch, N], C [B, S, N] (CUDA, f32 or bf16, one dtype);
     h0 [B, Ch, N] f32 or None (zeros) -> y [B, S, Ch] in dA's dtype, with
     h_t = dA_t * h_{t-1} + dBu_t and y_t = h_t . C_t in f32; and, with
-    ``with_state``, the last state h_S [B, Ch, N] f32 as well."""
+    ``with_state``, the last state h_S [B, Ch, N] f32 as well (``meta``
+    inputs: priced, ``pricing``)."""
+    if dA.is_meta:
+        B, S, Ch, N = dA.shape
+        out = (pricing.empty((B, S, Ch), dA.dtype),
+               pricing.empty((B, Ch, N), torch.float32) if with_state else None)
+        y, h = pricing.priced("mamba_scan_fwd", (dA, dBu, C, h0), out,
+                              sum(t.numel() for t in out if t is not None))
+        return (y, h) if with_state else y
     _check(dA, dBu, C, h0)
     B, S, Ch, N = dA.shape
     y = torch.empty((B, S, Ch), dtype=dA.dtype, device=dA.device)

@@ -8,14 +8,17 @@ JAX model's ``repro.models.ssm.selective_scan``) and ``rglru_gated_scan``
 Each op chooses by the device of the tensors it is given: a CPU tensor
 takes the plain PyTorch version (``ref``), a CUDA tensor the hand-written
 CUDA kernel, which raises on what it cannot take.  There is no fallback
-from the kernel to the plain version.
+from the kernel to the plain version.  A ``meta`` tensor takes the plain
+version too (the access plan traces it), except under the cost model's
+``pricing`` context, where it takes the card's route and each kernel is
+priced instead of launched (``pricing.on_card``).
 """
 
 from __future__ import annotations
 
 import torch
 
-from . import ref
+from . import pricing, ref
 from .decode_attention import decode_attention_fwd
 from .flash_attention import flash_attention_fwd
 from .flash_attention_bwd import attention_delta, flash_attention_bwd
@@ -31,7 +34,7 @@ def flash_attention(q, k, v, *, causal=True, q_offset=0, with_lse=False):
 
     There are no block-size options: the CUDA kernel fixes its own tiles and
     masks ragged edges, so it takes any Sq and Sk."""
-    if q.is_cuda:
+    if pricing.on_card(q):
         q, k, v = (_waited(t) for t in (q, k, v))
         o, lse = flash_attention_fwd(q, k, v, causal=causal, q_offset=q_offset)
         return (o, lse) if with_lse else o
@@ -56,7 +59,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k, v, o, lse = ctx.saved_tensors
         do = _waited(do)
         kw = dict(causal=ctx.causal, q_offset=ctx.q_offset)
-        if q.is_cuda:
+        if pricing.on_card(q):
             dq, dk, dv = flash_attention_bwd(q, k, v, o, do, lse, **kw)
         else:
             dq, dk, dv = ref.flash_attention_bwd_ref(q, k, v, do, lse, attention_delta(o, do),
@@ -109,7 +112,7 @@ def decode_attention(q, k, v, kv_len, with_lse: bool = False):
     The cache is read in place (no head-major copy).  The kernel fixes its
     own tiles, so any S is taken: the JAX wrapper's
     ``S % min(block_k, S) == 0`` assertion has no counterpart here."""
-    if q.is_cuda:
+    if pricing.on_card(q):
         q, k, v = _local(q, k, v)
         return decode_attention_fwd(q, k, v, kv_len, with_lse)
     return ref.decode_attention_ref(q, k, v, kv_len, with_lse)
@@ -120,7 +123,7 @@ def prefetch_gather(table, idx):
     and dtype: the JAX wrapper pads D to a multiple of 128 and slices the
     result back, the CUDA kernel copies rows of any width as they are.  The
     indices stay on the device (no ``.item()``, no host range check)."""
-    if table.is_cuda:
+    if pricing.on_card(table):
         return prefetch_gather_fwd(*_local(table, idx))
     return ref.prefetch_gather_ref(table, idx)
 
@@ -132,7 +135,7 @@ def rglru_scan(a, g, h0=None):
     The CUDA kernel reads the model's layout as it is; the JAX wrapper folds
     batch into channels ([S, B * W]), has no h0 and takes block sizes, which
     have no counterpart here (the kernel takes any S and W)."""
-    if a.is_cuda:
+    if pricing.on_card(a):
         return rglru_scan_fwd(*_local(a, g, h0))
     return ref.rglru_scan_ref(a, g, h0)
 
@@ -145,7 +148,7 @@ def mamba_scan(dA, dBu, C, h0=None, with_state=False):
     The JAX wrapper vmaps batch over the TPU kernel, which starts from zero
     and drops its last state; the CUDA kernel takes h0 and returns h_S,
     what the model's prefill and decode need, and any S and Ch."""
-    if dA.is_cuda:
+    if pricing.on_card(dA):
         return mamba_scan_fwd(*_local(dA, dBu, C, h0), with_state)
     return ref.mamba_scan_ref(dA, dBu, C, h0, with_state)
 
@@ -160,7 +163,7 @@ def selective_scan(u, dt, A, B_ssm, C_ssm, D, h0=None, *, h_out=None):
     On the card dA = exp(dt A) and dBu = (dt u) B are formed inside the
     kernel, per step, as the JAX model forms them inside its ``lax.scan``;
     ``mamba_scan`` is the TPU kernel's contract, with both materialised."""
-    if u.is_cuda:
+    if pricing.on_card(u):
         u, dt, A, B_ssm, C_ssm, D, h0, h_out = _local(u, dt, A, B_ssm, C_ssm, D, h0, h_out)
         return selective_scan_fwd(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h_out)
     return ref.selective_scan_ref(u, dt, A, B_ssm, C_ssm, D, h0, h_out=h_out)
@@ -173,7 +176,7 @@ def rglru_gated_scan(x, r, i, lam, h0=None):
     (i_t x_t).  On the card the gates are formed inside the kernel; the
     decay coefficient -8 softplus(lam) is formed here with the plain
     version's ops, so both round it alike."""
-    if x.is_cuda:
+    if pricing.on_card(x):
         x, r, i, lam, h0 = _local(x, r, i, lam, h0)
         return rglru_gated_fwd(x, r, i, ref.rglru_decay(lam), h0)
     return ref.rglru_gated_scan_ref(x, r, i, lam, h0)

@@ -13,7 +13,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, pricing
 
 _IDX_DTYPES = {torch.int32: 0, torch.int64: 1}
 _UNITS = (16, 8, 4, 2, 1)  # copy widths in bytes, widest first
@@ -60,7 +60,11 @@ def prefetch_gather_fwd(table, idx):
     """table [N, D] (CUDA, any dtype, contiguous rows, any row stride); idx
     [B] int32 or int64 on the same device, each in [0, N) -> out [B, D] =
     table[idx], bit for bit.  The indices are read on the device only; one
-    outside [0, N) fails a device-side assert."""
+    outside [0, N) fails a device-side assert.  A ``meta`` table is priced
+    (``pricing``), not launched."""
+    if table.is_meta:
+        out = pricing.empty((idx.shape[0], table.shape[1]), table.dtype)
+        return pricing.priced("prefetch_gather_fwd", (table, idx), (out,), out.numel())[0]
     _check(table, idx)
     N, D = table.shape
     B = idx.shape[0]

@@ -19,7 +19,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, pricing
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_GRID_Y = 65535
@@ -66,7 +66,10 @@ def _launch(name: str, n_ptrs: int, args):
 def rglru_scan_fwd(a, g, h0=None):
     """a, g [B, S, W] (CUDA, f32 or bf16, one dtype); h0 [B, W] f32 or None
     (zeros) -> y [B, S, W] in a's dtype, y_t = h_t = a_t * h_{t-1} + g_t
-    with an f32 state."""
+    with an f32 state (``meta`` inputs: priced, ``pricing``)."""
+    if a.is_meta:
+        y = pricing.empty(a.shape, a.dtype)
+        return pricing.priced("rglru_scan_fwd", (a, g, h0), (y,), y.numel())[0]
     _check("rglru_scan_fwd", (a, g), h0)
     B, S, W = a.shape
     y = torch.empty((B, S, W), dtype=a.dtype, device=a.device)
@@ -83,7 +86,12 @@ def rglru_gated_fwd(x, r, i, c, h0=None):
     """x, r, i [B, S, W] (CUDA, f32 or bf16, one dtype); c [W] f32, the decay
     coefficient -8 softplus(lam); h0 [B, W] f32 or None (zeros) -> (y [B, S,
     W] in x's dtype, h_S [B, W] f32), with a_t = exp(c r_t), g_t = (i_t x_t)
-    sqrt(max(1 - a_t^2, 1e-12)) and h_t = a_t h_{t-1} + g_t in f32."""
+    sqrt(max(1 - a_t^2, 1e-12)) and h_t = a_t h_{t-1} + g_t in f32
+    (``meta`` inputs: priced, ``pricing``)."""
+    if x.is_meta:
+        y, h = pricing.empty(x.shape, x.dtype), pricing.empty((x.shape[0], x.shape[2]),
+                                                               torch.float32)
+        return pricing.priced("rglru_gated_fwd", (x, r, i, c, h0), (y, h), y.numel() + h.numel())
     _check("rglru_gated_fwd", (x, r, i), h0, c)
     B, S, W = x.shape
     y = torch.empty((B, S, W), dtype=x.dtype, device=x.device)

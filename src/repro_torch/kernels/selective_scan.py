@@ -16,7 +16,7 @@ import ctypes
 
 import torch
 
-from . import _build
+from . import _build, pricing
 from .decode_attention import _sm_count
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -89,7 +89,14 @@ def selective_scan_fwd(u, dt, A, B_ssm, C_ssm, D, h0=None, *, h_out=None, _lanes
     f32): h_t = exp(dt_t A) h_{t-1} + (dt_t u_t) B_t, y_t = h_t . C_t + D
     u_t.  With ``h_out`` (contiguous, possibly ``h0`` itself) the last state
     is written there and returned.  ``_lanes`` overrides ``scan_lanes``, for
-    timing the splits side by side (``chip_smoke.py``'s ``[scans]`` sweep)."""
+    timing the splits side by side (``chip_smoke.py``'s ``[scans]`` sweep).
+    ``meta`` inputs are priced (``pricing``), not launched."""
+    if u.is_meta:
+        y = pricing.empty(u.shape, u.dtype)
+        h = h_out if h_out is not None else pricing.empty(
+            (u.shape[0], u.shape[2], A.shape[1]), torch.float32)
+        return pricing.priced("selective_scan_fwd", (u, dt, A, B_ssm, C_ssm, D, h0), (y, h),
+                              y.numel() + h.numel())
     _check(u, dt, A, B_ssm, C_ssm, D, h0, h_out)
     Bsz, S, Ch = u.shape
     N = A.shape[1]

@@ -119,6 +119,43 @@ def axis_sizes(mesh) -> dict:
     return dict(mesh.shape)
 
 
+def entry_axes(entry) -> tuple:
+    """The axes a spec entry names (None, an axis, or a tuple of axes)."""
+    return () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def entry_size(mesh, entry) -> int:
+    """The number of ranks a spec entry spans: the product of its axes'
+    sizes (1 for None)."""
+    n = 1
+    for a in entry_axes(entry):
+        n *= mesh.size(mesh.mesh_dim_names.index(a))
+    return n
+
+
+def entry_rank(mesh, entry) -> int:
+    """This rank's index along a spec entry: for a tuple of axes the index
+    of the one flattened axis, in JAX's order (the first axis major):
+    ``pod_rank * |data| + data_rank`` for ``("pod", "data")``.  That is
+    the order in which DTensor nests a dim split over those axes, so rank
+    ``r``'s shard of ``n`` rows starts at ``r * n``."""
+    r = 0
+    for a in entry_axes(entry):
+        r = r * mesh.size(mesh.mesh_dim_names.index(a)) + mesh.get_local_rank(a)
+    return r
+
+
+def entry_group(mesh, entry):
+    """The process group of a spec entry's ranks: one axis's group, or for
+    a tuple the group of the axes flattened into one (``DeviceMesh._flatten``,
+    made once and kept by the mesh), whose ranks run in ``entry_rank``'s
+    order.  A collective over it is one call, not one per axis."""
+    names = entry_axes(entry)
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    return mesh[names]._flatten().get_group()
+
+
 def data_axes(mesh) -> tuple:
     """The axes that carry batch data parallelism."""
     return ("pod", "data") if "pod" in axis_sizes(mesh) else ("data",)

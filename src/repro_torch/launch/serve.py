@@ -60,6 +60,7 @@ from repro_torch import resolve_device
 from repro_torch.configs import get_config, get_smoke_config
 from repro_torch.configs.base import ShapeConfig
 from repro_torch.core.access_plan import build_access_plan
+from repro_torch.launch.mesh import entry_rank, entry_size
 from repro_torch.launch.shardings import (
     PSpec,
     batch_pspecs,
@@ -106,7 +107,7 @@ class Server:
         than the data axes hold (the batch-1 ``long`` decode's prompt) keeps
         its rows whole: the batch does not divide over them."""
         rules = logical_rules(self.cfg, ShapeConfig(kind, kind, seq_len, batch_size), self.mesh)
-        if kind == "prefill" and batch_size % _size(self.mesh, rules["batch"]):
+        if kind == "prefill" and batch_size % entry_size(self.mesh, rules["batch"]):
             rules["batch"] = None
         return rules
 
@@ -353,13 +354,16 @@ def to_decode_layout(cache: dict, mesh, specs: dict, like: dict) -> dict:
     ``specs``' layout (``cache_pspecs`` under the decode rules), on the
     device; no tensor leaves it.
 
-    - A k/v cache whose sequence (dim 2) the spec splits over one mesh
-      axis (the self-attention cache of ``max_len`` slots, the hybrid's
-      ring of min(local_window, max_len)): each rank gathers the prompt's
-      k/v heads it lacks over the head axis, keeps the slots of its own
-      sequence shard ([r * n, (r + 1) * n) with n = slots / R) and zeros
-      the rest (a prompt shorter than the cache leaves them empty).  The
-      slots must divide by R, else ``ValueError``.
+    - A k/v cache whose sequence (dim 2) the spec splits over a mesh axis
+      or a tuple of them (the self-attention cache of ``max_len`` slots
+      over ``model``; the hybrid's ring of min(local_window, max_len), at
+      batch 1 over the data axes, ``("pod", "data")`` on a multi-pod
+      mesh): each rank gathers the prompt's k/v heads it lacks over the
+      head axis, keeps the slots of its own sequence shard ([r * n, (r + 1)
+      * n) with n = slots / R, r its index along the flattened axes, the
+      first axis major: ``mesh.entry_rank``) and zeros the rest (a prompt
+      shorter than the cache leaves them empty).  The slots must divide by
+      R, else ``ValueError``.
     - Every other entry (the recurrent and conv states; encdec's cross k/v
       over the encoder's frames, sequence whole): redistributed to its
       spec."""
@@ -374,16 +378,14 @@ def to_decode_layout(cache: dict, mesh, specs: dict, like: dict) -> dict:
                 raise ValueError(f"cache {key!r}: {tuple(c.shape)}, the decode holds {shape}")
             out[key] = to_dtensor(c, mesh).redistribute(mesh, placements(mesh, spec))
             continue
-        if not isinstance(axis, str):
-            raise NotImplementedError(f"a cache sequence split over mesh axes {axis}")
-        R, slots = mesh.size(mesh.mesh_dim_names.index(axis)), shape[2]
+        R, slots = entry_size(mesh, axis), shape[2]
         if slots % R:
             raise ValueError(f"the cache's {slots} slots do not divide over the {R} ranks "
                              f"of {axis!r}")
         n = slots // R
         whole_seq = PSpec(*spec[:2], None, *spec[3:])
         local = to_dtensor(c, mesh).redistribute(mesh, placements(mesh, whole_seq)).to_local()
-        start = mesh.get_local_rank(axis) * n
+        start = entry_rank(mesh, axis) * n
         buf = local.new_zeros(local.shape[:2] + (n,) + local.shape[3:])
         m = min(n, max(0, local.shape[2] - start))
         buf[:, :, :m] = local[:, :, start:start + m]
@@ -391,14 +393,6 @@ def to_decode_layout(cache: dict, mesh, specs: dict, like: dict) -> dict:
                                       shape=shape,
                                       stride=torch.empty(shape, device="meta").stride())
     return out
-
-
-def _size(mesh, entry) -> int:
-    """The number of ranks a spec entry (None, an axis or a tuple) spans."""
-    n = 1
-    for a in (() if entry is None else (entry,) if isinstance(entry, str) else entry):
-        n *= mesh.size(mesh.mesh_dim_names.index(a))
-    return n
 
 
 # the top-level parameter groups of a layer stack, per family: ``layers``

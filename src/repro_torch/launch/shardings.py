@@ -23,7 +23,7 @@ from __future__ import annotations
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 
-from .mesh import axis_sizes, data_axes
+from .mesh import axis_sizes, data_axes, entry_axes
 
 
 class PSpec(tuple):
@@ -158,11 +158,13 @@ def batch_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
     return specs
 
 
-def _axes(entry) -> tuple:
-    """The mesh axes a spec entry names."""
-    if entry is None:
-        return ()
-    return entry if isinstance(entry, tuple) else (entry,)
+def off_batch(rules: dict, name: str):
+    """The mesh axes of rule ``name`` that the batch rule does not take, as
+    a spec entry (an axis, a tuple of them, or None): what an activation
+    split over the batch can also be split over on that dim."""
+    batch = set(entry_axes(rules.get("batch")))
+    axes = tuple(a for a in entry_axes(rules.get(name)) if a not in batch)
+    return axes[0] if len(axes) == 1 else (axes or None)
 
 
 def cache_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
@@ -179,7 +181,7 @@ def cache_pspecs(cfg: ModelConfig, shape: ShapeConfig, mesh) -> dict:
     b = rules["batch"]
     cseq = rules["cache_seq"]
     kvh = rules["act_kv"]
-    if set(_axes(kvh)) & set(_axes(cseq)):
+    if set(entry_axes(kvh)) & set(entry_axes(cseq)):
         kvh = None
     ff = rules["ff"]
     if cfg.family in ("dense", "moe"):
@@ -212,7 +214,7 @@ def placements(mesh, spec) -> tuple:
     names = list(axis_sizes(mesh))
     out = [Replicate()] * len(names)
     for d, entry in enumerate(spec):
-        axes = _axes(entry)
+        axes = entry_axes(entry)
         idx = [names.index(a) for a in axes]
         if idx != sorted(idx):
             raise ValueError(f"spec {spec}: axes {axes} of dim {d} are not in mesh order {names}")

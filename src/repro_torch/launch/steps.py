@@ -1,7 +1,8 @@
 """Step functions (train / prefill / decode), the MoE path a mesh selects
-(``mesh_info_for``) and a concrete batch for tests and examples.
-Counterpart of ``repro.launch.steps`` (its abstract input specs belong to
-the dry-run, ROADMAP.md, section 1, item 7).
+(``mesh_info_for``), their abstract inputs on the ``meta`` device
+(``input_specs``, ``decode_input_specs``: what the dry-run and the cost
+model trace) and a concrete batch for tests and examples.  Counterpart of
+``repro.launch.steps``.
 
 Under a mesh the steps run on DTensors placed by the logical rules, inside
 ``models.common.activate_sharding(mesh, rules)``, which the caller enters
@@ -322,6 +323,45 @@ def params_key(params: dict) -> tuple:
         return (path, t.data_ptr(), tuple(t.shape), t.stride(), t.dtype)
 
     return tuple(key(path, t) for path, t in tree_items(params))
+
+
+# ---------------------------------------------------------------------------
+# Abstract inputs (tensors on the ``meta`` device: no allocation), per shape
+# kind; the dtypes are JAX's (token ids and positions int32)
+# ---------------------------------------------------------------------------
+
+
+def _meta(shape, dtype):
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The abstract batch of a train or prefill step: ``inputs`` [B, S]
+    (and for train ``targets``) int32; an ``embeds_input`` config's
+    ``embeds`` [B, S, d] f32 (mrope: ``positions`` [3, B, S] int32); encdec's
+    ``frames`` [B, enc_positions, d] f32.  For decode the abstract (cache,
+    tokens, pos) triple is ``decode_input_specs``'."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, f32 = torch.int32, torch.float32
+    batch = {"inputs": _meta((B, S), i32)}
+    if shape.kind == "train":
+        batch["targets"] = _meta((B, S), i32)
+    if cfg.embeds_input:
+        batch["embeds"] = _meta((B, S, cfg.d_model), f32)
+        if cfg.rope == "mrope":
+            batch["positions"] = _meta((3, B, S), i32)
+    if cfg.family == "encdec":
+        batch["frames"] = _meta((B, cfg.enc_positions, cfg.d_model), f32)
+    return batch
+
+
+def decode_input_specs(cfg: ModelConfig, shape: ShapeConfig) -> tuple:
+    """(cache, tokens, pos): the abstract inputs of one decode step, one new
+    token [B, 1] int32 against a cache of ``seq_len`` slots
+    (``Model.abstract_cache``), at a 0-d int32 position."""
+    B, S = shape.global_batch, shape.seq_len
+    cache = Model(cfg, device="meta").abstract_cache(B, S)
+    return cache, _meta((B, 1), torch.int32), _meta((), torch.int32)
 
 
 def concrete_batch(cfg: ModelConfig, shape_or_bs, seq_len: Optional[int] = None,

@@ -30,6 +30,7 @@ from .common import (
     logical_to_pspec,
     replicated_like,
     split_last,
+    to_dtensor,
 )
 
 NEG_INF = -1e30
@@ -354,9 +355,29 @@ def qkv_project(x, p, cfg, compute_dtype):
     return q, k, v
 
 
-def attn_output(o, p, cfg, compute_dtype):
+def merge_heads(o):
+    """o [B, S, H, hd] -> [B, S, H * hd], under a mesh split over the
+    ``heads`` rule's axes that the batch does not take: the layout of the
+    row-parallel ``wo``'s input.
+    Made explicit, the split is a step of autograd's graph, whose backward
+    gathers the input's gradient before the flatten's backward splits it
+    into heads; left to the product, the gradient would come back split
+    over the flattened dim, which a head count the axis does not divide
+    cannot be split from (GSPMD gathers it unasked)."""
     B, S, H, hd = o.shape
-    out = o.reshape(B, S, H * hd) @ p["wo"].to(compute_dtype)
+    flat = o.reshape(B, S, H * hd)
+    ctx = current_mesh_rules()
+    if ctx is None:
+        return flat
+    from repro_torch.launch.shardings import PSpec, off_batch, placements
+
+    mesh, rules = ctx
+    spec = PSpec(rules["batch"], rules["inner_seq"], off_batch(rules, "heads"))  # fsdp: None
+    return to_dtensor(flat, mesh).redistribute(mesh, placements(mesh, spec))
+
+
+def attn_output(o, p, cfg, compute_dtype):
+    out = merge_heads(o) @ p["wo"].to(compute_dtype)
     if cfg.attn_out_bias and "bo" in p:
         out = out + p["bo"].to(compute_dtype)
     return out

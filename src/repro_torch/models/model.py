@@ -17,6 +17,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.pricing import on_card
 from repro_torch.launch.compat import shard_map
 
 from .common import (
@@ -514,8 +515,9 @@ def _lookup(table, tokens):
 
 def _head_matmul(h, w):
     """h [..., d] @ w [d, V] -> f32 logits: ``_HeadMatmul`` for bf16 on the
-    card, both operands widened to f32 elsewhere."""
-    if h.is_cuda and h.dtype != torch.float32:
+    card (and on ``meta`` under the cost model's ``pricing``), both operands
+    widened to f32 elsewhere."""
+    if on_card(h) and h.dtype != torch.float32:
         out = _HeadMatmul.apply(h.reshape(-1, h.shape[-1]), w)
         return out.reshape(*h.shape[:-1], w.shape[-1])
     return h.float() @ w.float()

@@ -24,15 +24,17 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.pricing import on_card
 
 from .common import constrain, current_mesh_rules, to_dtensor
 
 
 def use_scan_kernel(cfg, *ts) -> bool:
     """Whether a scan takes its CUDA kernel rather than the loop over time:
-    the config asks for the kernels, the tensors lie on a CUDA device, and
-    autograd records none of them."""
-    return (cfg.attn_impl == "pallas" and ts[0].is_cuda
+    the config asks for the kernels, the tensors lie on a CUDA device (or
+    on ``meta`` under the cost model's ``pricing``), and autograd records
+    none of them."""
+    return (cfg.attn_impl == "pallas" and on_card(ts[0])
             and not (torch.is_grad_enabled() and any(t.requires_grad for t in ts)))
 
 
@@ -42,11 +44,9 @@ def channel_axes(rules: dict):
     decode cache's state layout (``launch.shardings.cache_pspecs``):
     ``model``, or in the batch-1 ``long`` layout every axis; under fsdp,
     whose batch takes every axis, none (None)."""
-    from repro_torch.launch.shardings import _axes
+    from repro_torch.launch.shardings import off_batch
 
-    batch = set(_axes(rules.get("batch")))
-    axes = tuple(a for a in _axes(rules.get("ff")) if a not in batch)
-    return axes[0] if len(axes) == 1 else (axes or None)
+    return off_batch(rules, "ff")
 
 
 def on_channels(x):

@@ -27,11 +27,19 @@ from torch.utils.checkpoint import (
 
 from repro_torch.kernels import ops, ref
 
-from .common import constrain, current_mesh_rules, logical_to_pspec, tree_items, tree_map
+from .common import (
+    constrain,
+    current_mesh_rules,
+    logical_to_pspec,
+    split_last,
+    tree_items,
+    tree_map,
+)
 from .layers import (
     NEG_INF,
     local_attention,
     local_kv,
+    merge_heads,
     merge_partials,
     apply_norm,
     apply_rope,
@@ -211,10 +219,9 @@ def rec_layer(x, lp, cfg, dt, collect_cache=False):
 def cross_kv(enc_out, lp, cfg, dt):
     """encdec: the cross-attention's k, v [B, F, KV, hd] projected from the
     encoder output [B, F, d] (no bias)."""
-    B = enc_out.shape[0]
     cp = lp["cross"]
-    k = (enc_out @ cp["wk"].to(dt)).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
-    v = (enc_out @ cp["wv"].to(dt)).reshape(B, -1, cfg.n_kv_heads, cfg.head_dim)
+    k = split_last(enc_out @ cp["wk"].to(dt), cfg.n_kv_heads, cfg.head_dim)
+    v = split_last(enc_out @ cp["wv"].to(dt), cfg.n_kv_heads, cfg.head_dim)
     return k, v
 
 
@@ -222,11 +229,10 @@ def cross_attn(x, lp, cfg, dt, k, v, impl):
     """encdec: the pre-norm (``lnc``) cross-attention sub-block, the
     decoder's queries against the encoder's ``k``, ``v``, unmasked."""
     h = apply_norm(cfg.norm, x, lp["lnc"], lp.get("lnc_b"))
-    B = h.shape[0]
     cp = lp["cross"]
-    q = (h @ cp["wq"].to(dt)).reshape(B, -1, cfg.n_heads, cfg.head_dim)
+    q = split_last(h @ cp["wq"].to(dt), cfg.n_heads, cfg.head_dim)
     o = gqa_attention(q, k, v, causal=False, impl=impl, chunk=cfg.attn_chunk)
-    return x + o.reshape(B, -1, cfg.q_dim) @ cp["wo"].to(dt)
+    return x + merge_heads(o) @ cp["wo"].to(dt)
 
 
 def _stack_pairs(pairs):
@@ -432,10 +438,13 @@ def _sharded_cache_attention(ctx, q, k, v, k_cache, v_cache, kw):
 
 def _seq_sharded_attention(mesh, rules, q, k, v, k_cache, v_cache, kw):
     """Decode attention against a cache whose sequence is split over the
-    mesh axis ``cache_seq`` names (``launch.shardings.cache_pspecs``' decode
-    layout: [B, S, KV, hd] by (batch, cache_seq), the kv heads whole), as a
-    ``shard_map``.  Each rank holds the ``n = S / R`` slots from
-    ``start = r * n`` (rank ``r`` of ``R`` on that axis):
+    mesh axis ``cache_seq`` names, or over a tuple of axes (the batch-1
+    ``long`` layout's ``("pod", "data")``), taken as one flattened axis
+    (``launch.shardings.cache_pspecs``' decode layout: [B, S, KV, hd] by
+    (batch, cache_seq), the kv heads whole), as a ``shard_map``.  Each
+    rank holds the ``n = S / R`` slots from ``start = r * n`` (rank ``r``
+    of ``R`` along the axis, the first of a tuple major:
+    ``launch.mesh.entry_rank``):
 
     - q's heads and the new k/v's kv heads are gathered over the axis (the
       body's inputs are whole on heads);
@@ -460,12 +469,11 @@ def _seq_sharded_attention(mesh, rules, q, k, v, k_cache, v_cache, kw):
     On one rank this is the unsharded step's arithmetic: a merge of one
     part is that part, bitwise."""
     from repro_torch.launch.compat import shard_map
+    from repro_torch.launch.mesh import entry_rank
     from repro_torch.launch.shardings import PSpec, placements
 
     axis, window, pos, cfg, dt = (rules["cache_seq"], kw["window"], kw["pos"], kw["cfg"],
                                   kw["dt"])
-    if not isinstance(axis, str):
-        raise NotImplementedError(f"a cache sequence split over several mesh axes {axis}")
     b, heads = rules["batch"], rules.get("act_heads")
     whole = PSpec(b, None, None, None)
     cs = PSpec(b, axis, None, None)
@@ -481,7 +489,7 @@ def _seq_sharded_attention(mesh, rules, q, k, v, k_cache, v_cache, kw):
 
     def body(ql, kl, vl, kc, vc):
         n = kc.shape[1]
-        start = mesh.get_local_rank(axis) * n
+        start = entry_rank(mesh, axis) * n
         _write_shard(kl, vl, kc, vc, slot - start)
         if window:
             ring_pos = pos - ((slot - (start + torch.arange(n, device=ql.device))) % S)
@@ -549,12 +557,17 @@ def _attend_shard(q, k_cache, v_cache, cfg, dt, kv_len):
                                     with_lse=True)
 
 
-def _all_gather(x, mesh, axis: str):
-    """``x`` [1, ...] of every rank on ``axis``, stacked: [R, ...]."""
+def _all_gather(x, mesh, axis):
+    """``x`` [1, ...] of every rank on ``axis`` (a mesh axis, or a tuple of
+    them taken as one flattened axis, the first major), stacked in that
+    order: [R, ...].  One collective over the axes' group
+    (``launch.mesh.entry_group``)."""
     from torch.distributed import _functional_collectives as funcol
 
+    from repro_torch.launch.mesh import entry_group
+
     gather = getattr(funcol, "all_gather_single", None) or funcol.all_gather_tensor
-    out = gather(x.contiguous(), 0, mesh.get_group(axis))
+    out = gather(x.contiguous(), 0, entry_group(mesh, axis))
     return out.wait() if isinstance(out, funcol.AsyncCollectiveTensor) else out
 
 

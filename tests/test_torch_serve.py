@@ -118,9 +118,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                "repro_torch.runtime.scheduler", "repro_torch.launch.mesh",
                "repro_torch.launch.shardings", "repro_torch.launch.compat",
                "repro_torch.launch.pipeline", "repro_torch.launch.spawn",
-               "repro_torch.optim.grad_compress"}
+               "repro_torch.optim.grad_compress", "repro_torch.launch.dryrun",
+               "repro_torch.launch.costmodel", "repro_torch.launch.roofline",
+               "repro_torch.kernels.pricing"}
         assert new <= set(names), sorted(new - set(names))
-        assert len(names) >= 48, names
+        assert len(names) >= 52, names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))

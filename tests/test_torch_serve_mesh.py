@@ -21,7 +21,10 @@
     that the ring wraps before and during the decode);
   * the batch-1 ``long`` layout on the same mesh (falcon-mamba and
     recurrentgemma: the states over ``data`` and ``model``, the ring over
-    ``data``) against JAX at batch 1;
+    ``data``) and on a (2, 2, 1) ("pod", "data", "model") mesh (the states
+    over all three axes, the ring over ("pod", "data") taken as one
+    flattened axis, pod-major, its 8 slots 2 a rank, wrapping), against
+    JAX at batch 1;
   * ``to_decode_layout``'s cache on each rank, slot for slot, against its
     part of the prefill cache, and its refusals;
   * the serve CLI with ``--mesh 2x2`` printing the unsharded CLI's tokens;
@@ -53,6 +56,7 @@ ARCHS = ("chatglm3_6b", "qwen3_moe_30b_a3b", "whisper_large_v3", "falcon_mamba_7
          "recurrentgemma_2b")
 LONG = ("falcon_mamba_7b", "recurrentgemma_2b")  # the batch-1 layout: subquadratic families
 MESH = (2, 2)
+POD_MESH = (2, 2, 1)  # ("pod", "data", "model"): the multi-pod mesh's axes, at 4 ranks
 B, PROMPT, STEPS, MAX_LEN = 4, 120, 16, 256  # positions 120..134 cross the shards' 128
 # a prompt longer than recurrentgemma's 8-slot window (JAX's hybrid server
 # does not pad its ring: a shorter prompt would leave it off its sound path)
@@ -205,8 +209,12 @@ def served(tmp_path_factory):
         cases.append(("server", arch, MESH, params, batch, MAX_LEN, STEPS, "float32"))
     for arch in LONG:
         _, params, batch = _inputs(arch, batch=1)
-        names.append(("long", arch))
-        cases.append(("server", arch, MESH, params, batch, MAX_LEN, STEPS, "float32"))
+        for mesh, tag in ((MESH, "long"), (POD_MESH, "long_pod")):
+            names.append((tag, arch))
+            cases.append(("server", arch, mesh, params, batch, MAX_LEN, STEPS, "float32"))
+    _, params, batch = _inputs("recurrentgemma_2b", batch=1)
+    names.append("slots")
+    cases.append(("long_slots", "recurrentgemma_2b", POD_MESH, params, batch, MAX_LEN))
     for arch in CLI_ARCHS:
         names.append(("cli", arch))
         cases.append(("serve_cli", CLI[arch] + ["--mesh", "2x2"]))
@@ -218,7 +226,7 @@ def served(tmp_path_factory):
                     store_dir=tmp_path_factory.mktemp("store"))
     got = dict(zip(names, out[0]))
     for i, name in enumerate(names):
-        if isinstance(name, tuple) and name[0] == "layout":
+        if name == "slots" or isinstance(name, tuple) and name[0] == "layout":
             got[name] = [rank[i] for rank in out]
     return got
 
@@ -258,8 +266,10 @@ def test_server_on_a_mesh_matches_jax(served, arch):
 def test_long_layout_at_batch_one_matches_jax(served, arch):
     """Batch 1 on the 2x2 mesh: the decode rules' ``long`` layout (states
     over ``data`` and ``model``, the ring's sequence over ``data``, heads
-    whole), the prompt's rows whole in the prefill; against JAX at batch
-    1."""
+    whole), the prompt's rows whole in the prefill; and on the (2, 2, 1)
+    pod mesh: the states over ("pod", "data", "model"), the ring's 8 slots
+    over ("pod", "data"), 2 a rank, wrapped by the prompt of 12 and twice
+    more by the decode; both against JAX at batch 1."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.launch.shardings import PSpec, cache_pspecs, logical_rules
@@ -272,11 +282,38 @@ def test_long_layout_at_batch_one_matches_jax(served, arch):
     assert specs["conv"] == PSpec(None, None, None, ("data", "model"))
     if pcfg.family == "hybrid":
         assert specs["k"] == PSpec(None, None, "data", None, None)
+    pod = _FakeMesh({"pod": 2, "data": 2, "model": 1})
+    rules = logical_rules(pcfg, ShapeConfig("d", "decode", MAX_LEN, 1), pod)
+    assert rules["batch"] is None and rules["ff"] == ("pod", "data", "model")
+    specs = cache_pspecs(pcfg, ShapeConfig("d", "decode", MAX_LEN, 1), pod)
+    if pcfg.family == "hybrid":
+        assert specs["k"] == PSpec(None, None, ("pod", "data"), None, None)
+        assert SHORT > pcfg.local_window and pcfg.local_window % 4 == 0
     cfg, params, batch = _inputs(arch, batch=1)
-    tokens, logits = served["long", arch]
     want_tok, want_logits = _jax_generate(cfg, jax.tree.map(jnp.asarray, params), batch)
-    np.testing.assert_array_equal(tokens, want_tok)
-    np.testing.assert_allclose(logits, want_logits, rtol=1e-5, atol=1e-5)
+    for tag in ("long", "long_pod"):
+        tokens, logits = served[tag, arch]
+        np.testing.assert_array_equal(tokens, want_tok)
+        np.testing.assert_allclose(logits, want_logits, rtol=1e-5, atol=1e-5)
+
+
+def test_pod_mesh_ring_slots_are_pod_major(served):
+    """On the (2, 2, 1) mesh the ring's sequence over ("pod", "data") is one
+    flattened axis, pod-major: the rank at (pod p, data d) holds slots
+    [r n, (r + 1) n) with r = 2 p + d, so (1, 0) holds [2n, 3n); the
+    shards tile the whole ring.  Each shard is held bitwise against the
+    slots of an unsharded ``Server``'s prefill cache on the same weights
+    and prompt."""
+    ranks = served["slots"]
+    assert sorted(c for c, _, _ in ranks) == [(p, d, 0) for p in (0, 1) for d in (0, 1)]
+    for (p, d, _), local, whole in ranks:
+        n = local.shape[2]
+        assert n * 4 == whole.shape[2] == get_smoke_config("recurrentgemma_2b").local_window
+        r = 2 * p + d
+        np.testing.assert_array_equal(local, whole[:, :, r * n:(r + 1) * n])
+        assert np.abs(local).max() > 0  # the prompt of 12 filled every slot
+    (_, local, whole), = [x for x in ranks if x[0] == (1, 0, 0)]
+    np.testing.assert_array_equal(local, whole[:, :, 4:6])
 
 
 @pytest.mark.parametrize("arch", LAYOUT_ARCHS)

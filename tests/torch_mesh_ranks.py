@@ -218,7 +218,7 @@ def suite(rank, world, cases):
     *args)`` runs ``name(rank, world, *args)``; the list of results."""
     fns = {"train": train, "moe": moe, "remat_a2a": remat_a2a,
            "backward_on_a_thread": backward_on_a_thread, "serve": serve, "server": server,
-           "serve_cli": serve_cli, "decode_layout": decode_layout}
+           "serve_cli": serve_cli, "decode_layout": decode_layout, "long_slots": long_slots}
     return [fns[name](rank, world, *args) for name, *args in cases]
 
 
@@ -397,18 +397,23 @@ def _batch(batch_np: dict) -> dict:
             for k, v in batch_np.items()}
 
 
+def _axes(mesh_shape) -> tuple:
+    """("data", "model"), or for a 3-dim shape ("pod", "data", "model")."""
+    return ("pod", "data", "model")[-len(mesh_shape):]
+
+
 def server(rank, world, arch, mesh_shape, params_np, batch_np, max_len, steps, dtype):
-    """``Server(mesh=)`` on a ("data", "model") mesh: ``generate`` (on the
-    CPU, the eager loop) from whole parameters on the prompt batch
-    ``batch_np`` (numpy arrays), ``steps`` tokens: (tokens, logits) whole,
-    on rank 0."""
+    """``Server(mesh=)`` on a ("data", "model") mesh, or ("pod", "data",
+    "model") for a 3-dim ``mesh_shape``: ``generate`` (on the CPU, the
+    eager loop) from whole parameters on the prompt batch ``batch_np``
+    (numpy arrays), ``steps`` tokens: (tokens, logits) whole, on rank 0."""
     from repro_torch.configs import get_smoke_config
     from repro_torch.convert import from_numpy_tree
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.launch.serve import Server
 
     cfg = get_smoke_config(arch).replace(compute_dtype=dtype, attn_impl="pallas")
-    mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu", backend="gloo")
+    mesh = make_mesh(mesh_shape, _axes(mesh_shape), device="cpu", backend="gloo")
     srv = Server(cfg, device="cpu", max_len=max_len, mesh=mesh)
     params = srv.model.compute_params(from_numpy_tree(params_np, device="cpu"))
     tokens, logits = srv.generate(params, _batch(batch_np), steps, with_logits=True)
@@ -436,7 +441,7 @@ def decode_layout(rank, world, arch, mesh_shape, params_np, batch_np, max_len):
     from repro_torch.models.common import activate_sharding
 
     cfg = get_smoke_config(arch).replace(compute_dtype="float32", attn_impl="pallas")
-    mesh = make_mesh(mesh_shape, ("data", "model"), device="cpu", backend="gloo")
+    mesh = make_mesh(mesh_shape, _axes(mesh_shape), device="cpu", backend="gloo")
     srv = Server(cfg, device="cpu", max_len=max_len, mesh=mesh)
     params = srv.place(srv.model.compute_params(from_numpy_tree(params_np, device="cpu")))
     batch = _batch(batch_np)
@@ -477,6 +482,27 @@ def decode_layout(rank, world, arch, mesh_shape, params_np, batch_np, max_len):
             except IndexError:
                 got["outside"] = True
     return got
+
+
+def long_slots(rank, world, arch, mesh_shape, params_np, batch_np, max_len):
+    """The batch-1 ``long`` layout's k cache after ``Server(mesh=)``'s
+    prefill (``to_decode_layout``): (this rank's mesh coordinate, its shard
+    [L, 1, n, KV, hd], the k cache of an unsharded ``Server``'s prefill on
+    the same parameters and batch), from every rank."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.convert import from_numpy_tree
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.serve import Server
+
+    cfg = get_smoke_config(arch).replace(compute_dtype="float32", attn_impl="pallas")
+    mesh = make_mesh(mesh_shape, _axes(mesh_shape), device="cpu", backend="gloo")
+    srv = Server(cfg, device="cpu", max_len=max_len, mesh=mesh)
+    params = srv.model.compute_params(from_numpy_tree(params_np, device="cpu"))
+    plain = Server(cfg, device="cpu", max_len=max_len)
+    with torch.no_grad():
+        _, _, cache, _ = srv._prefill(params, _batch(batch_np))
+        _, _, whole, _ = plain._prefill(params, _batch(batch_np))
+    return (tuple(mesh.get_coordinate()), cache["k"].to_local().numpy(), whole["k"].numpy())
 
 
 def serve_cli(rank, world, argv):
