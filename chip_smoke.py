@@ -264,7 +264,14 @@ Phases, each printing its lines; any failure exits non-zero:
      is not gathered); tokens and logits bitwise; a profile of 8 replays;
      no host sync in an eager step; then at depth 2 (full width) the
      kernel path against the plain path teacher-forced, bf16 (naive) within
-     2e-2 and f32 (chunked) within 1e-3 of the largest logit.
+     2e-2 and f32 (chunked) within 1e-3 of the largest logit;
+  13. analysis (``[analysis]``, on the host): CAPre's static analysis of
+     the five benchmark apps (bank, wordcount, kmeans, oo7, pga) through
+     the port's ``capre-lint --compare`` (``repro_torch.core.lint.main``)
+     against the committed golden ``artifacts/analysis/hints.json``: each
+     app's methods, hints, RFO and truncated hints, caller-shadowed hints
+     and lint findings, and the seconds taken; any exit code but 0 (lint
+     findings, a drifted or missing golden) fails the script.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -275,6 +282,7 @@ from __future__ import annotations
 
 import contextlib
 import gc
+import io
 import itertools
 import json
 import math
@@ -370,6 +378,8 @@ OFF_PATH = ("mamba_scan_fwd", "rglru_scan_fwd")
 # largest logit: the same kernels on the same bits, so expected equal
 STREAM_REL_TOL = 1e-5
 STREAM_STEPS = 4
+# the committed golden hint sets of the five benchmark apps
+GOLDEN = ROOT / "artifacts" / "analysis" / "hints.json"
 
 
 def fail(msg: str) -> None:
@@ -470,6 +480,23 @@ def phase_build() -> None:
                  if "registers" in l or "spill" in l or "Compiling entry" in l]
         for l in lines:
             print(f"[build]   {l}")
+
+
+def phase_analysis() -> None:
+    """CAPre's static analysis on the host: the port's ``capre-lint
+    --compare`` over the five catalog apps must reproduce the committed
+    golden hint sets; its lines and the seconds taken are printed."""
+    from repro_torch.core import lint
+
+    out = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        rc = lint.main(["--compare", "--golden", str(GOLDEN)])
+    seconds = time.perf_counter() - t
+    for line in out.getvalue().splitlines():
+        print(f"[analysis] {line}")
+    print(f"[analysis] capre-lint --compare: rc {rc} in {seconds:.4f} s")
+    check(rc == 0, f"capre-lint --compare exited {rc}")
 
 
 def phase_flash(torch, ref, flash_fwd):
@@ -4230,6 +4257,7 @@ def main() -> int:
                       mesh_launches)
         gc.collect()
         torch.cuda.empty_cache()
+    phase_analysis()
     # the sharded runs' launches: [serve_mesh] (a) and (b), and (a) of the
     # ssm, hybrid and encdec families in their phases
     print(f"[serve_mesh] launches of every sharded run: {mesh_launches}")

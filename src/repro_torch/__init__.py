@@ -1,13 +1,17 @@
 """PyTorch port of the dense CAPre tensor-store server.
 
 It mirrors the layout of the JAX package ``repro`` (``configs/``,
-``models/``, ``kernels/``, ``launch/``, ``core/``, ``runtime/``,
-``predict/``, ``obs/``, ...) so that each module's counterpart is easy to
-find, but imports nothing of it: what it needs is copied here.
+``models/``, ``kernels/``, ``launch/``, ``core/``, ``apps/``,
+``runtime/``, ``predict/``, ``obs/``, ...) so that each module's
+counterpart is easy to find, but imports nothing of it: what it needs is
+copied here.
 
 Entry points take ``device=`` and default to ``"cuda"``.  A CUDA device
 that is not there raises; nothing drops to the CPU on its own.  On the CPU
 (``device="cpu"``) every kernel wrapper runs its plain PyTorch version.
+CAPre's analysis of an object-oriented application (``core.lang`` to
+``core.lint``, and the benchmark apps in ``apps``) holds no tensor: it runs
+on the host and takes no device, as its JAX twin does.
 """
 
 from __future__ import annotations

@@ -120,9 +120,16 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                "repro_torch.launch.pipeline", "repro_torch.launch.spawn",
                "repro_torch.optim.grad_compress", "repro_torch.launch.dryrun",
                "repro_torch.launch.costmodel", "repro_torch.launch.roofline",
-               "repro_torch.kernels.pricing"}
+               "repro_torch.kernels.pricing", "repro_torch.core.lang",
+               "repro_torch.core.ir", "repro_torch.core.lower",
+               "repro_torch.core.type_graph", "repro_torch.core.hints",
+               "repro_torch.core.opt", "repro_torch.core.rop",
+               "repro_torch.core.injection", "repro_torch.core.corpus",
+               "repro_torch.core.lint", "repro_torch.apps", "repro_torch.apps.bank",
+               "repro_torch.apps.wordcount", "repro_torch.apps.kmeans",
+               "repro_torch.apps.oo7", "repro_torch.apps.pga"}
         assert new <= set(names), sorted(new - set(names))
-        assert len(names) >= 52, names
+        assert len(names) >= 68, names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
