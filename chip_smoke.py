@@ -271,7 +271,25 @@ Phases, each printing its lines; any failure exits non-zero:
      against the committed golden ``artifacts/analysis/hints.json``: each
      app's methods, hints, RFO and truncated hints, caller-shadowed hints
      and lint findings, and the seconds taken; any exit code but 0 (lint
-     findings, a drifted or missing golden) fails the script.
+     findings, a drifted or missing golden) fails the script;
+  14. pos (``[pos]``, on the host): the object store CAPre prefetches
+     into (``repro_torch.pos``) and its predictors.  (a) bank, kmeans and
+     wordcount recorded as the committed traces
+     ``artifacts/predict/traces/*_r2_ds4_v2.2.json`` were (the JAX
+     package's ``record_workload``: a zero-latency 4-service
+     ``POSClient``, the app registered and populated at the catalog's
+     sizes, two runs each after ``reset_runtime_state()`` with a fresh
+     trace and a prefetch-off ``Session``): the fingerprint, both event
+     streams, the store after the runs and the put log must equal the
+     file's exactly.  (b) The paper's experiment in small: the bank app,
+     300 transactions over 4 Data Services with ``examples/quickstart.py``'s
+     latencies, 16 prefetch workers, both traversals (setAllTransCustomers,
+     auditAll) with no prefetching, CAPre and ROP, each on a fresh store
+     (after what one host sleep for each modelled latency takes):
+     host ms, misses, hits, prefetch loads and recall printed (not
+     checked); each mode's store after the run must equal no
+     prefetching's, no prefetching must load nothing ahead, and CAPre's
+     recall on auditAll must be at least 0.99.  (c) The phase's seconds.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -380,6 +398,18 @@ STREAM_REL_TOL = 1e-5
 STREAM_STEPS = 4
 # the committed golden hint sets of the five benchmark apps
 GOLDEN = ROOT / "artifacts" / "analysis" / "hints.json"
+# the committed recordings of three catalog workloads (the JAX package's
+# record_workload, two cold-cache runs on four Data Services)
+POS_TRACES = ROOT / "artifacts" / "predict" / "traces"
+POS_GOLDEN = ("bank", "kmeans", "wordcount")
+# the paper's experiment in small: examples/quickstart.py's latencies
+# (seconds: disk load, remote hop, write back, think), its 300
+# transactions and 16 prefetch workers; CAPre's recall floor on the
+# read-only traversal (the JAX tests' own)
+POS_LATENCY = (300e-6, 120e-6, 350e-6, 100e-6)
+POS_TRANSACTIONS = 300
+POS_WORKERS = 16
+POS_RECALL_MIN = 0.99
 
 
 def fail(msg: str) -> None:
@@ -498,6 +528,141 @@ def phase_analysis() -> None:
     print(f"[analysis] capre-lint --compare: rc {rc} in {seconds:.4f} s")
     check(rc == 0, f"capre-lint --compare exited {rc}")
 
+
+
+def _pos_workloads() -> dict:
+    """The recorded workloads at the JAX package's catalog sizes
+    (``predict.evaluate._catalog``): key -> (app name, app builder,
+    populate(store) -> root, run_once(session, root))."""
+    from repro_torch.apps import bank, kmeans, wordcount
+
+    cents = [list(c) for c in kmeans.initial_centroids(k=3, dims=6)]
+    return {
+        "bank": ("bank", bank.build_bank_app,
+                 lambda store: bank.populate_bank_store(store, n_transactions=60),
+                 lambda s, root: s.execute(root, "auditAll")),
+        "wordcount": ("wordcount", wordcount.build_wordcount_app,
+                      lambda store: wordcount.populate_wordcount(
+                          store, chunks_per_text=8, words_per_chunk=6),
+                      lambda s, root: s.execute(root, "run")),
+        "kmeans": ("kmeans", kmeans.build_kmeans_app,
+                   lambda store: kmeans.populate_kmeans(store, n_vectors=240,
+                                                        n_collections=3, dims=6),
+                   lambda s, root: s.execute(root, "run", cents)),
+    }
+
+
+def _pos_dump(store) -> list:
+    """Every Data Service's disk in the committed traces' form."""
+    return [[[rec.oid, rec.cls, rec.fields] for _oid, rec in sorted(ds.disk.items())]
+            for ds in store.services]
+
+
+def pos_record(key: str, runs: int = 2, n_services: int = 4) -> dict:
+    """One workload recorded with the port's modules as the committed
+    traces were: the file's fingerprint, store, put log and event streams,
+    through JSON (so tuples and lists compare alike)."""
+    import hashlib
+
+    from repro_torch.pos.client import POSClient, Session
+
+    name, build_app, populate, run_once = _pos_workloads()[key]
+    client = POSClient(n_services=n_services)
+    reg = client.register(build_app())
+    root = populate(client.store)
+    h = hashlib.sha1()
+    n_objects = 0
+    for ds in client.store.services:
+        for oid in sorted(ds.disk):
+            rec = ds.disk[oid]
+            n_objects += 1
+            h.update(repr((ds.ds_id, oid, rec.cls, sorted(rec.fields.items()))).encode())
+    h.update(repr(sorted((k, tuple(hint.steps for hint in hints))
+                         for k, hints in reg.report.hints.items())).encode())
+    fingerprint = {"root": root, "n_objects": n_objects,
+                   "n_services": len(client.store.services), "content_sha1": h.hexdigest()}
+    traces = []
+    for _ in range(runs):
+        client.store.reset_runtime_state()
+        client.store.trace = []
+        session = Session(client.store, client.logic_module.registered[name])
+        try:
+            run_once(session, root)
+        finally:
+            session.close()
+        traces.append([ev.to_tuple() for ev in client.store.trace])
+        client.store.trace = None
+    return json.loads(json.dumps({
+        "fingerprint": fingerprint, "store": _pos_dump(client.store),
+        "put_log": [list(entry) for entry in client.store._put_log], "traces": traces}))
+
+
+def phase_pos(smi: str) -> None:
+    """The object store and its predictors on the host: (a) the committed
+    traces reproduced, (b) the bank app under no prefetching, CAPre and
+    ROP at quickstart's latencies, (c) the phase's seconds."""
+    from repro_torch.apps.bank import build_bank_app, populate_bank_store
+    from repro_torch.pos.client import POSClient
+    from repro_torch.pos.latency import LatencyModel
+
+    t_phase = time.perf_counter()
+    print(f"[pos] host times on the machine of: {smi}")
+    for key in POS_GOLDEN:
+        path = POS_TRACES / f"{key}_r2_ds4_v2.2.json"
+        check(path.is_file(), f"[pos] committed trace {path} missing")
+        want = json.loads(path.read_text())
+        t = time.perf_counter()
+        got = pos_record(key)
+        seconds = time.perf_counter() - t
+        same = {part: got[part] == want[part]
+                for part in ("fingerprint", "traces", "store", "put_log")}
+        print(f"[pos] (a) {key}: {len(got['traces'][0])} + {len(got['traces'][1])} events, "
+              f"{got['fingerprint']['n_objects']} objects, recorded in {seconds:.4f} s; "
+              f"equal to {path.name}: {same}")
+        check(all(same.values()), f"[pos] {key}'s recording differs from {path.name}: {same}")
+
+    disk, hop, write_back, think = POS_LATENCY
+    lat = LatencyModel(disk_load=disk, remote_hop=hop, write_back=write_back, think=think)
+    # what the host's clock makes of each modelled latency: the store sleeps
+    # for it, so the host ms below follow these, not the model's constants
+    for name, seconds in zip(("disk load", "remote hop", "write back", "think"), POS_LATENCY):
+        took = []
+        for _ in range(50):
+            t = time.perf_counter()
+            lat.sleep(seconds)
+            took.append(time.perf_counter() - t)
+        print(f"[pos] (b) one sleep for the {name}, {seconds * 1e6:.0f} us: median "
+              f"{statistics.median(took) * 1e6:.1f} us, max {max(took) * 1e6:.1f} us of 50")
+    for traversal in ("setAllTransCustomers", "auditAll"):
+        plain = None
+        for mode in (None, "capre", "rop"):
+            client = POSClient(n_services=4, latency=lat)
+            client.register(build_bank_app())
+            root = populate_bank_store(client.store, n_transactions=POS_TRANSACTIONS)
+            with client.session("bank", mode=mode, parallel_workers=POS_WORKERS) as s:
+                t = time.perf_counter()
+                s.execute(root, traversal)
+                wall = time.perf_counter() - t
+                drained = s.drain(30.0)
+            check(drained, f"[pos] {traversal} {mode}: prefetch work still running after 30 s")
+            m = client.store.snapshot_metrics()
+            acc = client.store.prefetch_accuracy()
+            dump = _pos_dump(client.store)
+            recall = f"{acc['recall']:.4f}" if mode is not None else "-"
+            print(f"[pos] (b) {traversal} {mode or 'none'}: {wall * 1e3:.3f} ms, "
+                  f"misses {m['app_cache_misses']}, hits {m['app_cache_hits']}, "
+                  f"prefetch loads {m['prefetch_loads']}, recall {recall}")
+            if mode is None:
+                plain = dump
+                check(m["prefetch_loads"] == 0 and not client.store.prefetched_oids,
+                      f"[pos] {traversal}: no prefetching loaded ahead")
+            else:
+                check(dump == plain, f"[pos] {traversal} {mode}: the store differs from "
+                                     "the one of no prefetching")
+            if mode == "capre" and traversal == "auditAll":
+                check(acc["recall"] >= POS_RECALL_MIN,
+                      f"[pos] CAPre's recall on auditAll {acc['recall']} < {POS_RECALL_MIN}")
+    print(f"[pos] (c) phase: {time.perf_counter() - t_phase:.3f} s")
 
 def phase_flash(torch, ref, flash_fwd):
     """Check the flash kernel at the prefill shape and edge cases; time the
@@ -4258,6 +4423,7 @@ def main() -> int:
         gc.collect()
         torch.cuda.empty_cache()
     phase_analysis()
+    phase_pos(smi)
     # the sharded runs' launches: [serve_mesh] (a) and (b), and (a) of the
     # ssm, hybrid and encdec families in their phases
     print(f"[serve_mesh] launches of every sharded run: {mesh_launches}")

@@ -10,8 +10,10 @@ Entry points take ``device=`` and default to ``"cuda"``.  A CUDA device
 that is not there raises; nothing drops to the CPU on its own.  On the CPU
 (``device="cpu"``) every kernel wrapper runs its plain PyTorch version.
 CAPre's analysis of an object-oriented application (``core.lang`` to
-``core.lint``, and the benchmark apps in ``apps``) holds no tensor: it runs
-on the host and takes no device, as its JAX twin does.
+``core.lint``, and the benchmark apps in ``apps``), the persistent object
+store it prefetches into (``pos``) and the store's predictors
+(``predict.static_capre``, ``rop``, ``markov``, ``hybrid``) hold no tensor:
+they run on the host and take no device, as their JAX twins do.
 """
 
 from __future__ import annotations

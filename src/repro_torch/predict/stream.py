@@ -1,10 +1,8 @@
-"""Stream policies: the prediction strategies on the tensor store.  A copy
-of ``repro.predict.stream`` (pure Python), kept here so that the port
-imports nothing of the JAX package.
+"""Stream policies: the prediction strategies on the tensor store.
 
 ``runtime.prefetch.WeightStreamer`` is the weight-streaming analogue of the
-POS session (DESIGN.md section 2); its ``mode`` string resolves through
-``predict.registry``.  A policy's single entry point mirrors the
+POS session (DESIGN.md section 2); its ``mode`` string resolves through the
+same registry as ``Session``'s.  A policy's single entry point mirrors the
 injected scheduling point: it is called when the compute frontier enters a
 group and decides which *future* groups to fetch.
 

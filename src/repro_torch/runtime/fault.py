@@ -10,12 +10,13 @@ package):
     batch (pairs with the checkpoint restore, which re-shards);
   * **StragglerDetector**: per-step duration tracking with a robust
     (median + MAD) z-score; persistent stragglers are reported;
+  * **StoreFaultDetector**: the object store's consumer of the two above
+    (``pos.store.ObjectStore.attach_fault_detection``): landed disk loads
+    beat and feed the straggler baseline, and a periodic tick reports
+    silent services and stragglers to the store;
   * **TrainSupervisor**: runs a step function under failure detection; on
     a ``NodeFailure`` it shrinks the mesh through the planner and resumes
     from the last checkpoint.
-
-The object store's detector (``StoreFaultDetector``) belongs with the
-object-store stack (ROADMAP.md, section 1, item 8).
 """
 
 from __future__ import annotations
@@ -142,6 +143,74 @@ class StragglerDetector:
             else:
                 self._strikes[n] = 0
         return out
+
+
+class StoreFaultDetector:
+    """Failure detection for the persistent object store (the POS-side
+    consumer of :class:`HeartbeatMonitor` + :class:`StragglerDetector`,
+    which previously only served the training supervisor).
+
+    Every landed disk load on Data Service *i* calls ``beat(i, seconds)``:
+    the beat proves the service alive and the duration feeds the straggler
+    baseline.  The store's demand path calls ``tick()`` periodically (every
+    ``check_every`` beats/accesses, amortizing the O(services) scans):
+
+      * services silent for ``heartbeat_timeout`` are reported to
+        ``store._note_service_down`` — the *slow path* for crashes nobody
+        tripped over (the fast path is the ``ServiceCrashed`` error);
+      * persistent disk-time outliers go to ``store._note_straggler`` so
+        replica routing deprioritizes them.
+    """
+
+    def __init__(self, store, heartbeat_timeout: float = 5.0,
+                 clock: Callable[[], float] = time.monotonic,
+                 straggler_threshold: float = 4.0,
+                 straggler_min_samples: int = 4,
+                 straggler_patience: int = 3,
+                 check_every: int = 32):
+        self.store = store
+        self.monitor = HeartbeatMonitor(
+            [ds.ds_id for ds in store.services],
+            timeout=heartbeat_timeout,
+            on_failure=store._note_service_down,
+            clock=clock,
+        )
+        self.straggler = StragglerDetector(
+            threshold=straggler_threshold,
+            min_samples=straggler_min_samples,
+            patience=straggler_patience,
+        )
+        self.check_every = max(1, check_every)
+        self._lock = threading.Lock()
+        self._calls = 0
+
+    def beat(self, ds_id, seconds: Optional[float] = None) -> None:
+        self.monitor.beat(ds_id)
+        if seconds is not None:
+            with self._lock:
+                self.straggler.record(ds_id, seconds)
+
+    def readmit(self, ds_id) -> None:
+        """Re-admit a returned service: heartbeat bookkeeping resets AND its
+        straggler history is dropped — a readmitted service starts with a
+        clean disk-time baseline instead of being instantly re-flagged on
+        the strikes it accumulated while degraded."""
+        self.monitor.readmit(ds_id)
+        with self._lock:
+            self.straggler._durations.pop(ds_id, None)
+            self.straggler._strikes.pop(ds_id, None)
+
+    def tick(self, force: bool = False) -> None:
+        """Amortized detection scan; ``force`` runs it regardless of the
+        call counter (tests, end-of-run sweeps)."""
+        with self._lock:
+            self._calls += 1
+            if not force and self._calls % self.check_every:
+                return
+            flagged = self.straggler.check()
+        self.monitor.check()  # invokes _note_service_down on newly silent
+        for ds_id in flagged:
+            self.store._note_straggler(ds_id)
 
 
 @dataclass

@@ -127,9 +127,16 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                "repro_torch.core.injection", "repro_torch.core.corpus",
                "repro_torch.core.lint", "repro_torch.apps", "repro_torch.apps.bank",
                "repro_torch.apps.wordcount", "repro_torch.apps.kmeans",
-               "repro_torch.apps.oo7", "repro_torch.apps.pga"}
+               "repro_torch.apps.oo7", "repro_torch.apps.pga", "repro_torch.pos",
+               "repro_torch.pos.trace", "repro_torch.pos.latency",
+               "repro_torch.pos.eviction", "repro_torch.pos.placement",
+               "repro_torch.pos.store", "repro_torch.pos.executor",
+               "repro_torch.pos.interp", "repro_torch.pos.client",
+               "repro_torch.predict.base", "repro_torch.predict.rop",
+               "repro_torch.predict.static_capre", "repro_torch.predict.markov",
+               "repro_torch.predict.hybrid"}
         assert new <= set(names), sorted(new - set(names))
-        assert len(names) >= 68, names
+        assert len(names) >= 82, names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))
