@@ -273,15 +273,15 @@ Phases, each printing its lines; any failure exits non-zero:
      and lint findings, and the seconds taken; any exit code but 0 (lint
      findings, a drifted or missing golden) fails the script;
   14. pos (``[pos]``, on the host): the object store CAPre prefetches
-     into (``repro_torch.pos``) and its predictors.  (a) bank, kmeans and
-     wordcount recorded as the committed traces
-     ``artifacts/predict/traces/*_r2_ds4_v2.2.json`` were (the JAX
-     package's ``record_workload``: a zero-latency 4-service
-     ``POSClient``, the app registered and populated at the catalog's
-     sizes, two runs each after ``reset_runtime_state()`` with a fresh
-     trace and a prefetch-off ``Session``): the fingerprint, both event
-     streams, the store after the runs and the put log must equal the
-     file's exactly.  (b) The paper's experiment in small: the bank app,
+     into (``repro_torch.pos``), its predictors and the replay harness
+     (``repro_torch.predict.{evaluate,loadsim,calibration}``,
+     ``repro_torch.obs.export``).  (a) bank, kmeans and wordcount recorded
+     by the port's ``record_workload`` (the catalog's ``_catalog()``: a
+     zero-latency 4-service ``POSClient``, two prefetch-off cold-cache
+     runs) into an empty trace cache in a temporary directory: each file
+     it writes must equal the committed
+     ``artifacts/predict/traces/*_r2_ds4_v2.2.json`` byte for byte.  (b)
+     The paper's experiment in small: the bank app,
      300 transactions over 4 Data Services with ``examples/quickstart.py``'s
      latencies, 16 prefetch workers, both traversals (setAllTransCustomers,
      auditAll) with no prefetching, CAPre and ROP, each on a fresh store
@@ -289,7 +289,27 @@ Phases, each printing its lines; any failure exits non-zero:
      host ms, misses, hits, prefetch loads and recall printed (not
      checked); each mode's store after the run must equal no
      prefetching's, no prefetching must load nothing ahead, and CAPre's
-     recall on auditAll must be at least 0.99.  (c) The phase's seconds.
+     recall on auditAll must be at least 0.99.  (d) The paper's
+     comparison on the replay's virtual clock: ``evaluate_apps`` over
+     ``artifacts/predict/baseline.csv``'s grid (bank, bank_write,
+     wordcount, kmeans; every predictor; capacities 0, 64, 256; lru and
+     prefetch-aware; per-oid and batch dispatch), the trace cache off and
+     the committed calibration passed in: ``write_csv``'s header and its
+     192 rows must equal the file's, keyed by (app, workload, predictor,
+     cache_capacity, policy, dispatch), in every column as text but
+     train_seconds and obs_seconds (wall-clock cells); each predictor's
+     timely coverage, stall and stall saved at capacity 0, lru, batch are
+     printed in virtual seconds, with the host seconds the replay took.
+     (e) ``run_loadsim`` at the arguments of
+     ``artifacts/predict/loadgen.csv``'s virtual rows (128 tenants,
+     poisson:2000, CAPre, batch, a 256-line shared LRU budget, 8
+     outstanding, admission threshold 0.5): ``write_loadgen_csv``'s 129
+     rows must equal those rows line for line; the ALL row is printed.
+     (f) The virtual bank replay (static-capre warmed on the first run,
+     batch dispatch) traced and written by ``write_chrome_trace``: both
+     validators must return nothing for the file read back, every loaded
+     prefetch span must show at least 4 phases, and a counter track must
+     be there; the event count is printed.  (c) The phase's seconds.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``.  Without a CUDA device, or without the
@@ -299,6 +319,7 @@ repository beside this file, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import csv
 import gc
 import io
 import itertools
@@ -398,10 +419,24 @@ STREAM_REL_TOL = 1e-5
 STREAM_STEPS = 4
 # the committed golden hint sets of the five benchmark apps
 GOLDEN = ROOT / "artifacts" / "analysis" / "hints.json"
-# the committed recordings of three catalog workloads (the JAX package's
-# record_workload, two cold-cache runs on four Data Services)
+# the committed recordings of three catalog workloads (record_workload, two
+# cold-cache runs on four Data Services)
 POS_TRACES = ROOT / "artifacts" / "predict" / "traces"
 POS_GOLDEN = ("bank", "kmeans", "wordcount")
+# the committed replay rows, the grid they were written from, what keys a
+# row and the columns a wall clock fills; the fitted latency calibration
+POS_BASELINE = ROOT / "artifacts" / "predict" / "baseline.csv"
+POS_BASELINE_APPS = ("bank", "bank_write", "wordcount", "kmeans")
+POS_BASELINE_GRID = dict(cache_capacities=(0, 64, 256), policies=("lru", "prefetch-aware"),
+                         dispatch_modes=("per-oid", "batch"))
+POS_ROW_KEY = ("app", "workload", "predictor", "cache_capacity", "policy", "dispatch")
+POS_WALL_COLUMNS = ("train_seconds", "obs_seconds")
+POS_CALIBRATION = ROOT / "artifacts" / "predict" / "calibration.csv"
+# the committed load-simulator rows and the arguments of their virtual rows
+POS_LOADGEN = ROOT / "artifacts" / "predict" / "loadgen.csv"
+POS_LOADSIM_ARGS = dict(tenants=128, arrival="poisson:2000", jobs=1, seed=0, mode="capre",
+                        dispatch="batch", cache_capacity=256, shared_budget=True,
+                        policy="lru", max_outstanding=8, admission_threshold=0.5)
 # the paper's experiment in small: examples/quickstart.py's latencies
 # (seconds: disk load, remote hop, write back, think), its 300
 # transactions and 16 prefetch workers; CAPre's recall floor on the
@@ -530,96 +565,146 @@ def phase_analysis() -> None:
 
 
 
-def _pos_workloads() -> dict:
-    """The recorded workloads at the JAX package's catalog sizes
-    (``predict.evaluate._catalog``): key -> (app name, app builder,
-    populate(store) -> root, run_once(session, root))."""
-    from repro_torch.apps import bank, kmeans, wordcount
-
-    cents = [list(c) for c in kmeans.initial_centroids(k=3, dims=6)]
-    return {
-        "bank": ("bank", bank.build_bank_app,
-                 lambda store: bank.populate_bank_store(store, n_transactions=60),
-                 lambda s, root: s.execute(root, "auditAll")),
-        "wordcount": ("wordcount", wordcount.build_wordcount_app,
-                      lambda store: wordcount.populate_wordcount(
-                          store, chunks_per_text=8, words_per_chunk=6),
-                      lambda s, root: s.execute(root, "run")),
-        "kmeans": ("kmeans", kmeans.build_kmeans_app,
-                   lambda store: kmeans.populate_kmeans(store, n_vectors=240,
-                                                        n_collections=3, dims=6),
-                   lambda s, root: s.execute(root, "run", cents)),
-    }
+def _masked_csv(path) -> list:
+    """A replay CSV's rows (header first), the wall-clock cells blanked."""
+    with open(path, newline="") as f:
+        rows = list(csv.reader(f))
+    cols = [rows[0].index(c) for c in POS_WALL_COLUMNS]
+    for row in rows[1:]:
+        for col in cols:
+            row[col] = ""
+    return rows
 
 
-def _pos_dump(store) -> list:
-    """Every Data Service's disk in the committed traces' form."""
-    return [[[rec.oid, rec.cls, rec.fields] for _oid, rec in sorted(ds.disk.items())]
-            for ds in store.services]
+def _keyed(rows: list) -> dict:
+    idx = [rows[0].index(c) for c in POS_ROW_KEY]
+    return {tuple(row[i] for i in idx): row for row in rows[1:]}
 
 
-def pos_record(key: str, runs: int = 2, n_services: int = 4) -> dict:
-    """One workload recorded with the port's modules as the committed
-    traces were: the file's fingerprint, store, put log and event streams,
-    through JSON (so tuples and lists compare alike)."""
-    import hashlib
+def pos_virtual(tmp: Path) -> None:
+    """(d) the replay on the virtual clock over baseline.csv's grid, (e) the
+    load simulator at loadgen.csv's arguments, (f) the Chrome-trace export
+    of the virtual bank replay."""
+    from repro_torch.obs import Tracer
+    from repro_torch.obs.export import (
+        full_lifecycle_phase_counts,
+        validate_chrome_trace,
+        validate_flow_pairing,
+        write_chrome_trace,
+    )
+    from repro_torch.pos.client import SessionConfig
+    from repro_torch.predict import make_pos_predictor
+    from repro_torch.predict.calibration import load_calibration
+    from repro_torch.predict.evaluate import (
+        _catalog,
+        evaluate_apps,
+        record_workload,
+        replay,
+        write_csv,
+    )
+    from repro_torch.predict.loadsim import run_loadsim, write_loadgen_csv
 
-    from repro_torch.pos.client import POSClient, Session
+    calibration = load_calibration(str(POS_CALIBRATION))
+    check(calibration.fitted, f"[pos] (d) {POS_CALIBRATION} gave no fitted scale")
+    t = time.perf_counter()
+    results = evaluate_apps(apps=POS_BASELINE_APPS, trace_cache=None,
+                            calibration=calibration, **POS_BASELINE_GRID)
+    seconds = time.perf_counter() - t
+    got = _masked_csv(write_csv(results, str(tmp / "replay.csv")))
+    want = _masked_csv(POS_BASELINE)
+    check(got[0] == want[0], "[pos] (d) the replay's header differs from baseline.csv's")
+    got_rows, want_rows = _keyed(got), _keyed(want)
+    differ = sorted(k for k in want_rows if got_rows.get(k) != want_rows[k])
+    print(f"[pos] (d) replay of {len(POS_BASELINE_APPS)} apps on the virtual clock: "
+          f"{len(results)} rows in {seconds:.4f} host s; equal to baseline.csv's "
+          f"{len(want) - 1} rows but {', '.join(POS_WALL_COLUMNS)}: "
+          f"{len(got) == len(want) and set(got_rows) == set(want_rows) and not differ}")
+    check(len(got) == len(want) == 193 and set(got_rows) == set(want_rows),
+          f"[pos] (d) the replay's rows are not baseline.csv's: {len(got) - 1} rows")
+    check(not differ, f"[pos] (d) {len(differ)} rows differ from baseline.csv's, "
+                      f"first {differ[:1]}")
+    for r in results:
+        if (r.cache_capacity, r.policy, r.dispatch) != (0, "lru", "batch"):
+            continue
+        print(f"[pos] (d) {r.app} {r.workload} {r.predictor}: timely coverage "
+              f"{r.timely_coverage:.4f}, stall {r.stall_seconds:.6f} virtual s "
+              f"(none {r.baseline_stall_seconds:.6f} virtual s), saved "
+              f"{r.stall_saved_pct:.2f}%")
 
-    name, build_app, populate, run_once = _pos_workloads()[key]
-    client = POSClient(n_services=n_services)
-    reg = client.register(build_app())
-    root = populate(client.store)
-    h = hashlib.sha1()
-    n_objects = 0
-    for ds in client.store.services:
-        for oid in sorted(ds.disk):
-            rec = ds.disk[oid]
-            n_objects += 1
-            h.update(repr((ds.ds_id, oid, rec.cls, sorted(rec.fields.items()))).encode())
-    h.update(repr(sorted((k, tuple(hint.steps for hint in hints))
-                         for k, hints in reg.report.hints.items())).encode())
-    fingerprint = {"root": root, "n_objects": n_objects,
-                   "n_services": len(client.store.services), "content_sha1": h.hexdigest()}
-    traces = []
-    for _ in range(runs):
-        client.store.reset_runtime_state()
-        client.store.trace = []
-        session = Session(client.store, client.logic_module.registered[name])
-        try:
-            run_once(session, root)
-        finally:
-            session.close()
-        traces.append([ev.to_tuple() for ev in client.store.trace])
-        client.store.trace = None
-    return json.loads(json.dumps({
-        "fingerprint": fingerprint, "store": _pos_dump(client.store),
-        "put_log": [list(entry) for entry in client.store._put_log], "traces": traces}))
+    t = time.perf_counter()
+    report = run_loadsim(**POS_LOADSIM_ARGS)
+    seconds = time.perf_counter() - t
+    write_loadgen_csv(str(tmp / "loadgen.csv"), report.rows())
+    got = (tmp / "loadgen.csv").read_text().splitlines()
+    lines = POS_LOADGEN.read_text().splitlines()
+    want = [line for line in lines[1:] if line.startswith("virtual,")]
+    same = got[0] == lines[0] and got[1:] == want
+    print(f"[pos] (e) load simulator, {POS_LOADSIM_ARGS['tenants']} tenants at "
+          f"{POS_LOADSIM_ARGS['arrival']}: {len(got) - 1} rows in {seconds:.4f} host s; "
+          f"equal to loadgen.csv's {len(want)} virtual rows: {same}")
+    print(f"[pos] (e) {got[-1]}")
+    check(len(want) == 129 and same, "[pos] (e) the load simulator's rows are not "
+                                     "loadgen.csv's virtual rows")
+
+    wl = _catalog()["bank"]
+    t = time.perf_counter()
+    client, _root, traces = record_workload(wl, runs=2, cache_dir=None)
+    predictor = make_pos_predictor("static-capre", config=SessionConfig(rop_depth=2))
+    predictor.warm(traces[0].accesses)
+    tracer = Tracer()
+    replay(traces[-1], predictor, client.store, client.logic_module.registered[wl.name],
+           dispatch="batch", tracer=tracer)
+    spans = tracer.spans()
+    path = tmp / "bank.trace.json"
+    write_chrome_trace(str(path), spans, clock="virtual")
+    seconds = time.perf_counter() - t
+    back = json.loads(path.read_text())
+    problems = validate_chrome_trace(back) + validate_flow_pairing(back)
+    phases = full_lifecycle_phase_counts(back)
+    loaded = [s for s in spans if s.kind == "prefetch" and s.load_done_t is not None]
+    short = [s.oid for s in loaded if phases.get(s.oid, 0) < 4]
+    counters = sum(1 for ev in back["traceEvents"] if ev["ph"] == "C")
+    print(f"[pos] (f) Chrome trace of the virtual bank replay: {len(back['traceEvents'])} "
+          f"events of {len(spans)} spans, {counters} counter events, "
+          f"{path.stat().st_size} bytes in {seconds:.4f} host s; problems {problems}; "
+          f"loaded prefetch spans {len(loaded)}, under 4 phases {len(short)}")
+    check(not problems, f"[pos] (f) the trace is malformed: {problems[:3]}")
+    check(loaded and not short, f"[pos] (f) loaded prefetch spans under 4 phases: {short[:5]}")
+    check(counters > 0, "[pos] (f) the trace holds no counter track")
 
 
 def phase_pos(smi: str) -> None:
-    """The object store and its predictors on the host: (a) the committed
-    traces reproduced, (b) the bank app under no prefetching, CAPre and
-    ROP at quickstart's latencies, (c) the phase's seconds."""
+    """The object store, its predictors and the replay harness on the
+    host: (a) the committed traces reproduced by the port's recorder, (b)
+    the bank app under no prefetching, CAPre and ROP at quickstart's
+    latencies, (d)-(f) the virtual-clock replay, the load simulator and
+    the trace export held to the committed artifacts, (c) the phase's
+    seconds."""
+    import tempfile
+
     from repro_torch.apps.bank import build_bank_app, populate_bank_store
     from repro_torch.pos.client import POSClient
     from repro_torch.pos.latency import LatencyModel
+    from repro_torch.predict.evaluate import _catalog, _snapshot_store, record_workload
 
     t_phase = time.perf_counter()
     print(f"[pos] host times on the machine of: {smi}")
-    for key in POS_GOLDEN:
-        path = POS_TRACES / f"{key}_r2_ds4_v2.2.json"
-        check(path.is_file(), f"[pos] committed trace {path} missing")
-        want = json.loads(path.read_text())
-        t = time.perf_counter()
-        got = pos_record(key)
-        seconds = time.perf_counter() - t
-        same = {part: got[part] == want[part]
-                for part in ("fingerprint", "traces", "store", "put_log")}
-        print(f"[pos] (a) {key}: {len(got['traces'][0])} + {len(got['traces'][1])} events, "
-              f"{got['fingerprint']['n_objects']} objects, recorded in {seconds:.4f} s; "
-              f"equal to {path.name}: {same}")
-        check(all(same.values()), f"[pos] {key}'s recording differs from {path.name}: {same}")
+    catalog = _catalog()
+    with tempfile.TemporaryDirectory() as tmp:
+        for key in POS_GOLDEN:
+            path = POS_TRACES / f"{key}_r2_ds4_v2.2.json"
+            check(path.is_file(), f"[pos] committed trace {path} missing")
+            cache = Path(tmp) / key
+            t = time.perf_counter()
+            _client, _root, traces = record_workload(catalog[key], runs=2, n_services=4,
+                                                     cache_dir=str(cache))
+            seconds = time.perf_counter() - t
+            written = sorted(cache.iterdir())
+            same = [p.name for p in written] == [path.name] and \
+                written[0].read_bytes() == path.read_bytes()
+            print(f"[pos] (a) {key}: {len(traces[0])} + {len(traces[1])} events recorded in "
+                  f"{seconds:.4f} s; the file written equals {path.name} byte for byte: {same}")
+            check(same, f"[pos] {key}'s recording differs from {path.name}")
 
     disk, hop, write_back, think = POS_LATENCY
     lat = LatencyModel(disk_load=disk, remote_hop=hop, write_back=write_back, think=think)
@@ -647,7 +732,7 @@ def phase_pos(smi: str) -> None:
             check(drained, f"[pos] {traversal} {mode}: prefetch work still running after 30 s")
             m = client.store.snapshot_metrics()
             acc = client.store.prefetch_accuracy()
-            dump = _pos_dump(client.store)
+            dump = _snapshot_store(client.store)
             recall = f"{acc['recall']:.4f}" if mode is not None else "-"
             print(f"[pos] (b) {traversal} {mode or 'none'}: {wall * 1e3:.3f} ms, "
                   f"misses {m['app_cache_misses']}, hits {m['app_cache_hits']}, "
@@ -662,6 +747,8 @@ def phase_pos(smi: str) -> None:
             if mode == "capre" and traversal == "auditAll":
                 check(acc["recall"] >= POS_RECALL_MIN,
                       f"[pos] CAPre's recall on auditAll {acc['recall']} < {POS_RECALL_MIN}")
+    with tempfile.TemporaryDirectory() as tmp:
+        pos_virtual(Path(tmp))
     print(f"[pos] (c) phase: {time.perf_counter() - t_phase:.3f} s")
 
 def phase_flash(torch, ref, flash_fwd):

@@ -1,16 +1,35 @@
-"""Observability for the port's weight streamer and object store: a
-metrics :class:`Registry` (counters, gauges, log-bucketed histograms),
-per-prefetch lifecycle spans collected by a :class:`Tracer`, and the
-:class:`Observability` context a host (``pos.store.ObjectStore.attach_obs``)
-is instrumented with.
+"""Unified observability layer (DESIGN.md section 3.7).
 
-Copies of ``repro.obs.metrics``, ``repro.obs.spans`` and
-``repro.obs.Observability``; the Chrome-trace export (``repro.obs.export``)
-is not ported yet.
+One measurement substrate shared by the live ``ObjectStore`` (wall clock)
+and the ``VirtualReplay`` engine (virtual clock):
+
+  * ``metrics``  — a low-overhead :class:`Registry` of named counters,
+    gauges and log-bucketed :class:`Histogram`\\ s with per-service /
+    per-session labels, absorbing the repo's previously disjoint metric
+    surfaces (``StoreMetrics``, ``StreamMetrics``, ``Overhead``) behind one
+    ``snapshot()`` / ``reset()`` API;
+  * ``spans``    — per-prefetch lifecycle records (:class:`PrefetchSpan`)
+    threaded from prediction through dispatch, claim, disk queue and load
+    to exactly one terminal outcome, collected by a :class:`Tracer` that
+    works on either clock;
+  * ``export``   — Chrome-trace / Perfetto JSON serialization of spans plus
+    derived disk/demand-queue occupancy, so a benchmark run renders as an
+    inspectable timeline.
+
+Instrumentation cost is itself metered (:class:`Meter`) and charged to the
+prediction ``Overhead`` ledger, so CAPre's zero-overhead claim stays
+falsifiable even with the instruments attached.
 """
 
 from .metrics import Counter, Gauge, Histogram, Meter, Registry
 from .spans import PrefetchSpan, SpanError, Tracer, check_span_invariants
+from .export import (
+    chrome_trace,
+    full_lifecycle_phase_counts,
+    validate_chrome_trace,
+    validate_flow_pairing,
+    write_chrome_trace,
+)
 
 from dataclasses import dataclass, field
 from typing import Optional
@@ -65,4 +84,9 @@ __all__ = [
     "SpanError",
     "Tracer",
     "check_span_invariants",
+    "chrome_trace",
+    "full_lifecycle_phase_counts",
+    "validate_chrome_trace",
+    "validate_flow_pairing",
+    "write_chrome_trace",
 ]

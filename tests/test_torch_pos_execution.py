@@ -498,9 +498,9 @@ def _recorded(pkg: str, key: str):
 
 @pytest.mark.parametrize("key", GOLDEN)
 def test_committed_trace_reproduced_exactly(key):
-    """The port's recording repeats the JAX package's ``record_workload``
-    recipe and gives the committed file: fingerprint, both event streams,
-    the store after the runs and the put log."""
+    """The port's own ``record_workload`` (trace cache off) gives the
+    committed file: fingerprint, both event streams, the store after the
+    runs and the put log."""
     client, _root, fp, traces, _metrics = _recorded("repro_torch", key)
     blob = golden(key)
     assert fp == blob["fingerprint"]
@@ -514,7 +514,8 @@ def test_catalog_recording_equals_jax(key):
     """Every catalog workload (those without a committed file too) records
     on the port exactly as on JAX: each run's events and
     ``snapshot_metrics``, the populated store's fingerprint, the store
-    after the runs and the put log; the recipe itself is held to JAX's
+    after the runs and the put log; ``record``'s hooks (the fingerprint
+    and per-run metrics it takes) change nothing of JAX's plain
     ``record_workload``."""
     client, root, fp, traces, metrics = _recorded("repro_torch", key)
     jclient, jroot, jfp, jtraces, jmetrics = _recorded("repro", key)

@@ -1,12 +1,14 @@
-"""The port's object store (``repro_torch.pos``) and POS predictors
-(``repro_torch.predict``) are the JAX package's text, on the CPU.
+"""The port's object store (``repro_torch.pos``), POS predictors and
+replay harness (``repro_torch.predict``) and observability package
+(``repro_torch.obs``) are the JAX package's text, on the CPU.
 
 Each module is its JAX twin's text with the package renamed
 (``re.sub(r"\\brepro\\b", "repro_torch", ...)``) and imports nothing but
-the standard library and the port's host-side packages; the two classes
-the port adds to hand-written files, ``runtime.fault.StoreFaultDetector``
-and ``obs.Observability``, are JAX's source; and importing them leaves
-``jax`` and ``repro`` out of ``sys.modules``.
+the standard library and the port's host-side packages; the class the
+port adds to a hand-written file, ``runtime.fault.StoreFaultDetector``, is
+JAX's source, as are ``obs.Observability`` and the classes it builds on;
+and importing them, replaying a workload, simulating load and exporting a
+trace leave ``jax`` and ``repro`` out of ``sys.modules``.
 """
 
 import ast
@@ -24,12 +26,16 @@ SRC = Path(__file__).resolve().parent.parent / "src"
 TWINS = [f"pos/{m}.py" for m in ("trace", "latency", "eviction", "placement", "store",
                                   "executor", "interp", "client", "__init__")] + [
     f"predict/{m}.py" for m in ("base", "rop", "static_capre", "markov", "hybrid",
-                                "registry", "stream", "__init__")]
-# the one edit beside the renaming (a pattern and its replacement): JAX's
-# docstring names the change that made eviction a policy by its number in
-# the project's history, which the port's copy leaves out
+                                "registry", "stream", "calibration", "evaluate",
+                                "loadsim", "__init__")] + [
+    f"obs/{m}.py" for m in ("export", "__init__")]
+# the edits beside the renaming (a pattern and its replacement): three of
+# JAX's docstrings name a change by its number in the project's history,
+# which the port's copies leave out
 EDITS = {"pos/placement.py": [(r"\n[A-Z]{2} \d+ made eviction a policy;",
-                               "\nEviction is a policy (``eviction.py``);")]}
+                               "\nEviction is a policy (``eviction.py``);")],
+         "obs/export.py": [(r"so [A-Z]{2} \d+'s demand-priority", "so the demand-priority")],
+         "predict/loadsim.py": [(r"\(optionally one [A-Z]{2} \d+\n", "(optionally one\n")]}
 HOST_PACKAGES = tuple(f"repro_torch.{p}" for p in ("core", "apps", "pos", "predict", "obs",
                                                    "runtime"))
 
@@ -84,8 +90,10 @@ def test_observability_is_jax_source():
 
 def test_pos_stack_imports_nothing_of_jax():
     """Importing the object store and every POS predictor, opening a
-    session in each mode and running the bank app leaves ``jax`` and
-    ``repro`` out of ``sys.modules``; the registries of both packages name
+    session in each mode and running the bank app, then replaying it on
+    the virtual clock, simulating two tenants, exporting a trace and
+    loading a calibration leaves ``jax`` and ``repro`` out of
+    ``sys.modules``; the registries of both packages name
     the same object-store and stream predictors."""
     code = textwrap.dedent("""
         import sys
@@ -94,6 +102,10 @@ def test_pos_stack_imports_nothing_of_jax():
         from repro_torch.obs import Observability
         from repro_torch.pos import POSClient
         from repro_torch.runtime.fault import StoreFaultDetector
+        from repro_torch.obs import Tracer, chrome_trace, validate_chrome_trace
+        from repro_torch.predict.calibration import load_calibration
+        from repro_torch.predict.evaluate import _catalog, evaluate_workload, record_workload
+        from repro_torch.predict.loadsim import run_loadsim
         c = POSClient(n_services=2)
         c.register(build_bank_app())
         root = populate_bank_store(c.store, n_transactions=4)
@@ -102,6 +114,15 @@ def test_pos_stack_imports_nothing_of_jax():
             with c.session("bank", mode=mode) as s:
                 s.execute(root, "auditAll")
                 assert s.drain(10.0)
+        wl = _catalog()["bank"]
+        rows = evaluate_workload(wl, modes=("capre",), recorded=record_workload(wl))
+        assert rows[0].recall >= 0.99
+        assert run_loadsim(tenants=2, mix=("bank",)).rows()[-1]["tenant"] == "ALL"
+        tracer = Tracer()
+        tracer.predicted([1], t=0.0)
+        tracer.drop_active(t=1.0)
+        assert validate_chrome_trace(chrome_trace(tracer.spans(), clock="virtual")) == []
+        assert not load_calibration("no-such-file.csv").fitted
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))

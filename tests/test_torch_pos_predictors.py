@@ -29,7 +29,7 @@ def _recorded(pkg: str, key: str):
 
 def _replay(pkg: str, mode: str, key: str) -> list:
     client, _root, _fp, traces, _metrics = _recorded(pkg, key)
-    return replay_offline(pkg, mode, client, catalog(pkg)[key][0], traces[0], traces[1])
+    return replay_offline(pkg, mode, client, catalog(pkg)[key].name, traces[0], traces[1])
 
 
 @pytest.mark.parametrize("key", CATALOG)

@@ -134,9 +134,11 @@ def test_port_imports_no_jax_and_nothing_of_repro():
                "repro_torch.pos.interp", "repro_torch.pos.client",
                "repro_torch.predict.base", "repro_torch.predict.rop",
                "repro_torch.predict.static_capre", "repro_torch.predict.markov",
-               "repro_torch.predict.hybrid"}
+               "repro_torch.predict.hybrid", "repro_torch.predict.calibration",
+               "repro_torch.predict.evaluate", "repro_torch.predict.loadsim",
+               "repro_torch.obs.export"}
         assert new <= set(names), sorted(new - set(names))
-        assert len(names) >= 82, names
+        assert len(names) >= 86, names
         bad = sorted(m for m in sys.modules
                      if m == "jax" or m.startswith("jax.") or m == "repro"
                      or m.startswith("repro."))

@@ -5,18 +5,20 @@ Objects never cross the packages, so each package builds, populates and
 runs its own apps, and the tests compare these forms: trace events as
 ``TraceEvent.to_tuple()``, a store as the recorded golden's dump
 (``[[oid, cls, fields], ...]`` per Data Service), the put log, metric dicts
-and the golden's fingerprint.  ``record`` is the recipe of the JAX
-package's ``predict.evaluate.record_workload`` (zero latency, prefetch off,
-cold-cache runs) over the catalog sizes of its ``_catalog``, written
-against either package by name.
+and the golden's fingerprint.  ``record`` runs each package's own
+``predict.evaluate.record_workload`` over its own ``_catalog`` with the
+trace cache off, and takes the fingerprint and the dump with that
+package's ``_store_fingerprint`` and ``_snapshot_store``.
 """
 
 from __future__ import annotations
 
-import hashlib
+import copy
 import importlib
 import json
+from dataclasses import replace
 from pathlib import Path
+from types import SimpleNamespace
 
 GOLDEN_DIR = Path(__file__).resolve().parent.parent / "artifacts" / "predict" / "traces"
 # the workloads with a committed golden, and the whole catalog
@@ -24,60 +26,30 @@ GOLDEN = ("bank", "kmeans", "wordcount")
 CATALOG = ("bank", "bank_write", "wordcount", "kmeans", "oo7", "pga")
 
 
+def _evaluate(pkg: str):
+    """The package's ``predict.evaluate`` module."""
+    return importlib.import_module(f"{pkg}.predict.evaluate")
+
+
 def catalog(pkg: str) -> dict:
-    """key -> (registered app name, app builder, populate(store) -> root,
-    run_once(session, root)), at ``predict.evaluate._catalog``'s sizes."""
-    apps = {m: importlib.import_module(f"{pkg}.apps.{m}")
-            for m in ("bank", "kmeans", "oo7", "pga", "wordcount")}
-    bank, kmeans = apps["bank"], apps["kmeans"]
-    cents = [list(c) for c in kmeans.initial_centroids(k=3, dims=6)]
-    return {
-        "bank": ("bank", bank.build_bank_app,
-                 lambda store: bank.populate_bank_store(store, n_transactions=60),
-                 lambda s, root: s.execute(root, "auditAll")),
-        "bank_write": ("bank", bank.build_bank_app,
-                       lambda store: bank.populate_bank_store(store, n_transactions=60),
-                       lambda s, root: s.execute(root, "setAllTransCustomers")),
-        "wordcount": ("wordcount", apps["wordcount"].build_wordcount_app,
-                      lambda store: apps["wordcount"].populate_wordcount(
-                          store, chunks_per_text=8, words_per_chunk=6),
-                      lambda s, root: s.execute(root, "run")),
-        "kmeans": ("kmeans", kmeans.build_kmeans_app,
-                   lambda store: kmeans.populate_kmeans(store, n_vectors=240,
-                                                        n_collections=3, dims=6),
-                   lambda s, root: s.execute(root, "run", cents)),
-        "oo7": ("oo7", apps["oo7"].build_oo7_app,
-                lambda store: apps["oo7"].populate_oo7(store, size="small"),
-                lambda s, root: s.execute(root, "t1")),
-        "pga": ("pga", apps["pga"].build_pga_app,
-                lambda store: apps["pga"].populate_pga(store, n_vertices=120,
-                                                       out_degree=3)[0],
-                lambda s, root: s.execute(root, "dfs")),
-    }
+    """key -> ``Workload``: the package's own ``_catalog()``."""
+    return _evaluate(pkg)._catalog()
+
+
+def _package_of(store) -> str:
+    return type(store).__module__.split(".")[0]
 
 
 def fingerprint(store, root: int, reg) -> dict:
-    """The golden's fingerprint: counts and a SHA-1 over every object and
-    over the registration's hints."""
-    h = hashlib.sha1()
-    n_objects = 0
-    for ds in store.services:
-        for oid in sorted(ds.disk):
-            rec = ds.disk[oid]
-            n_objects += 1
-            h.update(repr((ds.ds_id, oid, rec.cls, sorted(rec.fields.items()))).encode())
-    h.update(repr(sorted((key, tuple(hint.steps for hint in hints))
-                         for key, hints in reg.report.hints.items())).encode())
-    return {"root": root, "n_objects": n_objects, "n_services": len(store.services),
-            "content_sha1": h.hexdigest()}
+    """The golden's fingerprint, by the store's own package."""
+    return _evaluate(_package_of(store))._store_fingerprint(store, root, reg)
 
 
 def store_dump(store) -> list:
-    """Every Data Service's disk as the golden holds it, through JSON (so
-    tuples and lists compare alike)."""
-    return json.loads(json.dumps([
-        [[rec.oid, rec.cls, rec.fields] for _oid, rec in sorted(ds.disk.items())]
-        for ds in store.services]))
+    """Every Data Service's disk as the golden holds it (the store's own
+    package's ``_snapshot_store``), through JSON (so tuples and lists
+    compare alike)."""
+    return json.loads(json.dumps(_evaluate(_package_of(store))._snapshot_store(store)))
 
 
 def put_log(store) -> list:
@@ -90,29 +62,33 @@ def events(trace) -> list:
 
 
 def record(pkg: str, key: str, runs: int = 2, n_services: int = 4):
-    """Populate a zero-latency store and record ``runs`` cold-cache runs of
-    the workload with prefetching off.  Returns the client, the root, the
-    fingerprint of the freshly populated store, each run's events (as
-    ``TraceEvent`` records) and ``snapshot_metrics`` after each run."""
-    client_mod = importlib.import_module(f"{pkg}.pos.client")
-    name, build_app, populate, run_once = catalog(pkg)[key]
-    client = client_mod.POSClient(n_services=n_services)
-    reg = client.register(build_app())
-    root = populate(client.store)
-    fp = fingerprint(client.store, root, reg)
-    traces, metrics = [], []
-    for _ in range(runs):
-        client.store.reset_runtime_state()
-        client.store.trace = []
-        session = client_mod.Session(client.store, client.logic_module.registered[name])
-        try:
-            run_once(session, root)
-        finally:
-            session.close()
-        traces.append(list(client.store.trace))
-        metrics.append(client.store.snapshot_metrics())
-        client.store.trace = None
-    return client, root, fp, traces, metrics
+    """The package's ``record_workload`` of the catalog workload ``key``
+    (zero latency, prefetch off, ``runs`` cold-cache runs, no trace cache).
+    Returns the client, the root, the fingerprint of the freshly populated
+    store, each run's events (as ``TraceEvent`` records) and
+    ``snapshot_metrics`` after each run."""
+    wl = catalog(pkg)[key]
+    fresh, metrics = {}, []
+
+    def populate(store):
+        # the store as populated, before any run mutates it
+        root = wl.populate(store)
+        fresh["root"] = root
+        fresh["services"] = [SimpleNamespace(ds_id=ds.ds_id, disk=copy.deepcopy(ds.disk))
+                             for ds in store.services]
+        return root
+
+    def run_once(session, root):
+        wl.run_once(session, root)
+        metrics.append(session.store.snapshot_metrics())
+
+    client, root, traces = _evaluate(pkg).record_workload(
+        replace(wl, populate=populate, run_once=run_once), runs=runs,
+        n_services=n_services, cache_dir=None)
+    reg = client.logic_module.registered[wl.name]
+    fp = _evaluate(pkg)._store_fingerprint(SimpleNamespace(services=fresh["services"]),
+                                          fresh["root"], reg)
+    return client, root, fp, [t.events for t in traces], metrics
 
 
 def golden(key: str) -> dict:
