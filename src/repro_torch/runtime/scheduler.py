@@ -28,6 +28,19 @@ a multiple of 128 slots it attends through flash-decode with one
 ``kv_len`` per row.  On the CPU, or with ``captured=False``, each tick
 runs the step eagerly.  The dense and moe families are taken; the others
 keep no per-slot k/v cache of this shape and are refused.
+
+Given a ``trace`` (``obs.engine.EngineTrace``), the batcher records its
+spans: ``engine.queue`` of each request (``submit`` to its admission),
+``engine.step``, inside it ``engine.admit`` (the request's ``rid``, its
+prompt length ``S`` and the flash forward's launches during it,
+``flash``) with its laps ``admit.upload`` (the prompt to the device: a
+pageable copy, which waits for the stream), ``admit.prefill``
+(``Model.prefill``, which returns once its kernels are launched),
+``admit.handoff`` (the slot row's copies and zeroing) and ``admit.read``
+(the first token, which waits for the device), and ``engine.tick`` with
+``tick.launch`` (the replay, or the eager step) and ``tick.read`` (the
+next tokens, which wait for the device).  Without one, each of these
+boundaries costs one ``is None`` test.
 """
 
 from __future__ import annotations
@@ -41,6 +54,7 @@ import torch
 
 from repro_torch import resolve_device
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_attention import flash_attention_fwd
 from repro_torch.launch.steps import CapturedDecode, params_key
 from repro_torch.models.layers import apply_norm, apply_rope, attn_output, qkv_project, rope_angles
 from repro_torch.models.transformer import (
@@ -88,10 +102,12 @@ class ContinuousBatcher:
     ``captured=False``, which runs every tick eagerly: the reference the
     captured step must equal bit for bit.  ``logits`` holds the last
     tick's logits [B, 1, vocab] (on the card with capture, the graph's
-    static buffer, overwritten by the next tick)."""
+    static buffer, overwritten by the next tick).  ``trace``, an
+    ``obs.engine.EngineTrace`` or None, takes the engine's spans (see the
+    module's docstring)."""
 
     def __init__(self, model, params, batch_size: int, max_len: int, device="cuda",
-                 captured: bool = True):
+                 captured: bool = True, trace=None):
         cfg = model.cfg
         if cfg.family not in FAMILIES:
             raise NotImplementedError(
@@ -107,6 +123,8 @@ class ContinuousBatcher:
         self.finished: list[Request] = []
         self.steps = 0
         self.logits = None
+        self.trace = trace
+        self._submitted: dict[int, int] = {}  # id(request) -> ns, while traced
         cache_like = model.abstract_cache(batch_size, max_len)
         self._graph = None
         with torch.inference_mode():
@@ -181,16 +199,25 @@ class ContinuousBatcher:
         """One per-slot decode of ``tokens`` [B, 1] at ``lens`` [B] (host
         int64): sets ``logits`` and returns each slot's greedy next token
         (host [B]), read back in one device-to-host copy."""
-        g = self._graph
+        g, tr = self._graph, self.trace
+        if tr is not None:
+            t = tr.now()
         if g is None:
             dev = self.device
             self.logits, self.cache = self._decode_step(
                 self.params, self.cache, torch.from_numpy(tokens).to(dev),
                 torch.from_numpy(lens).to(dev))
-            return torch.argmax(self.logits[:, 0, :], dim=-1).cpu().numpy()
-        self._replay(tokens, lens)
-        self.logits = g.logits
-        return g.tokens[:, 0].cpu().numpy()
+            nxt = torch.argmax(self.logits[:, 0, :], dim=-1)
+        else:
+            self._replay(tokens, lens)
+            self.logits = g.logits
+            nxt = g.tokens[:, 0]
+        if tr is not None:
+            t = tr.lap("tick.launch", t)
+        nxt = nxt.cpu().numpy()
+        if tr is not None:
+            tr.lap("tick.read", t)
+        return nxt
 
     def _replay(self, tokens: np.ndarray, lens: np.ndarray) -> None:
         """The captured tick up to the read of its tokens: ``tokens`` and
@@ -217,6 +244,8 @@ class ContinuousBatcher:
             raise ValueError(f"request {req.rid}: a prompt of {S} tokens; the cache holds "
                              f"max_len={self.max_len}, so a prompt takes 1 to "
                              f"{self.max_len - 1}")
+        if self.trace is not None:
+            self._submitted[id(req)] = self.trace.now()
         self.queue.append(req)
 
     def _admit(self) -> None:
@@ -228,8 +257,20 @@ class ContinuousBatcher:
     @torch.inference_mode()
     def _admit_one(self, i: int, slot: _Slot, req: Request) -> None:
         S = len(req.prompt)
+        tr = self.trace
+        if tr is not None:
+            launched = flash_attention_fwd.launches
+            span = tr.begin("engine.admit", rid=req.rid, S=S)
+            t = span.start
+            submitted = self._submitted.pop(id(req), None)
+            if submitted is not None:
+                tr.add("engine.queue", submitted, t, rid=req.rid)
         inputs = torch.as_tensor(np.asarray(req.prompt, dtype=np.int64), device=self.device)
+        if tr is not None:
+            t = tr.lap("admit.upload", t)
         logits, cache1 = self.model.prefill(self.params, {"inputs": inputs[None]})
+        if tr is not None:
+            t = tr.lap("admit.prefill", t)
         # hand the prefilled rows to the slot's cache row; past the prompt
         # the row is zeroed, as JAX's jnp.pad leaves it (the kernel never
         # reads there, but the masked path multiplies it by a zero p)
@@ -237,11 +278,16 @@ class ContinuousBatcher:
             row = self.cache[key][:, i]
             row[:, :S].copy_(cache1[key][:, 0])
             row[:, S:].zero_()
+        if tr is not None:
+            t = tr.lap("admit.handoff", t)
         slot.busy = True
         slot.req = req
         slot.pos = S
         slot.generated = 0
         tok = int(torch.argmax(logits[0, -1]))
+        if tr is not None:
+            tr.lap("admit.read", t)
+            tr.end(span, flash=flash_attention_fwd.launches - launched)
         req.output.append(tok)
         slot.generated = 1
 
@@ -250,6 +296,16 @@ class ContinuousBatcher:
     @torch.inference_mode()
     def step(self) -> int:
         """Admit + one batched decode step. Returns number of active slots."""
+        tr = self.trace
+        if tr is None:
+            return self._step()
+        span = tr.begin("engine.step")
+        try:
+            return self._step()
+        finally:
+            tr.end(span)
+
+    def _step(self) -> int:
         self._admit()
         active = [s for s in self.slots if s.busy]
         if not active:
@@ -260,7 +316,12 @@ class ContinuousBatcher:
             if slot.busy:
                 tokens[i, 0] = slot.req.output[-1]
                 lens[i] = slot.pos
+        tr = self.trace
+        if tr is not None:
+            span = tr.begin("engine.tick")
         nxt = self._decode(tokens, lens)
+        if tr is not None:
+            tr.end(span)
         for i, slot in enumerate(self.slots):
             if not slot.busy:
                 continue
