@@ -17,18 +17,20 @@ Phases, each printing its lines; any failure exits non-zero:
      library call that computes the same function (a yardstick, never
      called by the port); the flash forward's bf16 kernel for each way it
      packs query heads (G = 1, 7, 16; Sq not a multiple of 128; q_offset;
-     D 64) and at the training shape, there also timed beside SDPA;
+     D 64), at chatglm3-6b's ragged batch-1 prefills (333 and 1764 tokens)
+     and at the training shape, there also timed beside SDPA;
      flash-decode's tensor-core variant for G in {1, 4, 7, 16, 32}, D 64
      and 128, bf16 and fp8 caches, kv_len around its steps and splits and
      a 32768-slot cache, and both variants at the serving shape (which one
      ran is printed); the forward and flash-decode also at qwen2-vl-2b's
      and whisper-large-v3's serving shapes (G = 6, D 128; G = 1, D 64),
      and the forward at whisper's encoder (1500 x 1500) and
-     cross-attention (128 x 1500) shapes, which the models run off the
-     kernel (the JAX guard wants multiples of 128), each beside SDPA; flash-decode with kv_len in device memory (as the
-     captured decode step passes it) bitwise its int form for both variants
-     and bf16 and fp8 caches, at 1, around the steps and splits of its
-     capacity-sized grid and at S, and one captured call replayed at
+     cross-attention (128 x 1500) shapes, which the models run on the
+     kernel at these ragged lengths, each beside SDPA; flash-decode with
+     kv_len in device memory (as the captured decode step passes it)
+     bitwise its int form for both variants and bf16 and fp8 caches, at
+     1, around the steps and splits of its capacity-sized grid and at S,
+     and one captured call replayed at
      several lengths; its time with a device kv_len beside the int form's
      and beside a grid sized by the live length; flash-decode's
      log-sum-exp (``with_lse``, what sharded serving merges by) from both
@@ -63,9 +65,8 @@ Phases, each printing its lines; any failure exits non-zero:
      within a tighter limit;
   batcher: chatglm3-6b at full width and depth (bf16 weights from seed 0,
      ``attn_impl="pallas"``) behind ``runtime.scheduler.ContinuousBatcher``:
-     24 requests from seed 0 (18 prompts of 128-512 tokens in multiples of
-     128, whose batch-1 prefill takes the flash forward, and 6 ragged ones
-     in 100-500, which take the plain chunked prefill; max_new_tokens
+     24 requests from seed 0 (prompts uniform in 100-512 tokens, every
+     batch-1 prefill on the flash forward; max_new_tokens
      uniform in 16-128, no EOS) through 8 slots of a 1024-slot cache.  The
      captured batcher (one per-slot decode step captured in a CUDA graph,
      flash-decode with one kv_len per row) and the eager one are timed in
@@ -74,7 +75,7 @@ Phases, each printing its lines; any failure exits non-zero:
      ms per tick with every slot busy, tokens/s, peak memory; the launch
      counters are zeroed just before the first captured run and read just
      after it (flash-decode 28 per tick, all on the tensor cores; the
-     forward 28 per admission whose prompt is a multiple of 128; the gather
+     forward 28 per admission; the gather
      once per admission and per tick).  The captured batcher's logits must
      be bitwise the eager one's, tick by tick; the plain path (chunked
      prefill, masked decode) teacher-forced on the kernel path's tokens
@@ -142,7 +143,9 @@ Phases, each printing its lines; any failure exits non-zero:
   5. flash backward: the dK/dV and dQ kernels against their plain version at
      the training shape (B=2, S=2048, 32 query heads over 2 KV heads,
      D=128, causal) in bf16 and f32, at edge cases (non-causal; ragged S
-     with q_offset > 0; G = 1, 7, 16) and at every head dim class the flash
+     with q_offset > 0; G = 1, 7, 16; whisper-large-v3's encoder, 1500 x
+     1500, and cross-attention, 384 x 1500, at B=4) and at every head dim
+     class the flash
      kernels take (D 8, 16, 64, 96, 128, bf16 and f32); dq, dk and dv equal
      bit for bit across two replays of a CUDA graph; the dK/dV launch's
      blocks per cluster and its per-SM (head, q tile) steps under a model
@@ -163,9 +166,9 @@ Phases, each printing its lines; any failure exits non-zero:
      and the kernels with the most device time.  (c) The other families at
      full width, each after every earlier model is freed, trained as in
      (b) with every kernel counted (``TRAIN_FAMILIES``): whisper-large-v3
-     (32 + 32 layers, B=4, decoder 384, 1500 frames: 64 flash forwards,
-     32 dK/dV and 32 dQ a step, its encoder and cross-attention on the
-     plain chunked path as in JAX; profiled), qwen3-moe-30b-a3b (depth 4
+     (32 + 32 layers, B=4, decoder 384, 1500 frames: 192 flash forwards,
+     96 dK/dV and 96 dQ a step, its decoder, encoder and cross-attention
+     on the kernels; profiled), qwen3-moe-30b-a3b (depth 4
      of 48, ``reduced``; B=2, S=2048: 8, 4, 4; profiled),
      recurrentgemma-2b (depth 6 of 26, ``reduced``) and falcon-mamba-7b
      (depth 4 of 64, ``reduced``), B=2, S=2048: no kernel launch (windowed or no attention,
@@ -258,8 +261,9 @@ Phases, each printing its lines; any failure exits non-zero:
      earlier model is freed, weights from seed 0 in f32 cast to bf16,
      served as in phase 9: the access plan of a decode step (25 and 15
      records) and its byte bound (the weights it reads, the live self
-     cache and whisper's cross cache); launches 32 / 28 flash (whisper's
-     encoder and cross-attention stay off it, as in JAX), 992 / 868
+     cache and whisper's cross cache); launches 96 / 28 flash (whisper's
+     decoder, encoder and cross-attention: on the card every length takes
+     the kernel), 992 / 868
      flash-decode on the tensor cores, 32 / 31 gathers (qwen2-vl's prompt
      is not gathered); tokens and logits bitwise; a profile of 8 replays;
      no host sync in an eager step; then at depth 2 (full width) the
@@ -782,10 +786,14 @@ def phase_flash(torch, ref, flash_fwd):
         (4, 512, 12, 2, 128, torch.bfloat16, True, 0, 512),
         (4, 128, 20, 20, 64, torch.bfloat16, True, 0, 128),
         # whisper's encoder (1500 x 1500) and cross-attention (128 x 1500),
-        # not causal: off the kernel in the models (the JAX guard wants
-        # lengths that are multiples of 128), which the kernel takes
+        # not causal, at lengths that are not multiples of 128: the models'
+        # main path on the card
         (4, 1500, 20, 20, 64, torch.bfloat16, False, 0, 1500),
         (4, 1500, 20, 20, 64, torch.bfloat16, False, 0, 128),
+        # chatglm3-6b's batch-1 prefill at ragged prompt lengths (G = 16, D
+        # 128, a masked last block): the serving batcher's main path
+        (1, 333, 32, 2, 128, torch.bfloat16, True, 0, 333),
+        (1, 1764, 32, 2, 128, torch.bfloat16, True, 0, 1764),
     ]
     main_err = None
     for B, S, H, KV, D, dt, causal, q_off, Sq in cases:
@@ -846,9 +854,8 @@ FLASH_SHAPES = (
     ("training shape", 2, 2048, 2048, 32, 2, 128, True),
     ("qwen2-vl-2b prefill", 4, 512, 512, 12, 2, 128, True),
     ("whisper-large-v3 decoder prefill", 4, 128, 128, 20, 20, 64, True),
-    ("whisper-large-v3 encoder (off the models' kernel path)", 4, 1500, 1500, 20, 20, 64, False),
-    ("whisper-large-v3 cross-attention (off the models' kernel path)", 4, 128, 1500, 20, 20, 64,
-     False),
+    ("whisper-large-v3 encoder", 4, 1500, 1500, 20, 20, 64, False),
+    ("whisper-large-v3 cross-attention", 4, 128, 1500, 20, 20, 64, False),
 )
 
 
@@ -1591,24 +1598,18 @@ def phase_slice(torch, flash_fwd, decode_fwd, gather_fwd, B: int, prompt: int,
 
 
 # the continuous batcher's traffic on chatglm3-6b: slots, cache slots,
-# requests; prompt lengths: BATCHER_ALIGNED multiples of 128 in 128-512 (the
-# batch-1 prefill on the flash forward, under the JAX guard) and the rest
-# ragged in 100-500 (the plain chunked prefill); max_new_tokens uniform in
+# requests; prompt lengths uniform in 100-512 (every batch-1 prefill on the
+# flash forward, which masks ragged edges); max_new_tokens uniform in
 # 16-128, no EOS; all from seed 0
-BATCHER_SLOTS, BATCHER_MAX_LEN, BATCHER_REQUESTS, BATCHER_ALIGNED = 8, 1024, 24, 18
+BATCHER_SLOTS, BATCHER_MAX_LEN, BATCHER_REQUESTS = 8, 1024, 24
 
 
-def batcher_traffic(vocab: int, n: int = BATCHER_REQUESTS, aligned: int = BATCHER_ALIGNED,
-                    seed: int = 0) -> list:
+def batcher_traffic(vocab: int, n: int = BATCHER_REQUESTS, seed: int = 0) -> list:
     """[(prompt [S] int64, max_new_tokens)] in arrival order."""
     import numpy as np
 
     rng = np.random.RandomState(seed)
-    lens = [128 * int(rng.randint(1, 5)) for _ in range(aligned)]
-    for _ in range(n - aligned):
-        L = int(rng.randint(100, 501))
-        lens.append(L + 1 if L % 128 == 0 else L)
-    lens = [lens[i] for i in rng.permutation(n)]
+    lens = [int(rng.randint(100, 513)) for _ in range(n)]
     return [(rng.randint(0, vocab, size=L).astype(np.int64), int(rng.randint(16, 129)))
             for L in lens]
 
@@ -1677,7 +1678,7 @@ def check_batcher_sequential(torch) -> None:
     cfg = get_smoke_config("chatglm3_6b").replace(compute_dtype="float32", attn_impl="pallas")
     server = Server(cfg, device="cuda", max_len=BATCHER_MAX_LEN)
     params = server.model.compute_params(server.model.init_params(seed=0))
-    traffic = [(p, n // 4) for p, n in batcher_traffic(cfg.vocab_size, n=8, aligned=4, seed=1)]
+    traffic = [(p, n // 4) for p, n in batcher_traffic(cfg.vocab_size, n=8, seed=1)]
     batcher = ContinuousBatcher(server.model, params, batch_size=4, max_len=BATCHER_MAX_LEN)
     run = drive_batcher(torch, batcher, traffic)
     for rid, (p, _) in enumerate(traffic):
@@ -1699,8 +1700,8 @@ def phase_batcher(torch, counters: dict, smi: str) -> dict:
     (the main path) and the eager one are timed in turns graph, eager,
     eager, graph; the launch counters are zeroed just before the first
     captured run and read just after it, and must show flash-decode once per
-    layer per tick, the flash forward once per layer per admission whose
-    prompt is a multiple of 128 and the gather once per admission and per
+    layer per tick, the flash forward once per layer per admission and the
+    gather once per admission and per
     tick.  Then the captured run's logits bitwise the eager run's, tick by
     tick; the plain masked path (``attn_impl="chunked"``) teacher-forced on
     the kernel path's tokens within LOGITS_REL_TOL_BF16; no host sync in a
@@ -1725,10 +1726,9 @@ def phase_batcher(torch, counters: dict, smi: str) -> dict:
     traffic = batcher_traffic(cfg.vocab_size)
     prompts = [len(p) for p, _ in traffic]
     n_new = sum(n for _, n in traffic)
-    n_aligned = sum(1 for L in prompts if L % 128 == 0)
     print(f"[batcher] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, {B} slots, cache "
-          f"{max_len}, {len(traffic)} requests from seed 0: prompts {prompts} ({n_aligned} "
-          f"multiples of 128), max_new_tokens {[n for _, n in traffic]} (sum {n_new}), no EOS")
+          f"{max_len}, {len(traffic)} requests from seed 0: prompts {prompts}, max_new_tokens "
+          f"{[n for _, n in traffic]} (sum {n_new}), no EOS")
 
     def zero():
         for c in counters.values():
@@ -1763,7 +1763,7 @@ def phase_batcher(torch, counters: dict, smi: str) -> dict:
     got = launched["graph"]
     want = {"decode_attention_fwd.launches": ticks * cfg.n_layers,
             "decode_attention_fwd.launches_mma": ticks * cfg.n_layers,
-            "flash_attention_fwd.launches": n_aligned * cfg.n_layers,
+            "flash_attention_fwd.launches": len(traffic) * cfg.n_layers,
             "prefetch_gather_fwd.launches": len(traffic) + ticks}
     print(f"[batcher] launches in the first captured run: "
           f"{ {k: got.get(k) for k in want} } (want {want}) ({smi})")
@@ -2165,6 +2165,10 @@ def phase_flash_bwd(torch, ref, flash_fwd, dkdv, dq):
         (1, 333, 1000, 8, 2, 64, torch.float32, True, 667),
         (2, 256, 256, 2, 2, 128, torch.bfloat16, True, 0),      # G = 1
         (1, 300, 300, 16, 1, 64, torch.bfloat16, False, 0),     # G = 16, ragged
+        # whisper-large-v3's encoder (1500 x 1500) and cross-attention (384
+        # x 1500) as its training step runs them (G = 1, D 64, not causal)
+        (4, 1500, 1500, 20, 20, 64, torch.bfloat16, False, 0),
+        (4, 384, 1500, 20, 20, 64, torch.bfloat16, False, 0),
     ] + [  # every head dim class, G = 7 over clusters of 4, ragged, q_offset
         (1, 77, 200, 14, 2, D, dt, True, 123)
         for D in (8, 16, 20, 64, 96, 128, 136, 256) for dt in (torch.bfloat16, torch.float32)
@@ -2305,27 +2309,25 @@ def _device_batch(torch, cfg, B: int, S: int, step: int = 0) -> dict:
     return batch_to_device(synthetic_source(cfg, B, S, seed=0).batch_at(step), "cuda")
 
 
-def flash_attentions(cfg, S: int) -> int:
-    """The attentions of one training forward at sequence length ``S`` that
-    take the flash kernels, under the JAX guard (no window, query and key
-    lengths multiples of 128): every layer's (dense, moe); whisper's decoder
-    self-attention, and its encoder's and cross-attention's where the frames
-    are a multiple of 128; none in the ssm family and the hybrid, whose
-    attention is windowed."""
+def flash_attentions(cfg) -> int:
+    """The attentions of one forward (a prefill or a training step's) that
+    take the flash kernels (no window; on the card any length): every
+    layer's (dense, moe); whisper's decoder self-attention, encoder and
+    cross-attention; none in the ssm family and the hybrid, whose attention
+    is windowed."""
     if cfg.family in ("ssm", "hybrid"):
         return 0
-    self_attn = cfg.n_layers if S % 128 == 0 else 0
-    if cfg.family == "encdec" and cfg.enc_positions % 128 == 0:
-        return self_attn + cfg.enc_layers + self_attn  # self, encoder, cross
-    return self_attn
+    if cfg.family == "encdec":
+        return cfg.n_layers + cfg.enc_layers + cfg.n_layers  # self, encoder, cross
+    return cfg.n_layers
 
 
-def train_launches(cfg, S: int, counters: dict) -> dict:
+def train_launches(cfg, counters: dict) -> dict:
     """The launches of one train step on the kernel path, by counter: the
     flash forward twice per flash attention (the forward and its
     recomputation under remat), dK/dV and dQ once; nothing else (the scans
     take their plain loop under autograd, the embedding no gather)."""
-    n = flash_attentions(cfg, S)
+    n = flash_attentions(cfg)
     want = {name: 0 for name in counters}
     want.update({"flash_attention_fwd": 2 * n, "flash_attention_bwd_dkdv": n,
                  "flash_attention_bwd_dq": n})
@@ -2353,7 +2355,7 @@ def check_grads(torch, counters: dict, cfg, B: int, S: int, tag: str = "train",
         gen = torch.Generator(device="cuda").manual_seed(6)
         batch["embeds"] = 0.02 * torch.randn((B, S, cfg.d_model), generator=gen, device="cuda")
         batch["positions"] = image_positions(torch, B, S // 4, S // 16, 8, S // 4)
-    want = train_launches(cfg, S, counters)
+    want = train_launches(cfg, counters)
 
     def grads(impl: str, dtype: str, force=None):
         for c in counters.values():
@@ -2456,7 +2458,7 @@ def train_model(torch, counters: dict, cfg, B: int, S: int, tag: str,
         profile_run(torch, f"one {cfg.name} train step at depth {cfg.n_layers}",
                     lambda: inner(params, opt_state, batch), watch=("flash_fwd", "dkdv_", "dq_"))
         del batch
-    want = train_launches(cfg, S, counters)
+    want = train_launches(cfg, counters)
     for i, (dt, loss, count) in enumerate(steps):
         print(f"[{tag}] {cfg.name} depth {cfg.n_layers} step {i}: loss {loss:.6f}, "
               f"{dt * 1e3:.3f} ms, {B * S / dt:.1f} tokens/s, launches {count}")
@@ -2563,8 +2565,7 @@ def phase_cost(torch, smi: str, cost_cells: dict) -> None:
 
 # the other families trained at full width after the dense one: (arch, depth
 # or 0 for the published one, why the depth is cut, B, S, whether to profile
-# a fourth step).  whisper's decoder takes 384 positions, under its 448 and a
-# multiple of 128, so its self-attention runs the flash kernels; the scans'
+# a fourth step).  whisper's decoder takes 384 positions, under its 448; the scans'
 # plain loops under autograd launch ~10^5-10^6 kernels a step, too many to
 # trace
 TRAIN_FAMILIES = (
@@ -2621,8 +2622,7 @@ SMOKE_CONFIGS = (("chatglm3_6b", 0, True, True), ("yi_34b", 0, True, True),
 
 def smoke_config(arch: str, head_dim: int):
     """``arch``'s smoke config on the kernel path, with ``head_dim`` where it
-    is not 0; whisper's at 256 frames (a multiple of 128, so its encoder
-    and cross-attention take the flash kernels too)."""
+    is not 0; whisper's at 256 frames."""
     from repro_torch.configs import get_smoke_config
 
     cfg = get_smoke_config(arch).replace(attn_impl="pallas")
@@ -2646,9 +2646,7 @@ def phase_smoke_configs(torch, counters: dict) -> None:
                                                "rglru_gated_fwd")}
     for arch, head_dim, serve, train in SMOKE_CONFIGS:
         cfg = smoke_config(arch, head_dim)
-        n_flash = cfg.n_layers  # one flash forward per attention of the prefill
-        if cfg.family == "encdec":
-            n_flash += cfg.enc_layers + cfg.n_layers  # the encoder, the cross-attention
+        n_flash = flash_attentions(cfg)  # one flash forward per attention of the prefill
         if serve:
             serve_smoke(torch, counters, cfg, n_flash, B, prompt, gen_tokens, max_len)
         if train:
@@ -3305,7 +3303,7 @@ def phase_enc_vlm(torch, arch: str, tag: str, counters: dict, B: int, prompt: in
     tokens, launched = run["tokens"], run["launched"]
     n_mma = run["by_variant"]["decode_attention_fwd.launches_mma"]
     want = {n: 0 for n in counters}
-    want.update({"flash_attention_fwd": cfg.n_layers,  # whisper's encoder and cross: off it
+    want.update({"flash_attention_fwd": flash_attentions(cfg),
                  "decode_attention_fwd": cfg.n_layers * decode_steps,
                  "prefetch_gather_fwd": decode_steps + ("inputs" in batch)})
     print(f"[{tag}] launches in the first graph run: {launched} (want {want}); flash-decode on "
@@ -3766,11 +3764,11 @@ def _serving_counters() -> dict:
 
 def _serve_want(cfg, steps: int) -> dict:
     """The serving kernels' launches of a prefill and ``steps`` decode steps
-    of ``cfg`` (bf16, ``attn_impl="pallas"``, a 128-multiple prompt and
-    cache shards): the flash forward once per attention layer (whisper's
-    decoder; the hybrid's window and whisper's encoder and cross-attention
-    take the plain path), flash-decode once per layer per step, a scan once
-    per recurrent layer per call, the gather once per call."""
+    of ``cfg`` (bf16, ``attn_impl="pallas"``, cache shards): the flash
+    forward once per attention of the prefill (whisper: its decoder, encoder
+    and cross-attention; the hybrid's window takes the plain path),
+    flash-decode once per layer per step, a scan once per recurrent layer
+    per call, the gather once per call."""
     from repro_torch.models.transformer import block_kinds
 
     want = dict.fromkeys(_serving_counters(), 0)
@@ -3780,7 +3778,7 @@ def _serve_want(cfg, steps: int) -> dict:
     elif cfg.family == "hybrid":
         want["rglru_gated_fwd"] = block_kinds(cfg).count("rec") * (1 + steps)
     else:
-        want["flash_attention_fwd"] = cfg.n_layers
+        want["flash_attention_fwd"] = flash_attentions(cfg)
         want["decode_attention_fwd"] = cfg.n_layers * steps
     return want
 

@@ -7,9 +7,10 @@ With ``attn_impl="pallas"`` on a CUDA device the dense and moe families'
 prefill runs the CUDA flash-attention kernel and every decode step the
 CUDA flash-decode kernel (the moe family's router, dispatch, expert
 products and combine are plain PyTorch, as in JAX they are XLA's); so do
-whisper's decoder self-attention (encdec; its encoder and cross-attention
-take the flash kernel where both lengths are multiples of 128, as in JAX,
-and the decode's cross-attention the plain path) and qwen2-vl (dense, M-RoPE;
+whisper's decoder self-attention, encoder and prefill cross-attention
+(encdec; at any length on the card, where JAX's Pallas branch takes only
+multiples of 128; the decode's cross-attention the plain path) and
+qwen2-vl (dense, M-RoPE;
 its prompt arrives as precomputed ``embeds``, so only the decode steps
 gather embedding rows); the ssm
 family's prefill and decode run the CUDA selective scan once per layer,

@@ -11,16 +11,15 @@ checkpoints keep the JAX on-disk format, written by rank 0 from the full
 tensors and re-sharded on restore.  Without a mesh it runs on one device.
 
 Every family trains.  With ``attn_impl="pallas"`` on a CUDA device an
-attention whose query and key lengths are multiples of 128 and which has no
-window runs the CUDA flash-attention forward kernel twice (the forward and
-its recomputation under ``remat="full"``) and the dK/dV and dQ kernels once
-per step, as the JAX package sends the same attentions to its Pallas
-kernels:
+attention with no window runs the CUDA flash-attention forward kernel twice
+(the forward and its recomputation under ``remat="full"``) and the dK/dV
+and dQ kernels once per step, at any length (the JAX package sends only
+lengths that are multiples of 128 to its Pallas kernels; the CPU keeps
+that guard):
 
 - dense, moe and qwen2-vl: every layer's attention;
-- encdec (whisper): the decoder's self-attention; the encoder's and the
-  cross-attention's only where the frames are a multiple of 128 (not at
-  whisper's 1500), else the plain chunked path;
+- encdec (whisper): the decoder's self-attention, the encoder's and the
+  cross-attention's;
 - hybrid (recurrentgemma): none, its attention is windowed;
 - ssm (falcon-mamba): none.
 

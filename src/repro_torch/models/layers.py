@@ -7,8 +7,9 @@ Attention has three implementations, as in the JAX package:
   * ``chunked`` — online softmax over KV chunks in plain PyTorch;
   * ``pallas``  — the name kept from the JAX package for the kernel
                   branch: ``kernels.ops.flash_attention_trainable`` (the CUDA
-                  forward and backward kernels on a CUDA device, their plain
-                  versions on the CPU).
+                  forward and backward kernels on a CUDA device, at any
+                  length; on the CPU their plain versions, where both lengths
+                  are multiples of 128 as in JAX, else ``chunked``).
 
 All matmuls run in the config's compute dtype; softmax and norms accumulate
 in f32.  Rounding points follow the JAX code so that the two agree.
@@ -22,7 +23,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import ops
+from repro_torch.kernels import ops, pricing
 
 from .common import (
     constrain,
@@ -257,12 +258,14 @@ def local_attention(q, k, v, *, causal, impl, chunk, q_offset, local_window, kv_
         and Sq > 1
         and kv_len is None
         and local_window == 0
-        and Sq % 128 == 0
-        and k.shape[1] % 128 == 0
+        and (pricing.on_card(q) or (Sq % 128 == 0 and k.shape[1] % 128 == 0))
     ):
         # the flash-attention kernels, forward and backward: scores and
-        # probabilities never reach device memory (the same guard as the JAX
-        # package's Pallas branch)
+        # probabilities never reach device memory.  The CUDA kernels mask
+        # ragged edges, so on the card every length takes them; the
+        # 128-multiple condition is the JAX package's Pallas guard (a TPU
+        # block constraint), kept off the card so that the plain versions run
+        # where the JAX package runs its Pallas branch
         return ops.flash_attention_trainable(q, k, v, causal, q_offset)
 
     q5 = q.reshape(B, Sq, KV, G, hd)

@@ -2,8 +2,11 @@
 flash-decode's split plan and its choice of variant, the flash forward's
 tensor-map stride check, the flash kernels' route (tensor or CUDA cores)
 and build for each D and the head dims they refuse, and how the dK/dV
-kernel splits a KV head's query group over the blocks of a cluster.  None of these functions
-touches CUDA (the tests make every CUDA query raise while they run); the
+kernel splits a KV head's query group over the blocks of a cluster, and
+which attention ``models.layers.local_attention`` runs with
+``impl="pallas"``: on the card (a ``meta`` tensor under ``pricing``) the
+flash kernels at every length, off it the JAX package's 128-multiple guard.
+None of these functions touches CUDA (the tests make every CUDA query raise while they run); the
 kernels themselves are held against their plain versions on the card, in
 ``tests/test_torch_gpu.py``.
 """
@@ -14,6 +17,7 @@ import torch
 torch.set_num_threads(2)  # beside the other test workers on the CPU
 
 from repro_torch.kernels import decode_attention as dec  # noqa: E402
+from repro_torch.kernels import ops, pricing  # noqa: E402
 from repro_torch.kernels import flash_attention_bwd as bwd  # noqa: E402
 from repro_torch.kernels.flash_attention import (  # noqa: E402
     check_head_dim,
@@ -21,6 +25,7 @@ from repro_torch.kernels.flash_attention import (  # noqa: E402
     tma_aligned,
 )
 from repro_torch.kernels.flash_attention import route as flash_route  # noqa: E402
+from repro_torch.models import layers  # noqa: E402
 
 H100_SMS = 132
 
@@ -230,3 +235,60 @@ def test_dkdv_steps_at_the_training_shape():
     against 17,408 in all (131.9 per SM of an H100)."""
     steps = bwd.dkdv_steps(2, 2, 16, 2048, 2048, True, 0, 4)
     assert (max(steps), min(steps), sum(steps), len(steps)) == (128, 8, 17408, 256)
+
+
+# (B, Sq, Sk, H, KV, D, causal, q_offset): ragged lengths, causal and not,
+# with an offset; a chunk of 64 keys, so that the chunked path pads its last
+ROUTE_CASES = [(1, 100, 100, 4, 2, 16, True, 0), (1, 333, 333, 4, 2, 16, True, 0),
+               (2, 130, 300, 4, 2, 16, False, 0), (1, 77, 200, 8, 2, 16, True, 123)]
+
+
+def _attention(B, Sq, Sk, H, KV, D, dtype, device):
+    gen = torch.Generator().manual_seed(Sq * 1000 + Sk)
+    return tuple(torch.randn(shape, generator=gen).to(dtype).to(device)
+                 for shape in ((B, Sq, H, D), (B, Sk, KV, D), (B, Sk, KV, D)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,q_offset", ROUTE_CASES)
+def test_pallas_route_off_the_card_keeps_ragged_lengths_chunked(monkeypatch, B, Sq, Sk, H, KV, D,
+                                                                causal, q_offset, dtype):
+    """CPU tensors keep the JAX package's guard: ``impl="pallas"`` at
+    lengths that are not multiples of 128 is the plain chunked path bit for
+    bit, and never reaches the flash wrapper, as JAX's Pallas branch falls
+    back there; so the JAX parity tests see the route they always saw."""
+    q, k, v = _attention(B, Sq, Sk, H, KV, D, dtype, "cpu")
+
+    def refuse(*args):
+        raise AssertionError("a ragged CPU attention took the flash branch")
+
+    monkeypatch.setattr(ops, "flash_attention_trainable", refuse)
+    got = layers.local_attention(q, k, v, causal=causal, impl="pallas", chunk=64,
+                                 q_offset=q_offset, local_window=0, kv_len=None)
+    want = layers._attn_chunked(q.reshape(B, Sq, KV, H // KV, D), k, v, 1.0 / D**0.5, causal,
+                                q_offset, 0, None, 64).reshape(B, Sq, H, D)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,Sq,Sk,H,KV,D,causal,q_offset", ROUTE_CASES)
+def test_pallas_route_on_the_card_takes_every_length(B, Sq, Sk, H, KV, D, causal, q_offset):
+    """Tensors on the card's route (``meta`` under ``pricing``) take the
+    flash kernels at ragged lengths: one forward, and under autograd one
+    dK/dV and one dQ kernel, each priced at its products; a window or a
+    ``kv_len`` keeps the plain path there too."""
+    q, k, v = (t.requires_grad_() for t in _attention(B, Sq, Sk, H, KV, D, torch.bfloat16,
+                                                      "meta"))
+    kw = dict(causal=causal, impl="pallas", chunk=64, q_offset=q_offset)
+    records = []
+    with pricing.pricing(lambda name, flops, nbytes, dot: records.append((name, dot))):
+        o = layers.local_attention(q, k, v, local_window=0, kv_len=None, **kw)
+        torch.autograd.grad(o.sum(), (q, k, v))
+        assert tuple(o.shape) == (B, Sq, H, D)
+        n = len(records)
+        layers.local_attention(q, k, v, local_window=16, kv_len=None, **kw)
+        layers.local_attention(q, k, v, local_window=0, kv_len=Sk - 1, **kw)
+    per_pair = 4 * B * H * Sq * Sk * D
+    assert records[:n] == [("flash_attention_fwd", per_pair),
+                           ("flash_attention_bwd_dkdv", 2 * per_pair),
+                           ("flash_attention_bwd_dq", 1.5 * per_pair)]
+    assert len(records) == n

@@ -215,7 +215,16 @@ def _jax_only_products(cfg, kind: str, B: int, S: int, impl: str) -> float:
       as a product (2 B S Ch N a layer), which the port's
       ``selective_scan`` kernel does inside (priced by its outputs, as
       JAX prices every kernel that is not attention) -- serving only: under
-      autograd both run the plain loop."""
+      autograd both run the plain loop;
+    - encdec on the "pallas" route, train: JAX's Pallas branch takes only
+      lengths that are multiples of 128, the port's card route every
+      length, so an attention with a ragged length (the encoder's F x F and
+      the cross-attention's S x F at F = ``enc_positions``) runs JAX's
+      chunked einsums, whose backward makes 8 B H Sq Sk D of products (two
+      for each of the forward's two einsums), where the port runs its dK/dV
+      and dQ kernels, which recompute the scores, at the products their
+      wrappers price (``_flash_bwd_products``); the forwards agree at
+      4 B H Sq Sk D."""
     T = B * (1 if kind == "decode" else S)
     extra = 0.0
     if cfg.family == "moe":
@@ -227,7 +236,33 @@ def _jax_only_products(cfg, kind: str, B: int, S: int, impl: str) -> float:
     if cfg.family == "ssm" and impl == "pallas" and kind != "train":
         extra += 2.0 * B * (1 if kind == "decode" else S) * cfg.d_inner * cfg.ssm_state \
             * cfg.n_layers
+    if cfg.family == "encdec" and impl == "pallas" and kind == "train":
+        F = cfg.enc_positions
+        for n, sq, sk in ((cfg.enc_layers, F, F), (cfg.n_layers, S, F), (cfg.n_layers, S, S)):
+            if sq % 128 or sk % 128:
+                H, D = cfg.n_heads, cfg.head_dim
+                extra -= n * (_flash_bwd_products(B, sq, sk, H, D) - 8.0 * B * H * sq * sk * D)
     return extra
+
+
+def _flash_bwd_products(B: int, Sq: int, Sk: int, H: int, D: int) -> float:
+    """The products the port's cost model counts for one flash backward
+    (dK/dV and dQ) at these lengths: its kernel wrappers priced on ``meta``
+    tensors."""
+    from repro_torch.kernels import pricing
+    from repro_torch.kernels.flash_attention_bwd import (
+        flash_attention_bwd_dkdv,
+        flash_attention_bwd_dq,
+    )
+
+    dots = []
+    q, do = (torch.empty((B, Sq, H, D), device="meta") for _ in range(2))
+    k, v = (torch.empty((B, Sk, H, D), device="meta") for _ in range(2))
+    lse = torch.empty((B * H, Sq), device="meta")
+    with pricing.pricing(lambda name, flops, nbytes, dot: dots.append(dot)):
+        flash_attention_bwd_dkdv(q, k, v, do, lse, lse, causal=False)
+        flash_attention_bwd_dq(q, k, v, do, lse, lse, causal=False)
+    return sum(dots)
 
 
 @pytest.mark.parametrize("impl", ("chunked", "pallas"))
@@ -276,8 +311,11 @@ def test_dot_flops_match_jax(arch, impl, monkeypatch):
     elif cfg.family in ("dense", "moe", "encdec"):
         L = cfg.n_layers
         assert kernels["decode"]["decode_attention_fwd"] == L
-        assert kernels["train"] == {"flash_attention_fwd": 2 * L,
-                                    "flash_attention_bwd_dkdv": L, "flash_attention_bwd_dq": L}
+        # encdec: the encoder's and the cross-attention's ragged lengths on
+        # the card's route too
+        A = L + (cfg.enc_layers + L if cfg.family == "encdec" else 0)
+        assert kernels["train"] == {"flash_attention_fwd": 2 * A,
+                                    "flash_attention_bwd_dkdv": A, "flash_attention_bwd_dq": A}
 
 
 def _pallas_costs(fn, *args) -> list:

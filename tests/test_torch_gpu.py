@@ -281,8 +281,8 @@ def test_kernels_refuse_what_they_cannot_take(cuda):
     (2, 2048, 2048, 32, 2, 128, True, 0),   # chatglm3-6b training shape
     (4, 512, 512, 12, 2, 128, True, 0),     # qwen2-vl-2b prefill: G = 6
     (4, 128, 128, 20, 20, 64, True, 0),     # whisper-large-v3 decoder prefill: G = 1
-    # whisper's encoder and cross-attention, which the JAX guard keeps off
-    # the kernel (lengths not multiples of 128)
+    # whisper-large-v3's encoder and cross-attention at 1500 frames: their
+    # main path on the card (lengths not multiples of 128)
     (4, 1500, 1500, 20, 20, 64, False, 0),
     (4, 128, 1500, 20, 20, 64, False, 0),
 ])
@@ -478,10 +478,12 @@ def test_bwd_kernels_refuse_what_they_cannot_take(cuda):
         flash_attention_bwd_dkdv(q, q[:, :, :2], q[:, :, :2], q.float(), lse, lse)
 
 
+@pytest.mark.parametrize("S", [128, 200])
 @pytest.mark.parametrize("arch", ["chatglm3_6b", "yi_34b", "qwen2_vl_2b"])
-def test_smoke_configs_train_through_the_flash_kernels(cuda, arch):
+def test_smoke_configs_train_through_the_flash_kernels(cuda, arch, S):
     """The smoke configs, unmodified (head_dim 16, 8 and 16), train through
-    both backward kernels: one step's gradients in f32 against the plain
+    both backward kernels, at a sequence length that is a multiple of 128
+    and at one that is not: one step's gradients in f32 against the plain
     chunked path, each leaf within 1e-4 of its largest magnitude (the key
     bias, whose gradient is zero in exact arithmetic, of the whole tree's);
     qwen2-vl from precomputed embeddings at 3-stream positions."""
@@ -492,7 +494,7 @@ def test_smoke_configs_train_through_the_flash_kernels(cuda, arch):
 
     cfg = get_smoke_config(arch).replace(compute_dtype="float32")
     params = Model(cfg, "cuda").init_params(seed=0)
-    batch = concrete_batch(cfg, 2, 128, device="cuda")
+    batch = concrete_batch(cfg, 2, S, device="cuda")
     n_kv, n_q = flash_attention_bwd_dkdv.launches, flash_attention_bwd_dq.launches
     _, got = loss_and_grads(Model(cfg.replace(attn_impl="pallas"), "cuda"), params, batch)
     assert flash_attention_bwd_dkdv.launches == n_kv + cfg.n_layers
@@ -866,7 +868,7 @@ def test_moe_kernel_path_matches_plain_path(cuda, arch):
 
     base = get_smoke_config(arch).replace(compute_dtype="float32")
     params = Server(base, device="cuda").model.init_params(seed=0)
-    batch = concrete_batch(base, 2, 128, device="cuda")  # the flash kernels take S % 128 == 0
+    batch = concrete_batch(base, 2, 128, device="cuda")  # any length takes the flash kernels
     routes = {}
     topk = moe.router_topk
 
@@ -904,8 +906,8 @@ def test_moe_kernel_path_matches_plain_path(cuda, arch):
 
 @pytest.mark.parametrize("arch", ["whisper_large_v3", "qwen2_vl_2b"])
 def test_encdec_and_mrope_kernel_path_matches_plain_path(cuda, arch):
-    """whisper-smoke (at 256 frames, so that its encoder and cross-attention
-    take the flash kernel too) and qwen2vl-smoke (prompt as embeddings at
+    """whisper-smoke (at 256 frames; its encoder and cross-attention take the
+    flash kernel at any length on the card) and qwen2vl-smoke (prompt as embeddings at
     3-stream positions) in f32 on the card: prefill and three decode steps
     through the flash kernels against the plain chunked path, within 1e-5
     of the largest logit; flash forwards: one per attention of the prefill
@@ -940,6 +942,72 @@ def test_encdec_and_mrope_kernel_path_matches_plain_path(cuda, arch):
         assert decode_attention_fwd.launches - d0 == (3 * base.n_layers if on_path else 0)
     scale = float(out["chunked"].abs().max())
     assert float((out["pallas"] - out["chunked"]).abs().max()) <= 1e-5 * scale
+
+
+# (arch, prompt tokens, audio frames or 0): chatglm3-smoke's causal prefill
+# at lengths that are not multiples of 128, and whisper-smoke's encoder
+# (300 x 300) and cross-attention (130 x 300), which are not causal
+RAGGED_PREFILLS = [("chatglm3_6b", 100, 0), ("chatglm3_6b", 333, 0), ("chatglm3_6b", 1000, 0),
+                   ("whisper_large_v3", 130, 300)]
+
+
+@pytest.mark.parametrize("arch,S,frames", RAGGED_PREFILLS)
+def test_ragged_prefill_runs_the_flash_forward(cuda, arch, S, frames):
+    """A batch-1 ``Model.prefill`` in f32 at ragged lengths: on the card the
+    flash forward runs once per attention (whisper: decoder, encoder and
+    cross-attention per layer), where the JAX package's 128-multiple guard
+    would send it to the chunked path; its logits and every cache tensor
+    within 1e-5 of the largest magnitude of the plain chunked path's."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.launch.steps import concrete_batch
+    from repro_torch.models.model import Model
+
+    base = get_smoke_config(arch).replace(compute_dtype="float32")
+    n_flash = base.n_layers
+    if frames:
+        base = base.replace(enc_positions=frames)
+        n_flash += base.enc_layers + base.n_layers
+    params = Model(base, "cuda").init_params(seed=0)
+    batch = concrete_batch(base, 1, S, device="cuda")
+    batch.pop("targets")
+    out = {}
+    for impl in ("pallas", "chunked"):
+        f0 = flash_attention_fwd.launches
+        with torch.inference_mode():
+            out[impl] = Model(base.replace(attn_impl=impl), "cuda").prefill(params, batch)
+        assert flash_attention_fwd.launches - f0 == (n_flash if impl == "pallas" else 0)
+    (got, got_cache), (want, want_cache) = out["pallas"], out["chunked"]
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+    assert sorted(got_cache) == sorted(want_cache)
+    for key, w in want_cache.items():
+        scale = float(w.abs().max())
+        assert float((got_cache[key] - w).abs().max()) <= 1e-5 * scale, key
+
+
+def test_batcher_admission_of_ragged_prompts_counts_the_flash_forward(cuda):
+    """The continuous batcher given an ``EngineTrace``: each ``engine.admit``
+    span of a prompt that is not a multiple of 128 (7, 100 and 129 tokens)
+    records ``flash`` equal to the layers, the count that the benchmark's
+    flash-forward coverage reads."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models.model import Model
+    from repro_torch.obs.engine import EngineTrace
+    from repro_torch.runtime.scheduler import ContinuousBatcher, Request
+
+    cfg = get_smoke_config("chatglm3_6b").replace(compute_dtype="bfloat16", attn_impl="pallas")
+    model = Model(cfg, device="cuda")
+    params = model.compute_params(model.init_params(seed=0))
+    trace = EngineTrace()
+    b = ContinuousBatcher(model, params, batch_size=2, max_len=256, trace=trace)
+    rng = np.random.RandomState(0)
+    lens = (100, 7, 129)
+    for rid, S in enumerate(lens):
+        b.submit(Request(rid=rid, prompt=rng.randint(0, cfg.vocab_size, size=S),
+                         max_new_tokens=3))
+    b.run_until_drained()
+    admits = {s.rid: s.attrs for s in trace.take() if s.name == "engine.admit"}
+    assert {rid: (a["S"], a["flash"]) for rid, a in admits.items()} == {
+        rid: (S, cfg.n_layers) for rid, S in enumerate(lens)}
 
 
 # ---------------------------------------------------------------------------
@@ -1192,7 +1260,8 @@ def test_captured_batcher_is_bitwise_the_eager_batcher(cuda, arch, dtype):
     assert n_g == n_e
     assert n_g[(counters.decode_attention_fwd, "launches")] == steps * cfg.n_layers
     assert n_g[(counters.prefetch_gather_fwd, "launches")] == steps + len(spec)
-    assert n_g[(counters.flash_attention_fwd, "launches")] == 3 * cfg.n_layers  # S % 128 == 0
+    # every prompt of more than one token, ragged or not
+    assert n_g[(counters.flash_attention_fwd, "launches")] == len(spec) * cfg.n_layers
 
 
 def test_captured_batcher_tick_has_no_host_sync(cuda):
