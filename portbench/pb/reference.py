@@ -1,10 +1,11 @@
-"""The plain reference: the dense family's forward pass in plain PyTorch
-and float32 (TF32 off), written from the configuration file and
-importing nothing of the program.
+"""The plain reference: the forward pass of the dense and moe families in
+plain PyTorch and float32 (TF32 off), written from the configuration file
+and importing nothing of the program.
 
 It reads the benchmark's bf16 weights (``weights.py``), widened to f32 on
-use, one layer at a time so that it fits beside the served model.  What it
-computes, from the configuration's keys:
+use, one layer at a time (an expert bank one expert at a time), so that it
+fits beside the served model.  What it computes, from the configuration's
+keys:
 
 - RMSNorm with ``norm_eps``; q, k, v projections (``qkv_bias``), a per-head
   RMSNorm of q and k (``qk_norm``); rotary embeddings on the first
@@ -12,12 +13,23 @@ computes, from the configuration's keys:
   each head, the dims split into two halves that rotate together, with
   frequencies ``rope_theta ** (-2 i / rotated)``; causal grouped-query
   attention (query head h reads kv head h // (n_heads / n_kv_heads));
-- a SwiGLU MLP;
+- a SwiGLU MLP (``family: "dense"``), or (``"moe"``) the routed experts as
+  the published Qwen3-MoE routes them (``norm_topk_prob``): router logits
+  in f32, a softmax over all ``n_experts``, the top ``experts_per_token``
+  kept and renormalised to sum to 1, each chosen expert's SwiGLU weighted
+  by its gate and summed.  No capacity and no drop: every token reaches
+  each expert it chose, whatever the others chose.  The program's
+  ``capacity_factor`` and ``moe_chunk`` are not read: they are its
+  dispatch, and a configuration whose capacity can drop a pair departs
+  from this reference there (``capacity_factor`` at ``n_experts /
+  experts_per_token`` gives a capacity equal to the chunk, which drops
+  nothing);
 - the final norm and the untied head over the first ``vocab_size`` columns.
 
 ``prec="fp8"`` is the control: every matrix product but the router's takes
-its weight rounded to fp8 e4m3 with one scale per output column and its
-input rounded with one scale per row (W8A8), accumulating in f32.
+its weight rounded to fp8 e4m3 with one scale per output column (per
+expert for a bank) and its input rounded with one scale per row (W8A8),
+accumulating in f32; the router's product stays in f32.
 """
 
 from __future__ import annotations
@@ -47,7 +59,7 @@ class Reference:
     def __init__(self, cfg: dict, tree: dict, prec: str = "f32"):
         if prec not in ("f32", "fp8"):
             raise ValueError(f"unknown precision {prec!r}")
-        if (cfg["norm"], cfg["mlp"], cfg["family"]) != ("rmsnorm", "swiglu", "dense"):
+        if (cfg["norm"], cfg["mlp"]) != ("rmsnorm", "swiglu") or cfg["family"] not in ("dense", "moe"):
             raise NotImplementedError(f"no reference for {cfg['name']}: {cfg['family']}, "
                                       f"{cfg['norm']}, {cfg['mlp']}")
         self.cfg, self.tree, self.prec = cfg, tree, prec
@@ -69,7 +81,8 @@ class Reference:
         return x @ w
 
     def layer(self, l: int) -> dict:
-        """Layer ``l``'s weights in f32."""
+        """Layer ``l``'s weights in f32, but for the expert banks
+        (``expert``)."""
         if self._layer is not None and self._layer[0] == l:
             return self._layer[1]
         lw = {}
@@ -78,12 +91,19 @@ class Reference:
                 lw[name] = t[l].float()
                 continue
             for sub, w in t.items():
+                if sub.startswith("we_"):
+                    continue
                 if sub.startswith("w"):
                     lw[f"{name}.{sub}"] = self._weight(w[l])
-                else:  # biases and norm scales: f32 as they are
+                else:  # biases, norm scales and the router: f32 as they are
                     lw[f"{name}.{sub}"] = w[l].float()
         self._layer = (l, lw)
         return lw
+
+    def expert(self, l: int, e: int) -> tuple:
+        """Expert ``e`` of layer ``l``: its gate, up and down matrices."""
+        bank = self.tree["layers"]["mlp"]
+        return tuple(self._weight(bank[n][l, e]) for n in ("we_gate", "we_up", "we_down"))
 
     def head(self) -> torch.Tensor:
         if self._head is None:
@@ -134,20 +154,43 @@ class Reference:
             out.append(torch.einsum("hqk,khd->qhd", torch.softmax(s, dim=-1), v))
         return torch.cat(out)
 
-    def mlp(self, h, lw):
-        return self._mm(F.silu(self._mm(h, lw["mlp.wi_gate"])) * self._mm(h, lw["mlp.wi_up"]),
-                        lw["mlp.wo"])
+    def swiglu(self, h, gate, up, down):
+        return self._mm(F.silu(self._mm(h, gate)) * self._mm(h, up), down)
 
-    def logits(self, x):
-        return self._mm(self.norm(x, self.tree["final_norm"].float()), self.head())
+    def mlp(self, h, lw, l: int):
+        if self.cfg["family"] == "dense":
+            return self.swiglu(h, lw["mlp.wi_gate"], lw["mlp.wi_up"], lw["mlp.wo"])
+        return self.moe(h, lw, l)
+
+    def moe(self, h, lw, l: int):
+        """The routed experts over the tokens h [T, d], expert by expert:
+        each expert's rows gathered, its SwiGLU, and the rows added back
+        weighted by their gates."""
+        k = self.cfg["experts_per_token"]
+        probs = torch.softmax(h @ lw["mlp.router"], dim=-1)
+        gate, chosen = torch.topk(probs, k, dim=-1)
+        gate = gate / gate.sum(-1, keepdim=True)
+        out = torch.zeros_like(h)
+        for e in range(self.cfg["n_experts"]):
+            rows, j = torch.where(chosen == e)
+            if rows.numel():
+                y = self.swiglu(h[rows], *self.expert(l, e))
+                out.index_add_(0, rows, y * gate[rows, j, None])
+        return out
+
+    def logits(self, h):
+        """The head over the final norm's output h [T, d]."""
+        return self._mm(h, self.head())
 
     # -- passes ----------------------------------------------------------------
 
-    def sequences(self, seqs: list, logits_from: list):
+    def forward(self, seqs: list, hidden_from: list):
         """Full causal forward passes over ``seqs`` (1-d token tensors), layer
-        by layer.  Returns, per sequence, (logits [S - logits_from, vocab]
-        at positions logits_from .. S - 1, k and v [L, S, KV, hd] as the
-        cache holds them: after the norm and the rotation)."""
+        by layer, the MLP (or the experts) over every sequence's tokens at
+        once.  Returns, per sequence, (the final norm's output [S -
+        hidden_from, d] at positions hidden_from .. S - 1, k and v [L, S,
+        KV, hd] as the cache holds them: after the norm and the
+        rotation)."""
         xs = [self.tree["embed"][s].float() for s in seqs]
         pos = [torch.arange(len(s), device=s.device) for s in seqs]
         ks = [[] for _ in seqs]
@@ -157,9 +200,12 @@ class Reference:
             for i, x in enumerate(xs):
                 q, k, v = self.qkv(self.norm(x, lw["ln1"]), lw, pos[i])
                 o = self.attend(q, k, v, 0).reshape(x.shape[0], -1)
-                x = x + self._mm(o, lw["attn.wo"])
-                xs[i] = x + self.mlp(self.norm(x, lw["ln2"]), lw)
+                xs[i] = x + self._mm(o, lw["attn.wo"])
                 ks[i].append(k)
                 vs[i].append(v)
-        return [(self.logits(x[f:]), torch.stack(k), torch.stack(v))
-                for x, f, k, v in zip(xs, logits_from, ks, vs)]
+            x = torch.cat(xs)
+            x = x + self.mlp(self.norm(x, lw["ln2"]), lw, l)
+            xs = list(x.split([len(s) for s in seqs]))
+        final = self.tree["final_norm"].float()
+        return [(self.norm(x[f:], final), torch.stack(k), torch.stack(v))
+                for x, f, k, v in zip(xs, hidden_from, ks, vs)]

@@ -2,12 +2,15 @@
 are served in (bf16), by the benchmark: the program and the plain reference
 are handed the same tensors.
 
-The tree is the dense family's parameter layout (stacked
+The tree is the parameter layout of the dense and moe families (stacked
 ``[L, ...]`` layers, the vocabulary padded to a multiple of 256 rows); the
 run checks it against the program's own template before it hands it over.
-Every leaf is normal: matrices of std 0.02 (the embedding and the head
-0.01), biases of std 0.02, norm scales of mean 1 and std 0.05, so that no
-bias or scale is a no-op that a fault could hide behind.
+A moe layer holds, in the MLP's place, the router ``[d, E]`` and the
+expert banks ``we_gate``/``we_up`` ``[E, d, f]`` and ``we_down`` ``[E, f,
+d]``.  Every leaf is normal: matrices of std 0.02 (the router and the
+expert banks too; the embedding and the head 0.01), biases of std 0.02,
+norm scales of mean 1 and std 0.05, so that no bias or scale is a no-op
+that a fault could hide behind.
 """
 
 from __future__ import annotations
@@ -43,8 +46,13 @@ def layout(cfg: dict) -> dict:
     if cfg["qk_norm"]:
         out.update({"layers.attn.q_norm": ((L, hd), *norm), "layers.attn.k_norm": ((L, hd), *norm)})
     f = cfg["d_ff"]
-    out.update({"layers.mlp.wi_gate": ((L, d, f), *mat), "layers.mlp.wi_up": ((L, d, f), *mat),
-                "layers.mlp.wo": ((L, f, d), *mat)})
+    if cfg["family"] == "moe":
+        E = cfg["n_experts"]
+        out.update({"layers.mlp.router": ((L, d, E), *mat), "layers.mlp.we_gate": ((L, E, d, f), *mat),
+                    "layers.mlp.we_up": ((L, E, d, f), *mat), "layers.mlp.we_down": ((L, E, f, d), *mat)})
+    else:
+        out.update({"layers.mlp.wi_gate": ((L, d, f), *mat), "layers.mlp.wi_up": ((L, d, f), *mat),
+                    "layers.mlp.wo": ((L, f, d), *mat)})
     return out
 
 

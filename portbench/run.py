@@ -41,7 +41,8 @@ TRACE_S = 6.0  # seconds of the window a traced run profiles
 # the program's configuration keys that the configuration file sets
 PROGRAM_KEYS = ("family", "n_layers", "d_model", "n_heads", "n_kv_heads", "head_dim", "d_ff",
                 "vocab_size", "norm", "mlp", "rope", "rope_theta", "qkv_bias", "qk_norm",
-                "tie_embeddings", "attn_impl")
+                "tie_embeddings", "attn_impl", "n_experts", "experts_per_token", "capacity_factor",
+                "moe_chunk", "moe_dispatch")
 
 sys.path.insert(0, str(HERE))
 sys.path.insert(0, str(ROOT / "src"))
@@ -66,6 +67,24 @@ def load_kernels() -> None:
     _build.BUILD_ROOT = CACHE / "kernels"
     for name in _build.build_all():
         _build.load(name)
+
+
+def read_libraries() -> None:
+    """Every shared library the process maps, read through once.  On a
+    fresh machine the first read of them can be slow, and a window whose
+    admissions load kernel code from pages not yet read would wait on it,
+    so set-up reads them all."""
+    paths = set()
+    with open("/proc/self/maps") as maps:
+        for line in maps:
+            parts = line.split(maxsplit=5)
+            if len(parts) == 6 and ".so" in os.path.basename(parts[5].strip()):
+                paths.add(parts[5].strip())
+    buf = bytearray(16 << 20)
+    for path in sorted(p for p in paths if os.path.isfile(p)):
+        with open(path, "rb", buffering=0) as f:
+            while f.readinto(buf):
+                pass
 
 
 def program_config(cfg: dict):
@@ -101,6 +120,7 @@ def serve(cell, seed: int, seconds: float, trace: bool, device: str, t_process: 
     dev = torch.device(device)
     if dev.type == "cuda":
         load_kernels()
+    read_libraries()
     tree = weights.make(cfg, seed, dev)
     model = Model(program_config(cfg), device=dev)
     check_layout(model, tree)

@@ -2,8 +2,10 @@
 timed path is broken underneath in each way a serving cell can break (a
 decode step that leaves its cache as it was; half of the batch left out,
 the mean of the other half's logits in its place; every served token
-altered where it is produced).  The runs skip the look for a chip and run on the CPU at the
-smoke configurations, against the limits in tests/data/cells/."""
+altered where it is produced), and for the moe family a run whose experts
+drop pairs (the registry's capacity_factor 1.25: capacity 1 at the smoke
+cell's 4-row tick).  The runs skip the look for a chip and run on the CPU
+at the smoke configurations, against the limits in tests/data/cells/."""
 
 import time
 
@@ -14,12 +16,13 @@ from pb import spec
 
 DATA = spec.BENCH_DIR / "tests" / "data"
 BENCH = spec.load_json(DATA / "BENCHMARK.json")
-CELLS = ["chatglm3-smoke.chat-smoke"]
+CELLS = ["chatglm3-smoke.chat-smoke", "qwen3moe-smoke.chat-smoke"]
 SEED = 31
 
 
-def serve(name, control=False):
+def serve(name, control=False, **config):
     cell = spec.find_cell(name, BENCH, DATA)
+    cell.config.update(config)
     return run.serve(cell, SEED, 1.5, False, "cpu", time.perf_counter(), control=control)
 
 
@@ -67,3 +70,11 @@ def test_fault_fails(name, fault, monkeypatch):
         wrap = {"stale": _stale, "half": _half}[fault]
         monkeypatch.setattr(ContinuousBatcher, "_decode_step", wrap(ContinuousBatcher._decode_step))
     assert not serve(name)["result"]["correct"]
+
+
+def test_dropping_experts_fail():
+    """The moe cell served with capacity_factor 1.25: at the tick each
+    expert takes one (token, choice) pair, the others are dropped, and the
+    check, whose reference drops nothing, reads it."""
+    r = serve("qwen3moe-smoke.chat-smoke", capacity_factor=1.25)
+    assert not r["result"]["correct"], r["program"]
